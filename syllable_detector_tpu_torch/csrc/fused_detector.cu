@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas TPU kernel of syllable_detector_tpu/kernels/
 // fused_detector.py (_make_kernel, launched by _fused_call through
-// pl.pallas_call) in its single-stream raw-sample, full-fp32 form. For every
-// evaluation e of a stream it computes, without writing any intermediate to
+// pl.pallas_call) in its full-fp32 raw-sample forms: one stream
+// (fused_offline_outputs, K1a), a [lanes, n] batch of streams with one
+// shared net or one net per lane (fused_flat_batch_offline_outputs /
+// _flat_core, K1e), and that batch read from an int16 or 8-bit mu-law wire
+// and dequantised on the card (fused_batch_program, K1f). For every
+// evaluation e of a lane it computes, without writing any intermediate to
 // device memory:
 //
 //   frames  x[e*hop + gap + i], i < window      (hop-strided, zero past n)
@@ -18,31 +22,39 @@
 //   MLP     + c1, transfer, hidden layers, then the folded output affine
 //           y * out_a + out_c
 //
-// Design: one CTA per tile of evaluations (32, set by the wrapper). It
-// stages the contiguous sample span of its tile + T - 1 frames in shared
-// memory (coalesced loads), computes the scaled spectrogram of those frames
-// and their row sums of squares into shared memory, then the per-evaluation
-// first layer, hidden layers and output affine. A thread transforms kFrames
-// frames of one bin at once, and splits the first layer's dot product into
-// kPartials sums, so that its chains of dependent loads and FMAs stay short:
-// with few CTAs in flight (a CLI chunk is 16 CTAs on 132 SMs) those chains,
-// not throughput, set the time. Geometry, layer widths and transfer codes
-// are runtime values, so one build serves every net the fused path accepts.
+// Design: the grid is (tiles of evaluations, lanes). A CTA handles one tile
+// (32 evaluations, fewer for small drains, set by the wrapper) of one lane.
+// It stages the contiguous sample span of its tile + T - 1 frames in shared
+// memory (coalesced loads), dequantising wire samples as it stores them, so
+// a drain round is one launch and only the wire bytes cross PCIe. It then
+// computes the scaled spectrogram of those frames and their row sums of
+// squares into shared memory, then the per-evaluation first layer, hidden
+// layers and output affine. The per-net operands carry a lane stride (0 for
+// a shared net; C is always shared). A thread transforms kFrames frames of
+// one bin at once, and splits the first layer's dot product into kPartials
+// sums, so that its chains of dependent loads and FMAs stay short: with few
+// CTAs in flight (a CLI chunk is 16 CTAs on 132 SMs) those chains, not
+// throughput, set the time. Geometry, layer widths and transfer codes are
+// runtime values, so one build serves every net the fused path accepts.
 //
 // What bounds it on the card: the band DFT is ~15k fp32 MACs per evaluation
 // (2 * bins * window at the sample geometry) against one hop of new audio
-// (528 bytes), so it is compute- and not bandwidth-bound. Measured on an
-// H100, the DFT stage takes ~3/4 of a CTA's cycles, waiting on L2: a CTA
-// reads each row of C (59 KB at the sample geometry) once, so each C load
-// misses L1. Staging C through shared memory in row blocks, and the DFT as
-// 3xTF32 wgmma GEMMs fed by TMA, are later work.
+// (528 bytes as float32, 264 as int16), so it is compute- and not
+// bandwidth-bound. Measured on an H100, the DFT stage takes ~3/4 of a CTA's
+// cycles, waiting on L2: a CTA reads each row of C (59 KB at the sample
+// geometry) once, so each C load misses L1. Staging C through shared memory
+// in row blocks, the DFT as 3xTF32 wgmma GEMMs fed by TMA, and a CUDA graph
+// per drain bucket are later work.
 //
-// Built without --use_fast_math on purpose: tanhf, expf, logf, sqrtf and
-// the division keep their IEEE behaviour, including the NaN on silence.
+// Built without --use_fast_math on purpose: tanhf, expf, expm1f, logf,
+// sqrtf and the division keep their IEEE behaviour, including the NaN on
+// silence. The dequantising products are __fmul_rn, so they are never
+// contracted into an FMA: the int16 wire is bit-exact with the JAX program.
 
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -76,6 +88,39 @@ struct NetMeta {
   int transfers[kMaxLayers]; // Transfer code of each layer
 };
 
+// Elements between one lane's net operands and the next: 0 for a shared
+// net, one net's size for per-lane nets.
+struct LaneStrides {
+  long long w1;
+  long long c1;
+  long long mids;
+  long long out;  // out_a and out_c
+};
+
+enum Wire { kFloat32 = 0, kInt16 = 1, kMulaw8 = 2 };
+
+// The wire's dequantising constants, float32 values handed in by the
+// wrapper so that they are the JAX program's own: int16 x * scale with
+// scale = 1/32767; mu-law y = x * scale (scale = 1/127), then
+// sign(y) * expm1(|y| * ln1mu) * inv_mu (ln1mu = ln 256, inv_mu = 1/255).
+struct Dequant {
+  float scale;
+  float ln1mu;
+  float inv_mu;
+};
+
+__device__ __forceinline__ float dequant(float v, const Dequant&) { return v; }
+
+__device__ __forceinline__ float dequant(int16_t v, const Dequant& d) {
+  return __fmul_rn(static_cast<float>(v), d.scale);
+}
+
+__device__ __forceinline__ float dequant(int8_t v, const Dequant& d) {
+  const float y = __fmul_rn(static_cast<float>(v), d.scale);
+  const float m = __fmul_rn(expm1f(__fmul_rn(fabsf(y), d.ln1mu)), d.inv_mu);
+  return y > 0.0f ? m : (y < 0.0f ? -m : 0.0f);  // sign(y) * m
+}
+
 // Frames a CTA transforms: its tile + T - 1, rounded up to whole groups of
 // kFrames (the extra frames read zeros past the span and are never used).
 __host__ __device__ inline int padded_frames(const Geometry& g) {
@@ -106,16 +151,26 @@ __device__ __forceinline__ float apply_transfer(float x, int code) {
   }
 }
 
+template <typename Sample>
 __global__ void __launch_bounds__(kThreads) fused_detector_kernel(
-    const float* __restrict__ x, long long n, long long n_evals,
-    const float* __restrict__ c,     // [window, 2*bins]: re | im
-    const float* __restrict__ w1,    // [T*bins, h1]
-    const float* __restrict__ c1,    // [h1]
-    const float* __restrict__ mids,  // per hidden layer: W [in, out], b [out]
+    const Sample* __restrict__ x,         // [lanes, ld]: lane samples on the wire
+    long long ld, long long n, long long n_evals,
+    const float* __restrict__ c,     // [window, 2*bins]: re | im, shared
+    const float* __restrict__ w1,    // per net [T*bins, h1]
+    const float* __restrict__ c1,    // per net [h1]
+    const float* __restrict__ mids,  // per net, per hidden layer: W [in, out], b [out]
     const float* __restrict__ out_a, const float* __restrict__ out_c,
-    float* __restrict__ out,         // [n_evals, outputs]
-    Geometry g, NetMeta net) {
+    float* __restrict__ out,         // [lanes, n_evals, outputs]
+    Geometry g, NetMeta net, LaneStrides ls, Dequant dq) {
   extern __shared__ float smem[];
+  const long long lane = blockIdx.y;
+  x += lane * ld;
+  w1 += lane * ls.w1;
+  c1 += lane * ls.c1;
+  mids += lane * ls.mids;
+  out_a += lane * ls.out;
+  out_c += lane * ls.out;
+  out += lane * n_evals * net.widths[net.n_layers - 1];
   const int b = g.bins;
   const int T = g.time_range;
   const int n_frames = g.tile + T - 1;
@@ -131,10 +186,10 @@ __global__ void __launch_bounds__(kThreads) fused_detector_kernel(
   const long long e0 = (long long)blockIdx.x * g.tile;
   const long long start = e0 * g.hop;
 
-  // 1. this tile's sample span; reads past the stream are zero
+  // 1. this tile's sample span, dequantised; reads past the stream are zero
   for (long long i = threadIdx.x; i < span; i += blockDim.x) {
     const long long j = start + i;
-    samples[i] = j < n ? x[j] : 0.0f;
+    samples[i] = j < n ? dequant(x[j], dq) : 0.0f;
   }
   __syncthreads();
 
@@ -260,6 +315,27 @@ __global__ void __launch_bounds__(kThreads) fused_detector_kernel(
   }
 }
 
+template <typename Sample>
+int launch(const void* x, int lanes, long long ld, long long n,
+           long long n_evals, const float* c, const float* w1,
+           const float* c1, const float* mids, const float* out_a,
+           const float* out_c, float* out, const Geometry& g,
+           const NetMeta& net, const LaneStrides& ls, const Dequant& dq,
+           size_t smem, cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory a launch is refused unless the
+  // kernel opts in first
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_detector_kernel<Sample>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n_evals + g.tile - 1) / g.tile),
+                  static_cast<unsigned>(lanes));
+  fused_detector_kernel<Sample><<<grid, kThreads, smem, stream>>>(
+      static_cast<const Sample*>(x), ld, n, n_evals, c, w1, c1, mids, out_a,
+      out_c, out, g, net, ls, dq);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
                        int scaling, int has_l2, int tile, int max_width) {
   Geometry g;
@@ -294,17 +370,23 @@ const char* sd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the kernel on `stream` (device `device`). All pointers are device
-// pointers except `widths` and `transfers`, host arrays of n_layers ints.
+// Launches the kernel on `stream` (device `device`) for `lanes` streams of
+// `n` samples each, lane l at x + l * ld, as wire type `wire` (a Wire
+// code). All pointers are device pointers except `widths` and `transfers`,
+// host arrays of n_layers ints. `per_lane_nets` is 0 when every lane shares
+// one net and 1 when the net operands hold one net per lane, stacked.
 // Returns cudaGetLastError() after the launch: 0 when the launch was taken.
-int sd_fused_detector(const float* x, long long n, long long n_evals,
-                      const float* c, const float* w1, const float* c1,
-                      const float* mids, const float* out_a,
-                      const float* out_c, float* out, int window, int hop,
-                      int gap, int bins, int time_range, int scaling,
-                      int has_l2, int tile, int n_layers, const int* widths,
-                      const int* transfers, int device, void* stream) {
+int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
+                      long long n, long long n_evals, const float* c,
+                      const float* w1, const float* c1, const float* mids,
+                      const float* out_a, const float* out_c, float* out,
+                      int per_lane_nets, int window, int hop, int gap,
+                      int bins, int time_range, int scaling, int has_l2,
+                      int tile, int n_layers, const int* widths,
+                      const int* transfers, float dq_scale, float dq_ln1mu,
+                      float dq_inv_mu, int device, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || tile < 1 || n_evals < 1 ||
+      lanes < 1 || lanes > 65535 || n < 0 || ld < n ||
       (n_evals + tile - 1) / tile > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,20 +402,34 @@ int sd_fused_detector(const float* x, long long n, long long n_evals,
                                    scaling, has_l2, tile, max_width);
   const size_t smem = static_cast<size_t>(smem_floats(g)) * sizeof(float);
 
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // above 48 KB of dynamic shared memory a launch is refused unless the
-  // kernel opts in first
-  err = cudaFuncSetAttribute(fused_detector_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  LaneStrides s = {0, 0, 0, 0};
+  if (per_lane_nets) {
+    s.w1 = static_cast<long long>(time_range) * bins * net.widths[0];
+    s.c1 = net.widths[0];
+    for (int l = 1; l < n_layers; ++l) {
+      s.mids += static_cast<long long>(net.widths[l - 1]) * net.widths[l] +
+                net.widths[l];
+    }
+    s.out = net.widths[n_layers - 1];
+  }
+  const Dequant dq = {dq_scale, dq_ln1mu, dq_inv_mu};
 
-  const unsigned grid = static_cast<unsigned>((n_evals + tile - 1) / tile);
-  fused_detector_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, n, n_evals, c, w1, c1, mids, out_a, out_c, out, g, net);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (wire) {
+    case kFloat32:
+      return launch<float>(x, lanes, ld, n, n_evals, c, w1, c1, mids, out_a,
+                           out_c, out, g, net, s, dq, smem, st);
+    case kInt16:
+      return launch<int16_t>(x, lanes, ld, n, n_evals, c, w1, c1, mids, out_a,
+                             out_c, out, g, net, s, dq, smem, st);
+    case kMulaw8:
+      return launch<int8_t>(x, lanes, ld, n, n_evals, c, w1, c1, mids, out_a,
+                            out_c, out, g, net, s, dq, smem, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -146,21 +146,23 @@ def pick_thresholds(
     audio: np.ndarray,
     margin: float = 1e-3,
     quantile: float = 0.75,
+    device="cpu",
 ) -> SyllableDetectorConfig:
     """``cfg`` with each threshold at least ``margin`` away from every
     finite output the net gives on ``audio`` ([n] or [n, channels]),
-    as near the ``quantile`` of those outputs as such a gap allows."""
+    as near the ``quantile`` of those outputs as such a gap allows. The
+    outputs are computed on ``device``."""
     from syllable_detector_tpu_torch.models.detector import (
         detector_spec_from_config,
         offline_outputs,
     )
 
-    spec, params = detector_spec_from_config(cfg, "cpu")
+    spec, params = detector_spec_from_config(cfg, device)
     audio = np.asarray(audio, np.float32)
     channels = audio.reshape(len(audio), -1).T
     outs = np.concatenate(
         [
-            offline_outputs(spec, params, torch.from_numpy(c.copy())).numpy()
+            offline_outputs(spec, params, torch.from_numpy(c.copy()).to(device)).cpu().numpy()
             for c in channels
         ]
     )

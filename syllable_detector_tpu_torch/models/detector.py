@@ -5,6 +5,8 @@ Counterpart of ``syllable_detector_tpu.models.detector``:
   * :func:`offline_outputs` — whole-signal evaluation: hop-strided frames ->
     band-limited windowed DFT (one matmul) -> magnitude -> sliding feature
     stack -> scaling -> MLP. The unfused path and the port's oracle.
+  * :func:`offline_outputs_batch` — the same over ``[C, n]`` streams with
+    one shared net or one net per channel (``torch.func.vmap``).
   * :class:`Detector` — host-side object with the reference's
     appendAudioData / processNewValue semantics for arbitrary chunk sizes,
     draining either through the unfused path (``matmul`` / ``rfft``) or
@@ -30,6 +32,7 @@ from syllable_detector_tpu_torch.models.neural_net import (
     NetSpec,
     apply_net,
     net_from_config,
+    stack_params,
 )
 from syllable_detector_tpu_torch.ops.scaling import apply_scaling
 from syllable_detector_tpu_torch.ops.stft import (
@@ -47,6 +50,8 @@ __all__ = [
     "detector_spec_from_config",
     "detect_features",
     "offline_outputs",
+    "offline_outputs_batch",
+    "deinterleave_frames",
     "Detector",
     "MAX_DRAIN_FRAMES",
 ]
@@ -57,6 +62,10 @@ WINDOW = "hamming"  # forced by the detector, whatever the STFT default
 # computes: the JAX package's largest drain bucket. A larger backlog is
 # drained in steps of this size.
 MAX_DRAIN_FRAMES = 8192
+
+# Drain shapes the batched bank pads a round to (evaluations per lane), and
+# the shapes warm_up builds: the JAX package's bucket ladder.
+_FRAME_BUCKETS = (8, 32, 128, 512, 2048, 8192)
 
 
 @dataclass(frozen=True)
@@ -161,6 +170,41 @@ def offline_outputs(
     return detect_features(spec, params, feats)
 
 
+def offline_outputs_batch(
+    spec: DetectorSpec, params, xs: torch.Tensor, method: str = "matmul"
+) -> torch.Tensor:
+    """[C, n] streams -> [C, n_evals, outputs] through the unfused path:
+    ``params`` is one shared net or a sequence of C nets of one geometry,
+    vmapped over channels."""
+    if isinstance(params, (list, tuple)):
+        if len(params) != xs.shape[0]:
+            raise ValueError(
+                f"{len(params)} per-channel networks for {xs.shape[0]} channels"
+            )
+        return torch.func.vmap(
+            lambda p, x: offline_outputs(spec, p, x, method)
+        )(stack_params(list(params)), xs)
+    return torch.func.vmap(lambda x: offline_outputs(spec, params, x, method))(xs)
+
+
+def deinterleave_frames(
+    samples: np.ndarray, rem: np.ndarray, channels: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Split a frame-major interleaved capture buffer into whole
+    ``[n, channels]`` frames plus the trailing PARTIAL frame (to carry
+    into the next call). Shared by :meth:`Detector.append_interleaved_data`
+    and ``DetectorBank.append_interleaved_audio_data`` so the carry
+    semantics cannot drift between them."""
+    flat = np.asarray(samples, np.float32).reshape(-1)
+    if len(rem):
+        flat = np.concatenate([rem, flat])
+    n = len(flat) // channels
+    return (
+        flat[: n * channels].reshape(n, channels),
+        flat[n * channels :].copy(),
+    )
+
+
 class Detector:
     """Host-side streaming detector with the reference's semantics.
 
@@ -193,6 +237,10 @@ class Detector:
         self._history = self._zero_history()
         self._frames_seen = 0  # global frame counter (for warm-up discard)
         self.last_outputs = np.zeros(self.spec.net.outputs, np.float32)
+        # trailing partial interleaved frame awaiting the next capture chunk
+        # (append_interleaved_data), and the channel count it was cut for
+        self._interleave_rem = np.zeros(0, np.float32)
+        self._interleave_channels = None
 
     def _zero_history(self) -> torch.Tensor:
         return torch.zeros(
@@ -212,6 +260,25 @@ class Detector:
     def append_audio_data(self, samples: np.ndarray) -> None:
         samples = np.asarray(samples, np.float32).reshape(-1)
         self._residual = np.concatenate([self._residual, samples])
+
+    def append_interleaved_data(
+        self, samples: np.ndarray, channels: int, channel: int = 0
+    ) -> None:
+        """Append ONE channel's samples out of a frame-major interleaved
+        capture buffer ([s0c0, s0c1, ..., s1c0, ...]). A trailing PARTIAL
+        frame is kept and prepended to the next call with the same
+        ``channels``; a call with another ``channels`` drops it (the framing
+        changed)."""
+        if not 0 <= channel < channels:
+            raise ValueError(f"channel {channel} out of range 0..{channels - 1}")
+        rem = (
+            self._interleave_rem
+            if self._interleave_channels == channels
+            else np.zeros(0, np.float32)
+        )
+        frames, self._interleave_rem = deinterleave_frames(samples, rem, channels)
+        self._interleave_channels = channels
+        self.append_audio_data(np.ascontiguousarray(frames[:, channel]))
 
     def drain(self) -> np.ndarray:
         """Process all buffered hops; returns [n_new, outputs] (may be empty).
@@ -303,6 +370,31 @@ class Detector:
         self._residual = np.zeros(0, np.float32)
         self._history = self._zero_history()
         self._frames_seen = 0
+        # a pending partial interleaved frame is pre-gap audio too
+        self._interleave_rem = np.zeros(0, np.float32)
+
+    def warm_up(self, buckets: tuple = _FRAME_BUCKETS) -> int:
+        """Run one drain step of each bucket's shape on zeros, so that the
+        first live drain pays for no build: on a card the fused kernel is
+        compiled and loaded by the first of them. Returns the number of
+        shapes run."""
+        from syllable_detector_tpu_torch.kernels.fused_detector import (
+            fused_offline_outputs,
+        )
+
+        spec = self.spec
+        gap, _ = normalize_overlap(spec.window_overlap)
+        for b in buckets:
+            # the samples of b evaluations: b + T - 1 frames
+            need = (b + spec.time_range - 2) * spec.hop + gap + spec.window_length
+            x = torch.zeros(need, dtype=torch.float32, device=self.device)
+            if self.method == "fused":
+                fused_offline_outputs(spec, self.params, x, folded=self._folded)
+            else:
+                offline_outputs(spec, self.params, x, self.method)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(buckets)
 
     def seen_syllable(self) -> bool:
         """Drain and OR detections on output 0."""
@@ -313,15 +405,15 @@ class Detector:
 
     def get_state(self) -> dict:
         """Snapshot the streaming state as plain numpy arrays, in the JAX
-        package's ``Detector.get_state`` format (this port has no
-        interleaved append, so no partial interleaved frame is pending)."""
+        package's ``Detector.get_state`` format (``interleave_channels`` 0
+        means no interleaved append yet)."""
         return {
             "residual": self._residual.copy(),
             "history": self._history.cpu().numpy().copy(),
             "frames_seen": int(self._frames_seen),
             "last_outputs": np.asarray(self.last_outputs, np.float32).copy(),
-            "interleave_rem": np.zeros(0, np.float32),
-            "interleave_channels": 0,
+            "interleave_rem": self._interleave_rem.copy(),
+            "interleave_channels": int(self._interleave_channels or 0),
         }
 
     def set_state(self, state: dict) -> None:
@@ -334,12 +426,12 @@ class Detector:
                 f"state history shape {history.shape} does not match this "
                 f"detector ({self.spec.history}, {self.spec.n_bins})"
             )
-        if len(state.get("interleave_rem", ())):
-            raise ValueError(
-                "state holds a partial interleaved frame; this detector has "
-                "no interleaved append"
-            )
         self._residual = np.asarray(state["residual"], np.float32).copy()
         self._history = torch.from_numpy(history.copy()).to(self.device)
         self._frames_seen = int(state["frames_seen"])
         self.last_outputs = np.asarray(state["last_outputs"], np.float32).copy()
+        self._interleave_rem = np.asarray(
+            state.get("interleave_rem", np.zeros(0, np.float32)), np.float32
+        ).copy()
+        ich = int(state.get("interleave_channels", 0))
+        self._interleave_channels = ich if ich > 0 else None

@@ -22,7 +22,13 @@ from syllable_detector_tpu_torch.ops.processing import (
 )
 from syllable_detector_tpu_torch.ops.transfer import apply_transfer
 
-__all__ = ["NetSpec", "net_from_config", "apply_net", "params_from_numpy"]
+__all__ = [
+    "NetSpec",
+    "net_from_config",
+    "apply_net",
+    "params_from_numpy",
+    "stack_params",
+]
 
 
 @dataclass(frozen=True)
@@ -94,3 +100,18 @@ def apply_net(spec: NetSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     return reverse_output_chain(
         x, spec.output_processing, params["process_outputs"]
     )
+
+
+def stack_params(params_list: list[dict]) -> dict:
+    """Stack per-channel parameter dicts on a new leading axis.
+
+    All nets must share one NetSpec (same shapes and functions); the
+    result feeds ``torch.func.vmap`` over channels."""
+    first = params_list[0]
+    if isinstance(first, dict):
+        return {k: stack_params([p[k] for p in params_list]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [
+            stack_params([p[i] for p in params_list]) for i in range(len(first))
+        ]
+    return torch.stack(list(params_list))

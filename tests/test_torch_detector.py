@@ -114,8 +114,13 @@ def test_set_state_rejects_foreign_shapes(cfg):
     state = det.get_state()
     with pytest.raises(ValueError, match="history shape"):
         det.set_state({**state, "history": np.zeros((3, 3), np.float32)})
-    with pytest.raises(ValueError, match="interleaved"):
-        det.set_state({**state, "interleave_rem": np.ones(1, np.float32)})
+    # a pending partial interleaved frame is carried, not refused
+    det.set_state(
+        {**state, "interleave_rem": np.ones(1, np.float32), "interleave_channels": 2}
+    )
+    after = det.get_state()
+    np.testing.assert_array_equal(after["interleave_rem"], np.ones(1, np.float32))
+    assert after["interleave_channels"] == 2
 
 
 @pytest.mark.parametrize("method", ["matmul", "fused"])
@@ -163,3 +168,64 @@ def test_unfusable_spec_routes_to_matmul(cfg):
     assert tdet.Detector(cfg, method="fused", device="cpu").method == "fused"
     with pytest.raises(ValueError, match="unknown method"):
         tdet.Detector(cfg, method="fft", device="cpu")
+
+
+def test_deinterleave_frames_matches_jax():
+    rng = np.random.default_rng(9)
+    rem = np.zeros(0, np.float32)
+    jrem = rem
+    for n in (7, 12, 1, 0, 30):
+        x = rng.standard_normal(n).astype(np.float32)
+        frames, rem = tdet.deinterleave_frames(x, rem, 3)
+        jframes, jrem = jdet.deinterleave_frames(x, jrem, 3)
+        np.testing.assert_array_equal(frames, jframes)
+        np.testing.assert_array_equal(rem, jrem)
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_append_interleaved_matches_jax(cfg, audio, method):
+    """Interleaved chunks with partial trailing frames, a change of the
+    channel count (the carry is dropped) and a gap, against the JAX
+    Detector; the carry survives a state handover both ways."""
+    stereo = np.stack([audio, audio[::-1].copy()], axis=1).reshape(-1)
+    port = tdet.Detector(cfg, method=method, device="cpu")
+    ref = jdet.Detector(cfg, method=method)
+    tol = (1e-4, 1e-5) if method == "matmul" else (1e-3, 2e-4)
+    pos = 0
+    for step, size in enumerate([5001, 4000, 8, 9998, 3, 6000, 12001]):
+        chunk = stereo[pos : pos + size]
+        pos += size
+        channels = 3 if step == 4 else 2
+        for det in (port, ref):
+            det.append_interleaved_data(chunk, channels=channels, channel=1)
+        if step == 2:
+            ref_state = ref.get_state()
+            port = tdet.Detector(cfg, method=method, device="cpu")
+            port.set_state(ref_state)
+            assert len(ref_state["interleave_rem"]) == 1
+        if step == 5:
+            for det in (port, ref):
+                det.note_gap(10)
+        close(port.drain(), np.asarray(ref.drain()), *tol)
+        ps, rs = port.get_state(), ref.get_state()
+        np.testing.assert_array_equal(ps["interleave_rem"], rs["interleave_rem"])
+        assert ps["interleave_channels"] == rs["interleave_channels"]
+        np.testing.assert_array_equal(ps["residual"], rs["residual"])
+    with pytest.raises(ValueError, match="out of range"):
+        port.append_interleaved_data(stereo[:4], channels=2, channel=2)
+    jax_det = jdet.Detector(cfg, method=method)
+    jax_det.set_state(port.get_state())
+    assert jax_det._interleave_channels == port._interleave_channels
+
+
+@pytest.mark.parametrize("method", ["matmul", "rfft", "fused"])
+def test_warm_up_runs_every_bucket(cfg, audio, method):
+    det = tdet.Detector(cfg, method=method, device="cpu")
+    assert det.warm_up() == len(tdet._FRAME_BUCKETS) == len(jdet._FRAME_BUCKETS)
+    assert tdet._FRAME_BUCKETS == jdet._FRAME_BUCKETS
+    assert det.warm_up(buckets=(8, 32)) == 2
+    # warming leaves the stream untouched
+    det.append_audio_data(audio)
+    fresh = tdet.Detector(cfg, method=method, device="cpu")
+    fresh.append_audio_data(audio)
+    close(det.drain(), fresh.drain(), rtol=0, atol=0)
