@@ -3,7 +3,8 @@
 Phases, each printing one line (any failure raises and exits non-zero):
 
   1. device  — require a CUDA card; print its name and power limit.
-  2. build   — build the fused detector kernel from csrc/ with nvcc.
+  2. build   — build every kernel from csrc/ with nvcc, one nvcc per
+               source, all started together.
   3. kernel  — the kernel against its plain PyTorch version and the
                unfused path, on the card, for every configuration of
                fixtures.fused_cases (10 s streams, a short one, log and dB
@@ -33,14 +34,41 @@ Phases, each printing one line (any failure raises and exits non-zero):
                against plain; host time per bank.drain() round split into
                staging, copy and launch; audio seconds per wall second of
                the 256-lane monitor run.
+  9. resample kernel — the framed GEMM kernel against its plain version on
+               60 s inputs: the resampler's framing for 48k->44.1k,
+               44.1k->48k, 96k->44.1k, 32k->44.1k and 22.05k->44.1k (hop 1),
+               and the six framings of the JAX package's framed GEMM tests
+               with a zero-padded tail.
+  10. corpus — the batched corpus scan, this slice's main path: 8 seeded
+               2-channel 60 s chirp files at 44.1, 48 and 96 kHz (16 lanes,
+               10 of them resampled on the card) through
+               ``cli --batched --method fused``, against ``--batched
+               --method matmul``, against the sequential ``cli --method
+               fused`` per channel group, ``--batch-files 3`` against
+               ungrouped, per-lane nets (4 ``-n``) fused against matmul, and
+               ``sim --method fused`` against matmul. The resampler must
+               have carried every resampled channel, and the batched kernel
+               launched.
+  11. times  — device and host ms of the framed GEMM kernel per 60 s
+               channel at 48k->44.1k and 96k->44.1k beside its plain
+               version and the one PyTorch call for the same product
+               (``unfold`` and a matmul); host wall of the batched against
+               the sequential CLI on the corpus, and of the batched scan's
+               steps (read, resample, scan, CSV); the batched kernel on the
+               scan's padded [16, 2^22] lanes against its plain version
+               (every evaluation, rtol=1e-4, atol=1e-5, NaN in the same
+               places), and both their device times.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels (each with its
+bound: the larger of its bytes over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -54,10 +82,10 @@ import time
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import save_config
-from syllable_detector_tpu.utils.wav import write_wav
-from syllable_detector_tpu_torch import cli, fixtures, monitor
+from syllable_detector_tpu_torch import cli, corpus, fixtures, monitor, sim
+from syllable_detector_tpu_torch.config.model_format import load_config, save_config
 from syllable_detector_tpu_torch.kernels import _build
+from syllable_detector_tpu_torch.kernels import framed_gemm as fg
 from syllable_detector_tpu_torch.kernels import fused_detector as fused
 from syllable_detector_tpu_torch.models import detector
 from syllable_detector_tpu_torch.models.detector_bank import (
@@ -65,15 +93,27 @@ from syllable_detector_tpu_torch.models.detector_bank import (
     _mulaw_lut,
     mulaw_expand_np,
 )
-from syllable_detector_tpu_torch.ops.stft import num_frames
+from syllable_detector_tpu_torch.ops import resample
+from syllable_detector_tpu_torch.ops.stft import hop_length, num_frames
+from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
 
 KERNEL_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector.cu"
+FRAMED_SOURCE = "syllable_detector_tpu_torch/csrc/framed_gemm.cu"
 REPLACES = "syllable_detector_tpu/kernels/fused_detector.py:671"
 REPLACES_FLAT = "syllable_detector_tpu/kernels/fused_detector.py:1704"
 REPLACES_PROGRAM = "syllable_detector_tpu/kernels/fused_detector.py:1615"
+REPLACES_FRAMED = "syllable_detector_tpu/kernels/framed_gemm.py:56"
 LANES = 256  # the live-scale harness's lane count (scripts/live_scale_hw.py)
 CHUNK = 2048  # its capture chunk
 WIRES = ("float32", "int16", "mulaw8")
+# the corpus: 8 two-channel files of 60 s, their rates cycling
+CORPUS_FILES = 8
+CORPUS_SECONDS = 60.0
+CORPUS_RATES = (44100, 48000, 96000)
+NET_RATE = fixtures.RATE
+# published peaks of one H100 SXM (dense, no sparsity, at its 700 W limit)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def card() -> str:
@@ -109,16 +149,54 @@ def event_ms(fn, samples: int = 21, batch: int = 10) -> tuple[float, float]:
     return statistics.median(device), statistics.median(host)
 
 
-def run_cli(argv: list[str]) -> tuple[list[str], float]:
-    out = io.StringIO()
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the float32 peak and the bytes over the memory rate."""
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def fused_bound(spec, lanes: int, n: int, itemsize: int, nets: int) -> tuple[float, str]:
+    """The bound of one fused detector call on ``[lanes, n]`` samples of
+    ``itemsize`` bytes with ``nets`` distinct nets. Operations per frame:
+    the band DFT (re and im, 2 * window * 2 * bins), |X| and the sliding
+    squared sum; per evaluation, every layer's product (the first over
+    timeRange frames). Bytes: the samples and the outputs once, each net's
+    DFT matrix and weights once. Transfer functions are not counted."""
+    frames = num_frames(n, spec.window_length, spec.window_overlap)
+    evals = max(0, frames - spec.time_range + 1)
+    b = spec.n_bins
+    sizes = spec.net.layer_sizes
+    flops = lanes * (
+        frames * (4 * spec.window_length * b + 5 * b)
+        + evals * sum(2 * i * o for i, o in sizes)
+    )
+    operands = 2 * spec.window_length * b + sum(i * o + o for i, o in sizes)
+    nbytes = lanes * (n * itemsize + evals * spec.net.outputs * 4) + nets * operands * 4
+    return bound(flops, nbytes)
+
+
+def framed_bound(x: torch.Tensor, g: torch.Tensor, n_frames: int) -> tuple[float, str]:
+    """The bound of one framed GEMM: the samples, G and the output once;
+    two operations for each non-zero of G in each frame (the resampler's G
+    is ~12 % non-zero)."""
+    nnz = int(torch.count_nonzero(g))
+    nbytes = 4 * (x.numel() + g.numel() + n_frames * g.shape[1])
+    return bound(2.0 * n_frames * nnz, nbytes)
+
+
+def run_cli(argv: list[str]) -> tuple[list[str], float, str]:
+    """(stdout lines, host seconds, stderr) of one ``cli.main`` run."""
+    out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     if rc != 0:
-        raise RuntimeError(f"cli.main({argv}) returned {rc}")
-    return out.getvalue().splitlines(), seconds
+        raise RuntimeError(f"cli.main({argv}) returned {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue().splitlines(), seconds, err.getvalue()
 
 
 def compare_csv(got: list[str], want: list[str]) -> float:
@@ -129,6 +207,8 @@ def compare_csv(got: list[str], want: list[str]) -> float:
     worst = 0.0
     for g, w in zip(got, want):
         gp, wp = g.split(","), w.split(",")
+        if len(gp) < 4 and g == w:  # a file's path
+            continue
         if gp[:3] != wp[:3]:
             raise AssertionError(f"CSV lines differ: {g!r} vs {w!r}")
         a = np.array(gp[3:], np.float64)
@@ -181,11 +261,11 @@ def phase_main(tmp: str) -> int:
 
     fused.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
-    fused_csv, _ = run_cli(argv + ["--method", "fused"])
+    fused_csv = run_cli(argv + ["--method", "fused"])[0]
     launches = fused.LAUNCHES
     fused_bytes = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    matmul_csv, _ = run_cli(argv + ["--method", "matmul"])
+    matmul_csv = run_cli(argv + ["--method", "matmul"])[0]
     matmul_bytes = torch.cuda.max_memory_allocated()
 
     if launches <= 0:
@@ -207,7 +287,8 @@ def phase_main(tmp: str) -> int:
     return launches
 
 
-def phase_times(tmp: str, card_line: str) -> tuple[float, float]:
+def phase_times(tmp: str, card_line: str) -> tuple[float, float, tuple[float, str]]:
+    """(kernel ms, plain ms, bound) of the 60 s stream."""
     cfg = fixtures.sample_geometry_config(0)
     spec, params = detector.detector_spec_from_config(cfg, "cuda")
     folded = fused.fold_constants(spec, params, "cuda")
@@ -221,12 +302,13 @@ def phase_times(tmp: str, card_line: str) -> tuple[float, float]:
         n_evals = num_frames(n, cfg.window_length, cfg.window_overlap) - cfg.time_range + 1
         kernel = event_ms(lambda: fused.fused_offline_outputs(spec, params, xd, folded=folded))
         plain = event_ms(lambda: fused.fused_offline_outputs_reference(spec, folded, xd))
-        results[name] = (kernel[0], plain[0])
+        least = fused_bound(spec, 1, n, 4, 1)
+        results[name] = (kernel[0], plain[0], least)
         print(
             f"phase 5 times [{card_line}]: {name} ({n} samples, {n_evals} evals), "
             f"median of 21 x 10 calls: kernel {kernel[0]:.4f} ms device "
             f"({kernel[1]:.4f} ms host enqueue), plain fused {plain[0]:.4f} ms device "
-            f"({plain[1]:.4f} ms host enqueue)",
+            f"({plain[1]:.4f} ms host enqueue); bound {least[0]:.4f} ms ({least[1]})",
             flush=True,
         )
     net, wav = os.path.join(tmp, "net60.txt"), os.path.join(tmp, "sixty.wav")
@@ -235,10 +317,10 @@ def phase_times(tmp: str, card_line: str) -> tuple[float, float]:
     for method in ("fused", "matmul"):
         argv = ["-n", net, "-a", wav, "--device", "cuda", "--method", method]
         run_cli(argv)  # warm-up
-        runs = [run_cli(argv)[1] for _ in range(5)]
+        runs = [run_cli(argv)[1] for _ in range(3)]
         print(
             f"phase 5 times [{card_line}]: cli --method {method} on the 60 s file, "
-            f"host clock median of 5 runs {statistics.median(runs):.4f} s "
+            f"host clock median of 3 runs {statistics.median(runs):.4f} s "
             f"(runs {', '.join(f'{r:.4f}' for r in runs)})",
             flush=True,
         )
@@ -263,6 +345,7 @@ def reset_counts() -> None:
     fused.LAUNCHES = 0
     fused.BATCH_LAUNCHES = 0
     fused.PROGRAM_LAUNCHES = {wire: 0 for wire in fused.PROGRAM_LAUNCHES}
+    fg.FRAMED_GEMM_LAUNCHES = 0
 
 
 def program_launches(wire: str) -> int:
@@ -526,12 +609,13 @@ def phase_live_times(cfgs, audio, card_line: str) -> dict:
         prog = fused.BatchProgram(spec, folded, LANES, n, n_evals, wire, "cuda")
         kernel = event_ms(lambda: prog.launch(xd))
         plain = event_ms(lambda: fused.fused_batch_outputs_reference(spec, folded, xd, wire, n_evals))
-        times[wire] = (kernel[0], plain[0])
+        least = fused_bound(spec, LANES, n, xd.element_size(), LANES)
+        times[wire] = (kernel[0], plain[0], least)
         print(
             f"phase 8 times [{card_line}]: one {LANES} x 128 round ({n} {wire} samples per lane, "
             f"{LANES * n_evals} evals), median of 21 x 10 calls: kernel {kernel[0]:.4f} ms device "
             f"({kernel[1]:.4f} ms host enqueue), plain {plain[0]:.4f} ms device "
-            f"({plain[1]:.4f} ms host enqueue)",
+            f"({plain[1]:.4f} ms host enqueue); bound {least[0]:.4f} ms ({least[1]})",
             flush=True,
         )
 
@@ -589,6 +673,276 @@ def phase_live_times(cfgs, audio, card_line: str) -> dict:
     return times
 
 
+def rate_name(in_rate: float, out_rate: float) -> str:
+    return f"{in_rate / 1000:g}k->{out_rate / 1000:g}k"
+
+
+def phase_resample_kernel() -> float:
+    """The framed GEMM kernel against its plain version on 60 s inputs,
+    and the resampler on the card against the resampler on the CPU;
+    returns the kernel's largest absolute difference."""
+    rng = np.random.default_rng(9)
+    cases = []
+    for in_rate, out_rate in fixtures.RESAMPLE_PAIRS:
+        x = fixtures.chirp_audio(CORPUS_SECONDS, 90, rate=int(in_rate))
+        on_card = resample.polyphase_resample(x, in_rate, out_rate, device="cuda").cpu().numpy()
+        on_cpu = resample.polyphase_resample(x, in_rate, out_rate, device="cpu").numpy()
+        np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+        xin, g, w_len, overlap, frames, _ = resample.polyphase_framing(
+            x, in_rate, out_rate, device="cuda"
+        )
+        cases.append((rate_name(in_rate, out_rate), xin, g, w_len, overlap, frames))
+    noise = torch.from_numpy(
+        rng.standard_normal(int(CORPUS_SECONDS * NET_RATE)).astype(np.float32)
+    ).cuda()
+    for window, overlap in fixtures.FRAMED_GEMM_GEOMETRIES:
+        g = torch.from_numpy(rng.standard_normal((window, 24)).astype(np.float32)).cuda()
+        frames = num_frames(noise.numel(), window, overlap) + 3  # a zero-padded tail
+        cases.append((f"window {window} overlap {overlap}", noise, g, window, overlap, frames))
+    worst = 0.0
+    for name, x, g, window, overlap, frames in cases:
+        before = fg.FRAMED_GEMM_LAUNCHES
+        got = fg.framed_gemm(x, g, window, overlap, frames)
+        torch.cuda.synchronize()
+        if fg.FRAMED_GEMM_LAUNCHES != before + 1 or not got.is_cuda:
+            raise AssertionError(f"{name}: the kernel was not launched")
+        plain = fg.framed_gemm_reference(x, g, window, overlap, frames)
+        a, b = got.cpu().numpy(), plain.cpu().numpy()
+        if a.shape != (frames, g.shape[1]) or a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{name}: shapes {a.shape} {b.shape}")
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        print(
+            f"phase 9 resample kernel {name}: [{x.numel()}] x [{window}, {g.shape[1]}] -> "
+            f"[{frames}, {g.shape[1]}] (hop {hop_length(window, overlap)}), vs plain "
+            f"max_abs {err:.3g} (rtol=1e-4, atol=1e-4) ok",
+            flush=True,
+        )
+    return worst
+
+
+def group_lines(lines: list[str], paths: list[str]) -> dict:
+    """The CLI's output as {(file, channel): its lines, in order}."""
+    groups, path = {}, None
+    for line in lines:
+        if line in paths:
+            path = line
+        else:
+            groups.setdefault((path, line.split(",")[0]), []).append(line)
+    return groups
+
+
+def phase_corpus(tmp: str) -> dict:
+    """The batched corpus scan and its comparisons; returns the main path's
+    launch counts and the arguments of its runs."""
+    files, heard = [], []
+    for i in range(CORPUS_FILES):
+        rate = CORPUS_RATES[i % len(CORPUS_RATES)]
+        chans = [fixtures.chirp_audio(CORPUS_SECONDS, 300 + 2 * i + c, rate=rate) for c in range(2)]
+        files.append(os.path.join(tmp, f"corpus{i}_{rate}.wav"))
+        write_wav(files[-1], np.stack(chans, 1), rate, dtype="float32")
+        for x in chans:
+            if rate != NET_RATE:  # the nets hear the file resampled
+                x = resample.polyphase_resample(x, rate, NET_RATE, device="cuda").cpu().numpy()
+            heard.append(x)
+    heard = np.stack(heard, 1)
+    resampled_files = sum(CORPUS_RATES[i % len(CORPUS_RATES)] != NET_RATE for i in range(CORPUS_FILES))
+    # thresholds at least the kernel's atol from every output the nets give
+    # on what they hear (a wider margin leaves only the far tail of ~320 k
+    # outputs, and few detections)
+    nets = []
+    for seed in range(4):
+        cfg = fixtures.sample_geometry_config(seed)
+        nets.append(os.path.join(tmp, f"corpus_net{seed}.txt"))
+        save_config(fixtures.pick_thresholds(cfg, heard, margin=2e-4, device="cuda"), nets[-1])
+    audio = [a for f in files for a in ("-a", f)] + ["--device", "cuda"]
+    one = ["-n", nets[0]] + audio
+    four = [a for n in nets for a in ("-n", n)] + audio
+
+    # the slice's main path, with every count from 0
+    reset_counts()
+    batched, wall, err = run_cli(one + ["--batched", "--method", "fused"])
+    k2, k1e = fg.FRAMED_GEMM_LAUNCHES, fused.BATCH_LAUNCHES
+    if k2 != 2 * resampled_files:
+        raise AssertionError(f"{k2} resampler launches for {2 * resampled_files} resampled channels")
+    if k1e <= 0:
+        raise AssertionError("the batched scan did not launch the batched kernel")
+    if err.count("Resampling ") != resampled_files:
+        raise AssertionError(f"unexpected stderr: {err[-2000:]}")
+    groups = group_lines(batched, files)
+    per_channel = [len(groups.get((f, str(c)), ())) for f in files for c in (0, 1)]
+    if sum(per_channel) < 100 or len(batched) != len(files) + sum(per_channel):
+        raise AssertionError(f"detections per channel {per_channel}")
+    print(
+        f"phase 10 corpus main path: cli --batched --method fused on {len(files)} files x 2 "
+        f"channels x {CORPUS_SECONDS:g} s at {'/'.join(str(r) for r in CORPUS_RATES)} Hz "
+        f"({2 * len(files)} lanes): {sum(per_channel)} detection lines (per channel "
+        f"{per_channel}) in {wall:.2f} s; resampler launches {k2} for {2 * resampled_files} "
+        f"resampled channels, batched kernel launches {k1e} ok",
+        flush=True,
+    )
+
+    matmul = run_cli(one + ["--batched", "--method", "matmul"])[0]
+    worst = compare_csv(batched, matmul)
+    sequential = run_cli(one + ["--method", "fused"])[0]
+    seq_groups = group_lines(sequential, files)
+    if seq_groups.keys() != groups.keys():
+        raise AssertionError("the sequential and batched scans detect on other channels")
+    for key, lines in groups.items():
+        worst = max(worst, compare_csv(lines, seq_groups[key]))
+    if run_cli(one + ["--batched", "--method", "fused", "--batch-files", "3"])[0] != batched:
+        raise AssertionError("--batch-files 3 changed the batched output")
+    reset_counts()
+    per_lane = run_cli(four + ["--batched", "--method", "fused"])[0]
+    if fused.BATCH_LAUNCHES <= 0:
+        raise AssertionError("the per-lane batched scan did not launch the batched kernel")
+    per_lane_matmul = run_cli(four + ["--batched", "--method", "matmul"])[0]
+    worst = max(worst, compare_csv(per_lane, per_lane_matmul))
+    if per_lane == batched:
+        raise AssertionError("four nets gave the one net's detections")
+    print(
+        f"phase 10 corpus: --batched fused vs matmul vs sequential fused per channel group, "
+        f"--batch-files 3 equal to ungrouped, 4 per-lane nets fused vs matmul "
+        f"({len(per_lane) - len(files)} lines): columns 1-3 identical, outputs max diff "
+        f"{worst:.3g} ok",
+        flush=True,
+    )
+
+    signal = {}
+    for method in ("fused", "matmul"):
+        out = os.path.join(tmp, f"sim_{method}.wav")
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = sim.main(["-n", nets[0], "-a", files[0], "--channel", "1", "-o", out,
+                           "--method", method, "--device", "cuda"])
+        if rc != 0 or (method == "fused") != (fused.LAUNCHES > 0):
+            raise AssertionError(f"sim --method {method}: rc {rc}, launches {fused.LAUNCHES}")
+        signal[method] = read_audio(out)[0][:, 0]
+    diff = float(np.abs(signal["fused"] - signal["matmul"]).max())
+    if diff > 1.5 / 32768 or not (signal["fused"] > 0.99).any():
+        raise AssertionError(f"sim fused vs matmul: max diff {diff}")
+    print(
+        f"phase 10 corpus: sim --method fused vs matmul on {len(signal['fused'])} samples: "
+        f"{int(np.count_nonzero(signal['fused']))} non-zero, max diff {diff:.3g} ok",
+        flush=True,
+    )
+    return {"k2": k2, "k1e": k1e, "one": one, "net": nets[0], "files": files}
+
+
+def phase_corpus_times(scan: dict, card_line: str) -> dict:
+    """Times of the framed GEMM kernel per 60 s channel, the corpus walls
+    and the batched scan's steps; returns (kernel, plain, library, bound)
+    per input rate."""
+    results = {}
+    for in_rate in (48000, 96000):
+        x = fixtures.chirp_audio(CORPUS_SECONDS, 91, rate=in_rate)
+        xin, g, w_len, overlap, frames, _ = resample.polyphase_framing(
+            x, in_rate, NET_RATE, device="cuda"
+        )
+        hop = hop_length(w_len, overlap)
+        need = (frames - 1) * hop + w_len  # the resampler's overlap is never a gap
+        xpad = torch.cat([xin, xin.new_zeros(max(0, need - xin.numel()))])[:need]
+        torch.testing.assert_close(
+            xpad.unfold(0, w_len, hop) @ g, fg.framed_gemm(xin, g, w_len, overlap, frames),
+            rtol=1e-4, atol=1e-4,
+        )
+        kernel = event_ms(lambda: fg.framed_gemm(xin, g, w_len, overlap, frames))
+        plain = event_ms(lambda: fg.framed_gemm_reference(xin, g, w_len, overlap, frames))
+        library = event_ms(lambda: xpad.unfold(0, w_len, hop) @ g)
+        least = framed_bound(xin, g, frames)
+        whole = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            resample.polyphase_resample(x, in_rate, NET_RATE, device="cuda").cpu()
+            whole.append((time.perf_counter() - t0) * 1e3)
+        results[in_rate] = (kernel, plain, library, least)
+        print(
+            f"phase 11 times [{card_line}]: resampler {rate_name(in_rate, NET_RATE)}, one "
+            f"{CORPUS_SECONDS:g} s channel ([{xin.numel()}] x [{w_len}, {g.shape[1]}] -> "
+            f"[{frames}, {g.shape[1]}]), median of 21 x 10 calls: kernel {kernel[0]:.4f} ms "
+            f"device ({kernel[1]:.4f} ms host enqueue), plain {plain[0]:.4f} ms device "
+            f"({plain[1]:.4f} ms host enqueue), library unfold @ g {library[0]:.4f} ms device "
+            f"({library[1]:.4f} ms host enqueue); bound {least[0]:.4f} ms ({least[1]}); whole "
+            f"polyphase_resample from numpy to numpy, host clock median of 5: "
+            f"{statistics.median(whole):.3f} ms",
+            flush=True,
+        )
+    walls = {"batched": [], "sequential": []}
+    for mode in ("batched", "sequential", "sequential", "batched"):
+        argv = scan["one"] + ["--method", "fused"] + (["--batched"] if mode == "batched" else [])
+        walls[mode].append(run_cli(argv)[1])
+    print(
+        f"phase 11 times [{card_line}]: the corpus ({CORPUS_FILES} files x 2 channels x "
+        f"{CORPUS_SECONDS:g} s), host clock, in turns: cli --batched --method fused "
+        f"{', '.join(f'{s:.3f}' for s in walls['batched'])} s; sequential cli --method fused "
+        f"{', '.join(f'{s:.3f}' for s in walls['sequential'])} s",
+        flush=True,
+    )
+    # the batched scan's steps, as corpus.scan_corpus_files takes them
+    cfg = load_config(scan["net"])
+    steps, t0 = {}, time.perf_counter()
+    audio = [read_audio(f) for f in scan["files"]]
+    steps["read"] = time.perf_counter()
+    streams = []
+    for samples, rate in audio:
+        if rate != NET_RATE:
+            samples = corpus.resample_channels(samples, rate, NET_RATE, "cuda")
+        streams += [np.ascontiguousarray(samples[:, c]) for c in range(samples.shape[1])]
+    steps["resample"] = time.perf_counter()
+    outs = corpus.scan_corpus(cfg, streams, method="fused", device="cuda")
+    steps["scan"] = time.perf_counter()
+    lines = sum(len(corpus.corpus_csv_lines(cfg, o, channel=i % 2)) for i, o in enumerate(outs))
+    steps["csv"] = time.perf_counter()
+    split = []
+    for name, t in steps.items():
+        split.append(f"{name} {t - t0:.3f} s")
+        t0 = t
+    # the batched kernel on the scan's padded lanes, against its plain
+    # version on the same tensor: every evaluation, the zero padding's too
+    spec, params = detector.detector_spec_from_config(cfg, "cuda")
+    xs = torch.zeros((len(streams), corpus._bucket(max(len(s) for s in streams))), device="cuda")
+    for i, s in enumerate(streams):
+        xs[i, : len(s)] = torch.from_numpy(s)
+    folded = fused.fold_constants(spec, params, "cuda")
+    got = fused.fused_flat_batch_offline_outputs(spec, params, xs, folded=folded).cpu().numpy()
+    plain_out = fused.fused_batch_outputs_reference(spec, folded, xs).cpu().numpy()
+    n_evals = num_frames(xs.shape[1], spec.window_length, spec.window_overlap) - spec.time_range + 1
+    if got.shape != (len(streams), n_evals, spec.net.outputs) or got.shape != plain_out.shape:
+        raise AssertionError(f"corpus scan: shapes {got.shape} {plain_out.shape}")
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(plain_out), err_msg="corpus scan")
+    np.testing.assert_allclose(got, plain_out, rtol=1e-4, atol=1e-5, err_msg="corpus scan")
+    # NaN comes only from all-zero windows (l2normalize): the chirps' digital
+    # silence and the padding past each lane's audio, never a whole lane
+    audible = [num_frames(len(s), spec.window_length, spec.window_overlap) - spec.time_range + 1
+               for s in streams]
+    if not all(np.isfinite(got[i, :e]).mean() > 0.9 for i, e in enumerate(audible)):
+        raise AssertionError("corpus scan: a lane's audio gave mostly NaN")
+    err = float(np.abs(got - plain_out)[~nan].max())
+    kernel = event_ms(lambda: fused.fused_flat_batch_offline_outputs(spec, params, xs, folded=folded))
+    plain = event_ms(lambda: fused.fused_batch_outputs_reference(spec, folded, xs))
+    least = fused_bound(spec, xs.shape[0], xs.shape[1], 4, 1)
+    print(
+        f"phase 11 times [{card_line}]: the batched scan's steps ({len(streams)} lanes, "
+        f"{lines} lines), host clock: {', '.join(split)} (read = WAV files, resample = "
+        f"copy in, kernel and copy out per channel, scan = padding to the bucket, copy in, "
+        f"batched kernel and copy out, csv = the per-row thresholds and formatting)",
+        flush=True,
+    )
+    print(
+        f"phase 11 batched kernel [{card_line}]: the scan's [{xs.shape[0]}, {xs.shape[1]}] "
+        f"lanes ({xs.shape[0]} x {n_evals} evals, NaN {int(nan.sum())} from silence and "
+        f"padding): "
+        f"vs plain max_abs {err:.3g} (rtol=1e-4, atol=1e-5) ok; median of 21 x 10 calls: "
+        f"kernel {kernel[0]:.4f} ms device ({kernel[1]:.4f} ms host enqueue), plain "
+        f"{plain[0]:.4f} ms device ({plain[1]:.4f} ms host enqueue); bound {least[0]:.4f} ms "
+        f"({least[1]})",
+        flush=True,
+    )
+    return results, (kernel[0], plain[0], least, err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -603,14 +957,17 @@ def main() -> int:
         flush=True,
     )
 
-    _, seconds, log = _build.build("fused_detector")
-    regs = [line.strip() for line in log.splitlines() if "registers" in line]
-    print(f"phase 2 build: fused_detector.cu in {seconds:.2f} s; {' '.join(regs)} ok", flush=True)
+    names = ("fused_detector", "framed_gemm")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.build, names))
+    for name, (_, seconds, log) in zip(names, builds):
+        regs = [line.strip() for line in log.splitlines() if "registers" in line]
+        print(f"phase 2 build: {name}.cu in {seconds:.2f} s; {' '.join(regs)} ok", flush=True)
 
     max_abs_err = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main(tmp)
-        kernel_ms, plain_ms = phase_times(tmp, card_line)
+        stream_times = phase_times(tmp, card_line)
 
         # the live path's nets: one seeded net per lane, each threshold away
         # from every output on the audio, which lies on the int16 grid so
@@ -626,25 +983,35 @@ def main() -> int:
         batch_err = phase_batch(pairs)
         live = phase_live(tmp, cfgs, audio, card_line)
         times = phase_live_times(cfgs, audio, card_line)
-    print(
-        f"phase 8 times [{card_line}]: the {LANES}-channel monitor run processed "
-        f"{live['audio_per_wall']:.1f} audio seconds per wall second",
-        flush=True,
-    )
+        print(
+            f"phase 8 times [{card_line}]: the {LANES}-channel monitor run processed "
+            f"{live['audio_per_wall']:.1f} audio seconds per wall second",
+            flush=True,
+        )
+        resample_err = phase_resample_kernel()
+        scan = phase_corpus(tmp)
+        resample_times, scan_k1e = phase_corpus_times(scan, card_line)
 
-    def entry(name, replaces, launches, err, ms):
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+    def entry(name, source, replaces, launches, err, ms, least, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
+                "bound_ms": least[0], "bound_by": least[1], "library_ms": library_ms}
 
     n = live["launches"]
+    kernel, plain, library, least = resample_times[48000]
     print(json.dumps({"kernels": [
-        entry("fused_detector", REPLACES, launches, max_abs_err, (kernel_ms, plain_ms)),
-        entry("fused_detector_batch", REPLACES_FLAT, n["float32"], batch_err["float32"],
-              times["float32"]),
-        entry("fused_batch_program int16", REPLACES_PROGRAM, n["int16"], batch_err["int16"],
-              times["int16"]),
-        entry("fused_batch_program mulaw8", REPLACES_PROGRAM, n["mulaw8"], batch_err["mulaw8"],
-              times["mulaw8"]),
+        entry("fused_detector", KERNEL_SOURCE, REPLACES, launches, max_abs_err, stream_times,
+              stream_times[2]),
+        entry("fused_detector_batch", KERNEL_SOURCE, REPLACES_FLAT, n["float32"],
+              batch_err["float32"], times["float32"], times["float32"][2]),
+        entry("fused_detector_batch corpus", KERNEL_SOURCE, REPLACES_FLAT, scan["k1e"],
+              scan_k1e[3], scan_k1e[:2], scan_k1e[2]),
+        entry("fused_batch_program int16", KERNEL_SOURCE, REPLACES_PROGRAM, n["int16"],
+              batch_err["int16"], times["int16"], times["int16"][2]),
+        entry("fused_batch_program mulaw8", KERNEL_SOURCE, REPLACES_PROGRAM, n["mulaw8"],
+              batch_err["mulaw8"], times["mulaw8"], times["mulaw8"][2]),
+        entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"], resample_err,
+              (kernel[0], plain[0]), least, library[0]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

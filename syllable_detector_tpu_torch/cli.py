@@ -12,8 +12,15 @@ then one column per network output. When several audio files are given,
 each file's path is printed before its events. Errors go to stderr and
 processing continues with the next file.
 
+A file whose sample rate differs from the network's is resampled to the
+network rate per channel by the polyphase resampler (the framed GEMM kernel
+on a card), unless ``--no-resample`` asks to process it at the network
+rate. ``--batched`` scans all files in one device computation
+(``corpus.scan_corpus_files``; ``--batch-files N`` in groups of N files).
+
 Usage:  python -m syllable_detector_tpu_torch.cli -n NET.txt -a FILE.wav
             [-a ...] [-d SECONDS] [--method matmul|rfft|fused]
+            [--batched [--batch-files N]] [--no-resample]
             [--device cuda|cpu]
 
 The device defaults to ``cuda``; without a card the CLI raises rather than
@@ -29,10 +36,11 @@ import sys
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import ConfigError, load_config
-from syllable_detector_tpu.utils.wav import read_audio
+from syllable_detector_tpu_torch.config.model_format import ConfigError, load_config
+from syllable_detector_tpu_torch.corpus import resample_channels, scan_corpus_files
 from syllable_detector_tpu_torch.models.detector import detector_spec_from_config
 from syllable_detector_tpu_torch.runtime.track_detector import TrackDetector
+from syllable_detector_tpu_torch.utils.wav import read_audio
 
 __all__ = ["main", "run_file"]
 
@@ -84,6 +92,26 @@ def _build_parser() -> argparse.ArgumentParser:
         "the fused CUDA detection kernel).",
     )
     p.add_argument(
+        "--batched",
+        action="store_true",
+        help="Batched corpus mode: all files in one device computation "
+        "(with --method fused, one launch of the fused CUDA kernel).",
+    )
+    p.add_argument(
+        "--batch-files",
+        type=int,
+        default=None,
+        metavar="N",
+        help="With --batched: scan the corpus in groups of N files "
+        "(bounds memory on huge corpora; output order unchanged).",
+    )
+    p.add_argument(
+        "--mesh",
+        action="store_true",
+        help="Batched mode only: shard the lanes across devices (not "
+        "ported yet).",
+    )
+    p.add_argument(
         "--device",
         default="cuda",
         help="Torch device to run on (default: cuda).",
@@ -91,8 +119,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-resample",
         action="store_true",
-        help="Process a file whose rate differs from the network's at the "
-        "network rate instead of skipping it (this port has no resampler).",
+        help="Do not resample rate-mismatched files to the network rate; "
+        "process them at the network rate instead.",
     )
     return p
 
@@ -108,7 +136,8 @@ def run_file(
     device="cuda",
 ) -> bool:
     """Sequential per-file scan. ``config`` may be a sequence of configs:
-    channel c uses ``configs[c % len(configs)]``."""
+    channel c uses ``configs[c % len(configs)]`` (the first net's rate
+    drives any resampling, which runs on ``device``)."""
     configs = list(config) if isinstance(config, (list, tuple)) else [config]
     config = configs[0]
     err = err if err is not None else (lambda s: print(s, file=sys.stderr))
@@ -125,12 +154,12 @@ def run_file(
 
     if rate != config.sampling_rate and resample:
         err(
-            f"Skipping {audio_path}: sample rate {rate} Hz != network rate "
-            f"{config.sampling_rate} Hz, and this port has no resampler "
-            f"(pass --no-resample to process it at the network rate)."
+            f"Resampling {audio_path} from {rate} Hz to the network rate "
+            f"{config.sampling_rate} Hz."
         )
-        return False
-    if rate != config.sampling_rate:
+        samples = resample_channels(samples, rate, config.sampling_rate, device)
+        n = samples.shape[0]
+    elif rate != config.sampling_rate:
         err(
             f"Warning: {audio_path} sample rate {rate} != network rate "
             f"{config.sampling_rate}; processing at the network rate."
@@ -191,6 +220,20 @@ def main(argv=None) -> int:
                 file=sys.stderr,
             )
             return 1
+
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP A8)")
+    if args.batched:
+        scan_corpus_files(
+            configs,
+            args.audio,
+            debounce_seconds=args.debounce,
+            method=args.method,
+            resample=not args.no_resample,
+            group_files=args.batch_files,
+            device=device,
+        )
+        return 0
 
     multiple = len(args.audio) > 1
     for audio_path in args.audio:

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import (
+from syllable_detector_tpu_torch.config.model_format import (
     LayerSpec,
     ProcessingSpec,
     SyllableDetectorConfig,
@@ -31,9 +31,26 @@ __all__ = [
     "chirp_audio",
     "fused_cases",
     "pick_thresholds",
+    "FRAMED_GEMM_GEOMETRIES",
+    "RESAMPLE_PAIRS",
 ]
 
 RATE = 44100
+
+# (window, window_overlap) framings the framed GEMM kernel is held against
+# its plain version on, as the JAX package's tests/test_framed_gemm.py
+# frames them: the sample net's (hop 132), no overlap, a gap, tiny frames, a
+# window over two hops, and a long overlap.
+FRAMED_GEMM_GEOMETRIES = ((256, 124), (256, 0), (200, -56), (64, 32), (300, 236), (330, 300))
+# (in_rate, out_rate) pairs of the polyphase resampler: 147/160, 160/147,
+# 147/320, 441/320 and 2/1 (hop 1).
+RESAMPLE_PAIRS = (
+    (48000.0, 44100.0),
+    (44100.0, 48000.0),
+    (96000.0, 44100.0),
+    (32000.0, 44100.0),
+    (22050.0, 44100.0),
+)
 
 
 def sample_geometry_config(

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import (
+from syllable_detector_tpu_torch.config.model_format import (
     SyllableDetectorConfig,
     first_output_sample,
 )

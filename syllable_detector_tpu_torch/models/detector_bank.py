@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import SyllableDetectorConfig
+from syllable_detector_tpu_torch.config.model_format import SyllableDetectorConfig
 from syllable_detector_tpu_torch.models.detector import (
     _FRAME_BUCKETS,
     deinterleave_frames,
@@ -50,7 +50,7 @@ from syllable_detector_tpu_torch.models.detector import (
 )
 from syllable_detector_tpu_torch.models.neural_net import stack_params
 from syllable_detector_tpu_torch.ops.stft import normalize_overlap, num_frames
-from syllable_detector_tpu_torch.runtime._host import DrainStager
+from syllable_detector_tpu_torch.runtime.ring_buffer import DrainStager
 
 __all__ = ["DetectorBank", "mulaw_expand_np"]
 

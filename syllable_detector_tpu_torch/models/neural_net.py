@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import SyllableDetectorConfig
+from syllable_detector_tpu_torch.config.model_format import SyllableDetectorConfig
 from syllable_detector_tpu_torch.ops.processing import (
     apply_input_chain,
     reverse_output_chain,

@@ -28,15 +28,16 @@ import time
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import ConfigError, load_config
-from syllable_detector_tpu.utils.wav import read_audio
-from syllable_detector_tpu_torch.runtime._host import (
+from syllable_detector_tpu_torch.config.model_format import ConfigError, load_config
+from syllable_detector_tpu_torch.runtime import audio_io
+from syllable_detector_tpu_torch.runtime.arduino import (
     ArduinoIO,
     NativeFirmwareTransport,
     SimulatedArduinoTransport,
+)
+from syllable_detector_tpu_torch.runtime.audio_io import (
     SimulatedAudioInput,
     SimulatedAudioOutput,
-    audio_io,
 )
 from syllable_detector_tpu_torch.runtime.processor import (
     ArduinoTTLOutput,
@@ -45,6 +46,7 @@ from syllable_detector_tpu_torch.runtime.processor import (
     ProcessorEntry,
     csv_event_log,
 )
+from syllable_detector_tpu_torch.utils.wav import read_audio
 
 __all__ = ["main"]
 

@@ -1,3 +1,2 @@
 """L2 — signal-processing primitives as plain functions on torch tensors:
-the counterparts of ``syllable_detector_tpu.ops`` (of the resampler, only
-the linear host-side part is ported)."""
+the counterparts of ``syllable_detector_tpu.ops``."""

@@ -16,7 +16,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import ProcessingSpec
+from syllable_detector_tpu_torch.config.model_format import ProcessingSpec
 
 __all__ = [
     "fold_input_affines",

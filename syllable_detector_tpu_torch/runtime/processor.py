@@ -16,9 +16,9 @@ math runs on the worker. ``batched=True`` drains every lane's new hops
 through one :class:`~syllable_detector_tpu_torch.models.detector_bank.DetectorBank`
 per pipeline geometry (one kernel launch a round on a card); otherwise
 each lane has its own :class:`~syllable_detector_tpu_torch.models.detector.Detector`.
-The rings, the audio interfaces and the Arduino transports are the JAX
-package's framework-free host modules, loaded through
-:mod:`syllable_detector_tpu_torch.runtime._host`.
+The rings, the audio interfaces and the Arduino transports are this
+package's framework-free host modules (``runtime.ring_buffer``,
+``runtime.audio_io``, ``runtime.arduino``).
 """
 
 from __future__ import annotations
@@ -36,9 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from syllable_detector_tpu.config.model_format import SyllableDetectorConfig
-from syllable_detector_tpu.utils.stats import StatMax, SummaryStat
-from syllable_detector_tpu.utils.timing import Time
+from syllable_detector_tpu_torch.config.model_format import SyllableDetectorConfig
 from syllable_detector_tpu_torch.models.detector import (
     _FRAME_BUCKETS,
     Detector,
@@ -49,14 +47,15 @@ from syllable_detector_tpu_torch.ops.resample import (
     linear_resample_chunk_exact,
     linear_resample_init,
 )
-from syllable_detector_tpu_torch.runtime._host import (
-    ArduinoIO,
-    ArduinoPin,
+from syllable_detector_tpu_torch.runtime.arduino import ArduinoIO, ArduinoPin
+from syllable_detector_tpu_torch.runtime.audio_io import (
     AudioInputInterface,
     AudioOutputInterface,
-    RingBlockWriter,
-    RingBuffer,
 )
+from syllable_detector_tpu_torch.runtime.ring_buffer import RingBlockWriter, RingBuffer
+from syllable_detector_tpu_torch.utils.fmt import fmt_double, fmt_float32
+from syllable_detector_tpu_torch.utils.stats import StatMax, SummaryStat
+from syllable_detector_tpu_torch.utils.timing import Time
 
 __all__ = [
     "ProcessorEntry",
@@ -74,7 +73,6 @@ def csv_event_log(fh):
     contract, ``channel,sample,seconds,out0[,out1...]`` with the same float
     formatting, for live detections. Flushes per row, so that a crash loses
     no event."""
-    from syllable_detector_tpu.utils.fmt import fmt_double, fmt_float32
 
     def log(channel, sample, seconds, outputs):
         row = f"{channel},{sample},{fmt_double(seconds)}"

@@ -20,8 +20,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from syllable_detector_tpu.config.model_format import SyllableDetectorConfig
-from syllable_detector_tpu.utils.fmt import fmt_double, fmt_float32
+from syllable_detector_tpu_torch.config.model_format import SyllableDetectorConfig
+from syllable_detector_tpu_torch.utils.fmt import fmt_double, fmt_float32
 from syllable_detector_tpu_torch.models.detector import Detector
 
 __all__ = ["TrackDetector"]

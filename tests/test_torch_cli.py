@@ -25,6 +25,7 @@ from syllable_detector_tpu.config.model_format import save_config
 from syllable_detector_tpu.utils.wav import write_wav
 from syllable_detector_tpu_torch import fixtures
 from syllable_detector_tpu_torch.cli import main as port_main
+from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.runtime.track_detector import TrackDetector
 
 torch.set_num_threads(1)
@@ -49,8 +50,10 @@ def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
     two = np.stack([fixtures.chirp_audio(0.8, 1), fixtures.chirp_audio(0.8, 2)], 1)
     one = fixtures.chirp_audio(0.5, 3)
+    # "slow" plays "one" at 22.05 kHz: the net hears it resampled
+    heard = polyphase_resample(one, 22050, 44100, device="cpu").numpy()
     cfg = fixtures.pick_thresholds(
-        fixtures.sample_geometry_config(7), np.concatenate([two.reshape(-1), one])
+        fixtures.sample_geometry_config(7), np.concatenate([two.reshape(-1), one, heard])
     )
     paths = {
         "net": d / "net.txt",
@@ -136,9 +139,16 @@ def test_repeated_nets_cycle_per_channel(files, monkeypatch):
 
 
 def test_rate_mismatch_is_skipped_unless_asked(files, monkeypatch):
+    """A file at another rate than the net's is resampled, as the JAX CLI
+    resamples it, unless --no-resample asks to process it at the net's
+    rate."""
     _, _, p = files
-    rc, got, err = run(port_main, ["-n", p["net"], "-a", p["slow"], "--device", "cpu"])
-    assert rc == 0 and not got and "Skipping" in err
+    argv = ["-n", p["net"], "-a", p["slow"]]
+    rc, got, err = run(port_main, argv + ["--device", "cpu"])
+    jrc, want, jerr = run_jax(argv, monkeypatch)
+    assert rc == jrc == 0 and err == jerr and err.startswith("Resampling ")
+    assert got
+    assert_csv_close(got, want)
     argv = ["-n", p["net"], "-a", p["slow"], "--no-resample"]
     rc, got, err = run(port_main, argv + ["--device", "cpu"])
     jrc, want, jerr = run_jax(argv, monkeypatch)
@@ -166,43 +176,71 @@ def test_cuda_without_card_raises(files):
         port_main(["-n", p["net"], "-a", p["one"]])
 
 
-def test_runs_with_jax_blocked(files):
-    """Every module of the port imports, and its CLI runs, in a process
-    where importing jax fails."""
-    _, _, p = files
-    script = (
-        "import sys, importlib, pkgutil\n"
+def blocked_run(script: str) -> subprocess.CompletedProcess:
+    """Run ``script`` in a fresh interpreter where importing jax or any
+    part of the JAX package fails; the script ends by asserting that no
+    module of either got loaded."""
+    prelude = (
+        "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['syllable_detector_tpu'] = None\n"
+    )
+    check = (
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
+        "       m.split('.')[0] in ('jax', 'jaxlib', 'syllable_detector_tpu'))]\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    return subprocess.run(
+        [sys.executable, "-c", prelude + script + check], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_runs_with_jax_blocked(files):
+    """Every module of the port imports, and its CLI runs (fused, on a
+    resampled file, batched), in a process where importing jax or the JAX
+    package fails."""
+    _, _, p = files
+    runs = [
+        ["-n", p["net"], "-a", p["two"], "--method", "fused"],
+        ["-n", p["net"], "-a", p["slow"], "--method", "fused"],
+        ["-n", p["net"], "-a", p["two"], "-a", p["slow"], "--batched", "--method", "fused"],
+    ]
+    script = (
+        "import importlib, pkgutil\n"
         "import syllable_detector_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "from syllable_detector_tpu_torch.cli import main\n"
-        f"rc = main(['-n', {p['net']!r}, '-a', {p['two']!r}, '--method', 'fused', '--device', 'cpu'])\n"
-        "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
-        "       m.split('.')[0] == 'jax' or\n"
-        "       m.startswith(('syllable_detector_tpu.ops', 'syllable_detector_tpu.models',\n"
-        "                     'syllable_detector_tpu.runtime', 'syllable_detector_tpu.kernels')))]\n"
-        "assert not bad, bad\n"
-        "sys.exit(rc)\n"
+        f"for argv in {runs!r}:\n"
+        "    print('run')\n"
+        "    assert main(argv + ['--device', 'cpu']) == 0\n"
     )
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = blocked_run(script)
     assert proc.returncode == 0, proc.stderr
-    _, want, _ = run(port_main, ["-n", p["net"], "-a", p["two"], "--method", "fused", "--device", "cpu"])
-    assert proc.stdout.splitlines() == want and want
+    want = []
+    for argv in runs:
+        want += ["run"] + run(port_main, argv + ["--device", "cpu"])[1]
+    assert proc.stdout.splitlines() == want and len(want) > 20
 
 
 def test_source_never_imports_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or any
+    part of the JAX package, or loads a file by its path."""
     pattern = re.compile(
-        r"^\s*(import jax\b|from jax\b|(from|import) syllable_detector_tpu\."
-        r"(ops|models|runtime|kernels|parallel|training)\b)",
+        r"^\s*(import|from)\s+(jax|jaxlib|syllable_detector_tpu)\b"
+        r"|import_module\(\s*['\"](jax|syllable_detector_tpu)\b"
+        r"|spec_from_file_location",
         re.M,
     )
+    for ok in ("from syllable_detector_tpu_torch.ops import stft", "import syllable_detector_tpu_torch"):
+        assert not pattern.search(ok)
+    for bad in ("import jax.numpy as jnp", "from syllable_detector_tpu.config import x",
+                "import syllable_detector_tpu", "    from syllable_detector_tpu import cli"):
+        assert pattern.search(bad), bad
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(sources) > 10
+    assert len(sources) > 20
     hits = [
         f"{src}: {m.group(0).strip()}"
         for src in sources

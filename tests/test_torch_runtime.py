@@ -20,7 +20,7 @@ from syllable_detector_tpu.runtime import audio_io as jaudio
 from syllable_detector_tpu.runtime import processor as jproc
 from syllable_detector_tpu_torch import fixtures
 from syllable_detector_tpu_torch.ops import resample as tresample
-from syllable_detector_tpu_torch.runtime import _host
+from syllable_detector_tpu_torch.runtime import audio_io as taudio
 from syllable_detector_tpu_torch.runtime import processor as tproc
 
 torch.set_num_threads(1)
@@ -74,7 +74,7 @@ def run_processor(pkg, lanes, **kw):
     device: (sorted event rows, lane_detections, lane_stats)."""
     audio, cfgs = lanes
     sim_in, sim_out = (
-        (_host.SimulatedAudioInput, _host.SimulatedAudioOutput)
+        (taudio.SimulatedAudioInput, taudio.SimulatedAudioOutput)
         if pkg is tproc
         else (jaudio.SimulatedAudioInput, jaudio.SimulatedAudioOutput)
     )
@@ -164,7 +164,7 @@ def test_receive_audio_per_channel_and_stats(lanes):
     entries = [tproc.ProcessorEntry(i, i, config=c) for i, c in enumerate(cfgs[:2])]
     seen = []
     proc = tproc.Processor(
-        _host.SimulatedAudioInput(lambda c, s, n: audio[c][s : s + n], channels=2),
+        taudio.SimulatedAudioInput(lambda c, s, n: audio[c][s : s + n], channels=2),
         entries, tproc.CallbackOutput(lambda i, e, s: seen.append((i, s))),
         device="cpu", batched=True,
     )
@@ -187,6 +187,6 @@ def test_cuda_device_without_card_raises(lanes):
     for batched in (False, True):
         with pytest.raises((RuntimeError, AssertionError)):
             tproc.Processor(
-                _host.SimulatedAudioInput(lambda c, s, n: np.zeros(n, np.float32)),
+                taudio.SimulatedAudioInput(lambda c, s, n: np.zeros(n, np.float32)),
                 entries, tproc.CallbackOutput(lambda *a: None), batched=batched,
             )
