@@ -58,10 +58,49 @@ Phases, each printing one line (any failure raises and exits non-zero):
                scan's padded [16, 2^22] lanes against its plain version
                (every evaluation, rtol=1e-4, atol=1e-5, NaN in the same
                places), and both their device times.
+  12. tiers, frames, slabs — on every configuration of fixtures.fused_cases:
+               each precision tier (fast, split, conv, split4) on one
+               stream with a shared net and on 3 lanes with per-lane nets,
+               against its plain version (rtol=2e-3, atol=5e-4 for split
+               and conv; 1e-2, 1e-2 for split4 and fast) and against the
+               fp32 kernel; the frames input against its plain version and
+               against raw input (rtol=1e-5, atol=1e-6); the grid layout
+               with 160 lanes in slabs of 64 (3 slabs, the last shorter),
+               shared and per-lane nets, against the flat kernel (1e-6) and
+               its plain version.
+  13. mesh   — this slice's main path, every count from 0: phase 10's
+               corpus through ``cli --batched --mesh --method fused`` (one
+               shard per card) and through ``corpus.scan_corpus_files`` on a
+               4-shard mesh (4 lanes per shard, all on the one card), both
+               CSVs equal to phase 10's line for line (outputs within
+               4e-7); the scan's [16, 2^22] lanes with per-lane nets through
+               ``sharded_fused_offline_outputs(layout="grid")`` and, under
+               each tier, through the slabbed grid; a 10-minute mono stream
+               time-sharded over 4 shards (matmul and fused) against
+               ``offline_outputs`` on the whole stream and against the
+               frames-input kernel on it; the feature axis sharded over 4
+               shards for linear, log and dB scaling; the sharded detection
+               counts against a count of the unsharded outputs; 16 lanes x 8
+               sharded streaming steps against ``streaming_scan``. Every
+               result must live on the card.
+  14. dist_scan — two processes of ``python -m
+               syllable_detector_tpu_torch.dist_scan`` on the card (gloo over
+               127.0.0.1), phase 10's 8 files split 4 + 4: ``merged.csv``
+               equal to the single-process CSV, both ranks reporting the same
+               global count; a rank that fails or outlasts its timeout fails
+               the phase, and every process is stopped.
+  15. times  — device ms of each tier and of the frames input on the 60 s
+               stream beside their plain versions and the fp32 kernel; of
+               the grid layout and each tier on the scan's [16, 2^22] lanes
+               beside the flat kernel; host wall of the 4-shard mesh scan
+               beside the unsharded scan, in turns, of the time-sharded
+               fused path beside the whole stream, and of the two-process
+               scan.
 
 The line before the last is a JSON summary of the kernels (each with its
-bound: the larger of its bytes over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+peak rate of their type, float32 at 67 TFLOP/s and, for the tiers' bf16
+products, 989 TFLOP/s, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -73,6 +112,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -88,21 +129,33 @@ from syllable_detector_tpu_torch.kernels import _build
 from syllable_detector_tpu_torch.kernels import framed_gemm as fg
 from syllable_detector_tpu_torch.kernels import fused_detector as fused
 from syllable_detector_tpu_torch.models import detector
+from syllable_detector_tpu_torch.models import neural_net
 from syllable_detector_tpu_torch.models.detector_bank import (
     DetectorBank,
     _mulaw_lut,
     mulaw_expand_np,
 )
 from syllable_detector_tpu_torch.ops import resample
-from syllable_detector_tpu_torch.ops.stft import hop_length, num_frames
+from syllable_detector_tpu_torch.parallel import mesh as pmesh
+from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length, num_frames
 from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
 
 KERNEL_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector.cu"
 FRAMED_SOURCE = "syllable_detector_tpu_torch/csrc/framed_gemm.cu"
+TIERS_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector_tiers.cu"
 REPLACES = "syllable_detector_tpu/kernels/fused_detector.py:671"
 REPLACES_FLAT = "syllable_detector_tpu/kernels/fused_detector.py:1704"
 REPLACES_PROGRAM = "syllable_detector_tpu/kernels/fused_detector.py:1615"
 REPLACES_FRAMED = "syllable_detector_tpu/kernels/framed_gemm.py:56"
+REPLACES_FRAMES = "syllable_detector_tpu/kernels/fused_detector.py:1169"
+REPLACES_TIERS = "syllable_detector_tpu/kernels/fused_detector.py:1193"
+REPLACES_SLABBED = "syllable_detector_tpu/kernels/fused_detector.py:1378"
+# the fused entries' keywords of each precision tier, and the tolerance of a
+# tier's kernel against its plain version
+TIER_KW = {tier: case[0] for tier, case in fixtures.TIER_CASES.items()}
+TIER_TOL = {tier: case[1:] for tier, case in fixtures.TIER_CASES.items()}
+MESH_SHARDS = 4
+LONG_SECONDS = 600.0  # the time-sharded stream
 LANES = 256  # the live-scale harness's lane count (scripts/live_scale_hw.py)
 CHUNK = 2048  # its capture chunk
 WIRES = ("float32", "int16", "mulaw8")
@@ -113,6 +166,7 @@ CORPUS_RATES = (44100, 48000, 96000)
 NET_RATE = fixtures.RATE
 # published peaks of one H100 SXM (dense, no sparsity, at its 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -149,32 +203,42 @@ def event_ms(fn, samples: int = 21, batch: int = 10) -> tuple[float, float]:
     return statistics.median(device), statistics.median(host)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the float32 peak and the bytes over the memory rate."""
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    operations over the peak rate of their type (float32 outside the tensor
+    cores, bf16 on them) and the bytes over the memory rate."""
+    ops_ms = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def fused_bound(spec, lanes: int, n: int, itemsize: int, nets: int) -> tuple[float, str]:
+def fused_bound(spec, lanes: int, n: int, itemsize: int, nets: int,
+                tier: str | None = None, frames_input: bool = False) -> tuple[float, str]:
     """The bound of one fused detector call on ``[lanes, n]`` samples of
     ``itemsize`` bytes with ``nets`` distinct nets. Operations per frame:
     the band DFT (re and im, 2 * window * 2 * bins), |X| and the sliding
     squared sum; per evaluation, every layer's product (the first over
-    timeRange frames). Bytes: the samples and the outputs once, each net's
-    DFT matrix and weights once. Transfer functions are not counted."""
+    timeRange frames). Under a precision tier the band DFT and the first
+    layer count as the bf16 products the tier issues (1, 3 or 4 passes of
+    the same multiply-adds, without the padding to the tensor cores'
+    fragment) over the card's dense bf16 rate. Bytes: the samples (with
+    ``frames_input`` the [F, window] frames matrix the kernel reads) and
+    the outputs once, each net's DFT matrix and weights once. Transfer
+    functions are not counted."""
     frames = num_frames(n, spec.window_length, spec.window_overlap)
     evals = max(0, frames - spec.time_range + 1)
     b = spec.n_bins
     sizes = spec.net.layer_sizes
-    flops = lanes * (
-        frames * (4 * spec.window_length * b + 5 * b)
-        + evals * sum(2 * i * o for i, o in sizes)
-    )
+    dft_passes, conv_passes = fused.TIERS[tier] if tier else (0, 0)
+    dft = frames * 4 * spec.window_length * b
+    first = evals * 2 * sizes[0][0] * sizes[0][1]
+    rest = frames * 5 * b + evals * sum(2 * i * o for i, o in sizes[1:])
+    flops = lanes * (rest + (0 if dft_passes else dft) + (0 if conv_passes else first))
+    bf16_flops = lanes * (dft_passes * dft + conv_passes * first)
     operands = 2 * spec.window_length * b + sum(i * o + o for i, o in sizes)
-    nbytes = lanes * (n * itemsize + evals * spec.net.outputs * 4) + nets * operands * 4
-    return bound(flops, nbytes)
+    read = frames * spec.window_length if frames_input else n
+    nbytes = lanes * (read * itemsize + evals * spec.net.outputs * 4) + nets * operands * 4
+    return bound(flops, nbytes, bf16_flops)
 
 
 def framed_bound(x: torch.Tensor, g: torch.Tensor, n_frames: int) -> tuple[float, str]:
@@ -345,6 +409,9 @@ def reset_counts() -> None:
     fused.LAUNCHES = 0
     fused.BATCH_LAUNCHES = 0
     fused.PROGRAM_LAUNCHES = {wire: 0 for wire in fused.PROGRAM_LAUNCHES}
+    fused.TIER_LAUNCHES = {tier: 0 for tier in fused.TIER_LAUNCHES}
+    fused.FRAMES_LAUNCHES = 0
+    fused.GRID_LAUNCHES = 0
     fg.FRAMED_GEMM_LAUNCHES = 0
 
 
@@ -827,7 +894,8 @@ def phase_corpus(tmp: str) -> dict:
         f"{int(np.count_nonzero(signal['fused']))} non-zero, max diff {diff:.3g} ok",
         flush=True,
     )
-    return {"k2": k2, "k1e": k1e, "one": one, "net": nets[0], "files": files}
+    return {"k2": k2, "k1e": k1e, "one": one, "net": nets[0], "files": files,
+            "nets": nets, "batched": batched}
 
 
 def phase_corpus_times(scan: dict, card_line: str) -> dict:
@@ -940,7 +1008,406 @@ def phase_corpus_times(scan: dict, card_line: str) -> dict:
         f"({least[1]})",
         flush=True,
     )
-    return results, (kernel[0], plain[0], least, err)
+    return results, (kernel[0], plain[0], least, err), xs
+
+
+def perturbed(params: dict, lane: int) -> dict:
+    """``params`` with every layer's weights and biases scaled by
+    ``1 + 0.03 * lane``: a distinct net per lane for any configuration."""
+    scale = 1.0 + 0.03 * lane
+    return {**params, "layers": [{k: v * scale for k, v in layer.items()}
+                                 for layer in params["layers"]]}
+
+
+def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
+    """``got`` against ``want``: the same shape, both on the card, NaN in the
+    same places, the rest within the tolerance; returns the largest
+    absolute difference."""
+    if not (got.is_cuda and want.is_cuda):
+        raise AssertionError(f"{what}: a tensor left the card")
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or not g.size:
+        raise AssertionError(f"{what}: shapes {g.shape} {w.shape}")
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
+    finite = np.isfinite(w)
+    return float(np.abs(g - w)[finite].max()) if finite.any() else 0.0
+
+
+def phase_tiers() -> dict:
+    """Phase 12; returns the largest absolute difference against the plain
+    version per tier, for the frames input and for the grid layout."""
+    worst = {key: 0.0 for key in (*fused.TIERS, "frames", "grid")}
+    for name, cfg, x, rtol, atol in fixtures.fused_cases(10.0):
+        spec, params = detector.detector_spec_from_config(cfg, "cuda")
+        folded = fused.fold_constants(spec, params, "cuda")
+        xd = torch.from_numpy(x).cuda()
+        lanes = [perturbed(params, lane) for lane in range(3)]
+        stacked = fused.fold_constants_stacked(spec, lanes, "cuda")
+        xs = torch.stack([torch.roll(xd, 97 * lane) for lane in range(3)])
+        fp32 = fused.fused_offline_outputs(spec, params, xd, folded=folded)
+        fp32_lanes = fused.fused_batch_offline_outputs(spec, lanes, xs, folded=stacked)
+        report = []
+        for tier, kw in TIER_KW.items():
+            t_rtol, t_atol = TIER_TOL[tier]
+            # one bf16 pass against fp32 under log or dB scaling: the rounding
+            # of small magnitudes is amplified
+            wide = (5e-2, 5e-2) if tier == "fast" and spec.scaling != "linear" else TIER_TOL[tier]
+            before = (fused.TIER_LAUNCHES[tier], fused.GRID_LAUNCHES)
+            got = fused.fused_offline_outputs(spec, params, xd, folded=folded, **kw)
+            got_lanes = fused.fused_batch_offline_outputs(spec, lanes, xs, folded=stacked, **kw)
+            torch.cuda.synchronize()
+            if (fused.TIER_LAUNCHES[tier], fused.GRID_LAUNCHES) != (before[0] + 2, before[1] + 1):
+                raise AssertionError(f"{name} {tier}: the tier kernel was not launched")
+            plain = fused.fused_tier_outputs_reference(spec, folded, xd[None], tier)[0]
+            plain_lanes = fused.fused_tier_outputs_reference(spec, stacked, xs, tier)
+            err = max(held(got, plain, t_rtol, t_atol, f"{name} {tier}"),
+                      held(got_lanes, plain_lanes, t_rtol, t_atol, f"{name} {tier} per-lane"))
+            off = max(held(got, fp32, *wide, f"{name} {tier} vs fp32"),
+                      held(got_lanes, fp32_lanes, *wide, f"{name} {tier} per-lane vs fp32"))
+            worst[tier] = max(worst[tier], err)
+            report.append(f"{tier} {err:.3g} (vs fp32 {off:.3g})")
+        before = fused.FRAMES_LAUNCHES
+        got = fused.fused_offline_outputs(spec, params, xd, folded=folded, input_mode="frames")
+        torch.cuda.synchronize()
+        if fused.FRAMES_LAUNCHES != before + 1:
+            raise AssertionError(f"{name}: the frames-input kernel was not launched")
+        f = num_frames(len(x), spec.window_length, spec.window_overlap)
+        frames = frame_signal(xd, f, spec.window_length, spec.window_overlap)
+        err = held(got, fused.fused_frames_outputs_reference(spec, folded, frames), rtol, atol,
+                   f"{name} frames")
+        raw = held(got, fp32, 1e-5, 1e-6, f"{name} frames vs raw")
+        worst["frames"] = max(worst["frames"], err)
+        print(
+            f"phase 12 tiers {name}: evals {len(fp32)}, one stream and 3 per-lane nets, vs plain "
+            f"max_abs: {', '.join(report)}; frames input vs plain {err:.3g} (rtol={rtol}, "
+            f"atol={atol}), vs raw input {raw:.3g} (rtol=1e-5, atol=1e-6) ok",
+            flush=True,
+        )
+    # the slabbed grid: 160 lanes in slabs of 64 (64 + 64 + 32)
+    lanes = 160
+    pairs = [detector.detector_spec_from_config(fixtures.sample_geometry_config(2000 + i), "cuda")
+             for i in range(lanes)]
+    spec = pairs[0][0]
+    audio = torch.from_numpy(fixtures.chirp_audio(2.0, 51)).cuda()
+    xs = torch.stack([torch.roll(audio, 131 * lane) for lane in range(lanes)])
+    for nets, params in (("shared", pairs[0][1]), ("per-lane", [p for _, p in pairs])):
+        folded = (fused.fold_constants_stacked(spec, params, "cuda") if nets == "per-lane"
+                  else fused.fold_constants(spec, params, "cuda"))
+        before = fused.GRID_LAUNCHES
+        got = fused.fused_batch_offline_outputs(
+            spec, params, xs, layout="grid", slab_channels=64, folded=folded)
+        torch.cuda.synchronize()
+        if fused.GRID_LAUNCHES != before + 3:
+            raise AssertionError(f"grid {nets}: {fused.GRID_LAUNCHES - before} slab launches, not 3")
+        flat = fused.fused_batch_offline_outputs(spec, params, xs, folded=folded)
+        vs_flat = held(got, flat, 0.0, 1e-6, f"grid {nets} vs flat")
+        err = held(got, fused.fused_batch_outputs_reference(spec, folded, xs), 1e-3, 2e-4,
+                   f"grid {nets}")
+        worst["grid"] = max(worst["grid"], err)
+        print(
+            f"phase 12 slabs {nets} nets: [{lanes}, {xs.shape[1]}] in 3 slabs of 64 lanes "
+            f"({got.shape[1]} evals per lane): vs the flat kernel max_abs {vs_flat:.3g} "
+            f"(atol=1e-6), vs plain {err:.3g} (rtol=1e-3, atol=2e-4) ok",
+            flush=True,
+        )
+    return worst
+
+
+def same_csv(got: list[str], want: list[str], what: str) -> float:
+    """Line for line: columns 1-3 identical and outputs within 4e-7."""
+    worst = compare_csv(got, want)
+    if worst > 4e-7:
+        raise AssertionError(f"{what}: outputs differ by {worst}")
+    return worst
+
+
+def scan_lines(scan: dict, mesh) -> tuple[list[str], float]:
+    """(CSV lines, host seconds) of ``corpus.scan_corpus_files`` over the
+    corpus with the fused method, on ``mesh`` (None: unsharded)."""
+    lines: list[str] = []
+    t0 = time.perf_counter()
+    corpus.scan_corpus_files(
+        load_config(scan["net"]), scan["files"], emit=lines.append, err=lambda s: None,
+        method="fused", mesh=mesh, device="cuda",
+    )
+    torch.cuda.synchronize()
+    return lines, time.perf_counter() - t0
+
+
+def long_stream() -> np.ndarray:
+    """The 10-minute mono stream of the time-sharded form: the 60 s chirp
+    fixture, each minute with its own seed."""
+    return np.concatenate([fixtures.chirp_audio(60.0, 700 + i) for i in range(int(LONG_SECONDS // 60))])
+
+
+def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> dict:
+    """Phase 13: the sharded paths, every count from 0; returns the launch
+    counts of the run."""
+    mesh = pmesh.make_mesh(n_shards=MESH_SHARDS)
+    if not all(d.type == "cuda" for d in mesh.devices):
+        raise AssertionError(f"the mesh is not on the card: {mesh}")
+    reset_counts()
+
+    # the corpus through cli --mesh (one shard per card) and a 4-shard mesh
+    cli_lines, wall, err = run_cli(scan["one"] + ["--batched", "--mesh", "--method", "fused"])
+    if f"Mesh: {torch.cuda.device_count()} shard(s) on cuda:0" not in err:
+        raise AssertionError(f"cli --mesh did not say what it sharded over: {err[-500:]}")
+    worst = same_csv(cli_lines, scan["batched"], "cli --mesh")
+    after_cli = fused.BATCH_LAUNCHES
+    mesh_lines, mesh_wall = scan_lines(scan, mesh)
+    worst = max(worst, same_csv(mesh_lines, scan["batched"], "4-shard mesh scan"))
+    if after_cli < 1 or fused.BATCH_LAUNCHES != after_cli + MESH_SHARDS:
+        raise AssertionError(
+            f"batched kernel launches: {after_cli} for cli --mesh, "
+            f"{fused.BATCH_LAUNCHES - after_cli} for {MESH_SHARDS} shards")
+    print(
+        f"phase 13 mesh main path: cli --batched --mesh --method fused ({wall:.2f} s) and "
+        f"scan_corpus_files on {mesh} ({mesh_wall:.2f} s, {MESH_SHARDS} shards of "
+        f"{scan_xs.shape[0] // MESH_SHARDS} lanes): {len(mesh_lines)} CSV lines equal to the "
+        f"unsharded scan's line for line, outputs max diff {worst:.3g}; batched kernel "
+        f"launches {after_cli} + {MESH_SHARDS} ok",
+        flush=True,
+    )
+
+    # the scan's lanes with per-lane nets through the sharded grid layout,
+    # and under each tier through the slabbed grid
+    cfgs = [load_config(n) for n in scan["nets"]]
+    pairs = [detector.detector_spec_from_config(c, "cuda") for c in cfgs]
+    spec = pairs[0][0]
+    lanes = scan_xs.shape[0]
+    plist = [pairs[lane % len(pairs)][1] for lane in range(lanes)]
+    flat = fused.fused_batch_offline_outputs(spec, plist, scan_xs)
+    launches = fused.GRID_LAUNCHES
+    got = pmesh.sharded_fused_offline_outputs(mesh, spec, plist, scan_xs, layout="grid",
+                                              slab_channels=2)
+    slabs = fused.GRID_LAUNCHES - launches
+    if slabs != MESH_SHARDS * 2:
+        raise AssertionError(f"sharded grid: {slabs} slab launches, not {MESH_SHARDS * 2}")
+    grid_err = held(got, flat, 0.0, 1e-6, "sharded grid vs flat")
+    report = []
+    for tier, kw in TIER_KW.items():
+        tiered = fused.fused_batch_offline_outputs(spec, plist, scan_xs, **kw)
+        report.append(f"{tier} {held(tiered, flat, *TIER_TOL[tier], f'corpus lanes {tier}'):.3g}")
+    if min(fused.TIER_LAUNCHES.values()) < 1:
+        raise AssertionError(f"tier launches {fused.TIER_LAUNCHES}")
+    print(
+        f"phase 13 mesh: the scan's [{lanes}, {scan_xs.shape[1]}] lanes, per-lane nets, "
+        f"sharded_fused_offline_outputs(layout='grid', slab_channels=2) on {MESH_SHARDS} shards "
+        f"({slabs} slab launches) vs the unsharded flat kernel max_abs {grid_err:.3g} "
+        f"(atol=1e-6); each tier through the slabbed grid vs fp32 max_abs: {', '.join(report)} ok",
+        flush=True,
+    )
+
+    # one 10-minute stream, its time axis over 4 shards
+    params = pairs[0][1]
+    x = torch.from_numpy(long_stream()).cuda()
+    whole = detector.offline_outputs(spec, params, x)
+    time_mesh = pmesh.make_mesh(n_shards=MESH_SHARDS, axis="time")
+    launches = fused.LAUNCHES
+    report = []
+    for method, (rtol, atol) in (("matmul", (1e-4, 1e-5)), ("fused", (1e-3, 2e-4))):
+        got = pmesh.time_sharded_offline_outputs(time_mesh, spec, params, x, method=method)
+        report.append(f"{method} {held(got, whole, rtol, atol, f'time-sharded {method}'):.3g}")
+    if fused.LAUNCHES != launches + MESH_SHARDS:
+        raise AssertionError(f"time-sharded fused: {fused.LAUNCHES - launches} launches")
+    by_frames = fused.fused_offline_outputs(spec, params, x, input_mode="frames")
+    frames_err = held(got, by_frames, 1e-5, 1e-6, "time-sharded fused vs frames input")
+    if fused.FRAMES_LAUNCHES != 1:
+        raise AssertionError(f"frames-input launches {fused.FRAMES_LAUNCHES}")
+    print(
+        f"phase 13 mesh: time_sharded_offline_outputs on {len(x)} samples ({len(whole)} evals, "
+        f"{x.numel() * 4 / 1e6:.0f} MB) over {MESH_SHARDS} shards vs offline_outputs on the whole "
+        f"stream, max_abs: {', '.join(report)} (rtol=1e-4, atol=1e-5; fused 1e-3, 2e-4); fused vs "
+        f"the frames-input kernel on the whole stream {frames_err:.3g} (rtol=1e-5, atol=1e-6) ok",
+        flush=True,
+    )
+
+    # the feature axis over 4 shards: 29 bins -> 8 per shard, zero-padded
+    x60 = x[: int(CORPUS_SECONDS * NET_RATE)]
+    report = []
+    for scaling, (rtol, atol) in (("linear", (1e-3, 2e-4)), ("log", (2e-3, 5e-4)),
+                                  ("db", (2e-3, 5e-4))):
+        s_spec, s_params = detector.detector_spec_from_config(
+            fixtures.sample_geometry_config(0, scaling=scaling), "cuda")
+        got = pmesh.tensor_sharded_offline_outputs(mesh, s_spec, s_params, x60)
+        want = detector.offline_outputs(s_spec, s_params, x60)
+        report.append(f"{scaling} {held(got, want, rtol, atol, f'tensor-sharded {scaling}'):.3g}")
+    print(
+        f"phase 13 mesh: tensor_sharded_offline_outputs over {MESH_SHARDS} shards on a "
+        f"{CORPUS_SECONDS:g} s stream vs offline_outputs, max_abs: {', '.join(report)} "
+        f"(rtol=1e-3, atol=2e-4; log and dB 2e-3, 5e-4) ok",
+        flush=True,
+    )
+
+    # detection counts and streaming steps over the 16 lanes' first 10 s;
+    # the counts with the first net on every lane, whose threshold lies away
+    # from every output on this audio
+    xs = scan_xs[:, : 10 * NET_RATE].contiguous()
+    shared = neural_net.stack_params([params] * lanes)
+    counts = pmesh.sharded_detection_counts(mesh, spec, shared, xs)
+    outs = pmesh.batch_offline_outputs(spec, shared, xs)
+    want = int((outs >= torch.tensor(spec.thresholds, device="cuda")).sum())
+    if not counts.is_cuda or counts.dtype != torch.int32 or int(counts[0]) != want or want <= 0:
+        raise AssertionError(f"sharded_detection_counts {counts.tolist()} against {want}")
+    hops, steps = 16, 8
+    r = spec.residual
+    stacked = neural_net.stack_params(plist)
+    carries = neural_net.stack_params([detector.streaming_init(spec, lane[:r]) for lane in xs])
+    rows = []
+    for step in range(steps):
+        lo = r + step * hops * spec.hop
+        carries, out = pmesh.sharded_streaming_step(
+            mesh, spec, stacked, carries, xs[:, lo : lo + hops * spec.hop].contiguous())
+        rows.append(out)
+    got = torch.cat(rows, dim=1)[:, spec.history :]
+    used = r + steps * hops * spec.hop
+    want_rows = torch.stack([
+        detector.streaming_scan(spec, plist[lane], xs[lane, :used])[: got.shape[1]]
+        for lane in range(lanes)
+    ])
+    step_err = held(got, want_rows, 1e-4, 1e-5, "sharded_streaming_step")
+    print(
+        f"phase 13 mesh: sharded_detection_counts {counts.tolist()} equal to the count of the "
+        f"unsharded outputs; sharded_streaming_step, {lanes} lanes x {steps} steps of {hops} "
+        f"hops, vs streaming_scan max_abs {step_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        flush=True,
+    )
+    return {"frames": fused.FRAMES_LAUNCHES, "tiers": dict(fused.TIER_LAUNCHES),
+            "grid": fused.GRID_LAUNCHES, "batch": fused.BATCH_LAUNCHES, "one": fused.LAUNCHES}
+
+
+def phase_dist_scan(tmp: str, scan: dict) -> float:
+    """Phase 14: two dist_scan processes on the card; returns their wall
+    seconds."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_dir = os.path.join(tmp, "dist")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    argv = ["-n", scan["net"]] + [a for f in scan["files"] for a in ("-a", f)]
+    t0 = time.perf_counter()
+    ranks = [
+        subprocess.Popen(
+            [sys.executable, "-m", "syllable_detector_tpu_torch.dist_scan",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(rank), "--device", "cuda", "--method", "fused",
+             "-o", out_dir, *argv],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(2)
+    ]
+    try:
+        logs = [proc.communicate(timeout=300)[1] for proc in ranks]
+    finally:
+        for proc in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    totals = []
+    for rank, (proc, log) in enumerate(zip(ranks, logs)):
+        m = re.search(rf"process {rank}/2: (\d+) files, (\d+) detections \(global (\d+)\)", log)
+        if proc.returncode != 0 or not m:
+            raise AssertionError(f"dist_scan rank {rank}: exit {proc.returncode}: {log[-2000:]}")
+        totals.append(tuple(int(v) for v in m.groups()))
+    with open(os.path.join(out_dir, "merged.csv")) as fh:
+        merged = fh.read().splitlines()
+    worst = same_csv(merged, scan["batched"], "dist_scan merged.csv")
+    detections = len(merged) - len(scan["files"])
+    if [t[0] for t in totals] != [4, 4] or not (
+            totals[0][2] == totals[1][2] == totals[0][1] + totals[1][1] == detections):
+        raise AssertionError(f"dist_scan counts {totals} for {detections} detection lines")
+    print(
+        f"phase 14 dist_scan: 2 processes on cuda:0 (gloo over 127.0.0.1), {len(scan['files'])} "
+        f"files split 4 + 4, {wall:.2f} s: merged.csv equal to the single-process CSV line for "
+        f"line ({len(merged)} lines, outputs max diff {worst:.3g}); detections "
+        f"{totals[0][1]} + {totals[1][1]}, both ranks report global {totals[0][2]} ok",
+        flush=True,
+    )
+    return wall
+
+
+def phase_new_times(scan: dict, scan_xs: torch.Tensor, scan_k1e, dist_wall: float,
+                    card_line: str) -> dict:
+    """Phase 15; returns (kernel ms, plain ms, bound) per tier, for the
+    frames input (60 s stream) and for the grid layout (the scan's lanes)."""
+    cfg = fixtures.sample_geometry_config(0)
+    spec, params = detector.detector_spec_from_config(cfg, "cuda")
+    folded = fused.fold_constants(spec, params, "cuda")
+    xd = torch.from_numpy(fixtures.chirp_audio(60.0, 21)).cuda()
+    n = xd.numel()
+    times = {}
+    k1a = event_ms(lambda: fused.fused_offline_outputs(spec, params, xd, folded=folded))[0]
+    for tier, kw in TIER_KW.items():
+        kernel = event_ms(lambda: fused.fused_offline_outputs(spec, params, xd, folded=folded, **kw))
+        plain = event_ms(lambda: fused.fused_tier_outputs_reference(spec, folded, xd[None], tier))
+        times[tier] = (kernel[0], plain[0], fused_bound(spec, 1, n, 4, 1, tier=tier))
+    f = num_frames(n, spec.window_length, spec.window_overlap)
+    frames = frame_signal(xd, f, spec.window_length, spec.window_overlap).contiguous()
+    kernel = event_ms(lambda: fused.fused_offline_outputs(
+        spec, params, xd, folded=folded, input_mode="frames"))
+    plain = event_ms(lambda: fused.fused_frames_outputs_reference(spec, folded, frames))
+    times["frames"] = (kernel[0], plain[0], fused_bound(spec, 1, n, 4, 1, frames_input=True))
+    for name, (k, p, least) in times.items():
+        print(
+            f"phase 15 times [{card_line}]: {name} on the 60 s stream ({n} samples), median of "
+            f"21 x 10 calls: kernel {k:.4f} ms device, plain {p:.4f} ms device, the fp32 kernel "
+            f"{k1a:.4f} ms; bound {least[0]:.4f} ms ({least[1]})"
+            + (" (the kernel's time includes gathering the frames)" if name == "frames" else ""),
+            flush=True,
+        )
+    # the grid layout and the tiers on the corpus scan's lanes, beside the
+    # flat kernel (timed in phase 11 and again here, in turns)
+    net_spec, net_params = detector.detector_spec_from_config(load_config(scan["net"]), "cuda")
+    net_folded = fused.fold_constants(net_spec, net_params, "cuda")
+    lanes, width = scan_xs.shape
+
+    def run(**kw):
+        return event_ms(lambda: fused.fused_batch_offline_outputs(
+            net_spec, net_params, scan_xs, folded=net_folded, **kw), samples=11, batch=5)[0]
+
+    flat = [run()]
+    grid = [run(layout="grid"), run(layout="grid")]
+    flat.append(run())
+    tiers = {tier: run(**kw) for tier, kw in TIER_KW.items()}
+    times["grid"] = (statistics.median(grid), scan_k1e[1], scan_k1e[2])
+    print(
+        f"phase 15 times [{card_line}]: the scan's [{lanes}, {width}] lanes, median of 11 x 5 "
+        f"calls, in turns: flat kernel {flat[0]:.4f} / {flat[1]:.4f} ms, grid layout (one slab "
+        f"of {lanes} lanes) {grid[0]:.4f} / {grid[1]:.4f} ms; tiers through the grid: "
+        f"{', '.join(f'{t} {ms:.4f} ms' for t, ms in tiers.items())}; bound "
+        f"{scan_k1e[2][0]:.4f} ms ({scan_k1e[2][1]})",
+        flush=True,
+    )
+    # host walls: the sharded scan beside the unsharded one, in turns
+    mesh = pmesh.make_mesh(n_shards=MESH_SHARDS)
+    walls = {"unsharded": [], "mesh": []}
+    for mode in ("unsharded", "mesh", "mesh", "unsharded"):
+        walls[mode].append(scan_lines(scan, mesh if mode == "mesh" else None)[1])
+    x = torch.from_numpy(long_stream()).cuda()
+    time_mesh = pmesh.make_mesh(n_shards=MESH_SHARDS, axis="time")
+    long_walls = {"whole": [], "sharded": []}
+    for mode in ("whole", "sharded", "sharded", "whole") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "whole":
+            fused.fused_offline_outputs(spec, params, x, folded=folded)
+        else:
+            pmesh.time_sharded_offline_outputs(time_mesh, spec, params, x, method="fused")
+        torch.cuda.synchronize()
+        long_walls[mode].append((time.perf_counter() - t0) * 1e3)
+    print(
+        f"phase 15 times [{card_line}]: host clock, in turns: scan_corpus_files unsharded "
+        f"{', '.join(f'{s:.3f}' for s in walls['unsharded'])} s, on {MESH_SHARDS} shards of one "
+        f"card {', '.join(f'{s:.3f}' for s in walls['mesh'])} s; the {LONG_SECONDS:g} s stream "
+        f"through the fused kernel whole {statistics.median(long_walls['whole']):.3f} ms, "
+        f"time-sharded over {MESH_SHARDS} shards {statistics.median(long_walls['sharded']):.3f} ms "
+        f"(medians of 6, to completion); the two-process dist_scan {dist_wall:.2f} s",
+        flush=True,
+    )
+    return times
 
 
 def main() -> int:
@@ -957,7 +1424,7 @@ def main() -> int:
         flush=True,
     )
 
-    names = ("fused_detector", "framed_gemm")
+    names = ("fused_detector", "framed_gemm", "fused_detector_tiers")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.build, names))
     for name, (_, seconds, log) in zip(names, builds):
@@ -990,7 +1457,11 @@ def main() -> int:
         )
         resample_err = phase_resample_kernel()
         scan = phase_corpus(tmp)
-        resample_times, scan_k1e = phase_corpus_times(scan, card_line)
+        resample_times, scan_k1e, scan_xs = phase_corpus_times(scan, card_line)
+        new_err = phase_tiers()
+        mesh_counts = phase_mesh(tmp, scan, scan_xs, card_line)
+        dist_wall = phase_dist_scan(tmp, scan)
+        new_times = phase_new_times(scan, scan_xs, scan_k1e, dist_wall, card_line)
 
     def entry(name, source, replaces, launches, err, ms, least, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1012,6 +1483,13 @@ def main() -> int:
               batch_err["mulaw8"], times["mulaw8"], times["mulaw8"][2]),
         entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"], resample_err,
               (kernel[0], plain[0]), least, library[0]),
+        entry("fused_detector_frames", TIERS_SOURCE, REPLACES_FRAMES, mesh_counts["frames"],
+              new_err["frames"], new_times["frames"], new_times["frames"][2]),
+        *(entry(f"fused_detector_tiers {tier}", TIERS_SOURCE, REPLACES_TIERS,
+                mesh_counts["tiers"][tier], new_err[tier], new_times[tier], new_times[tier][2])
+          for tier in fused.TIERS),
+        entry("fused_detector_grid corpus", KERNEL_SOURCE, REPLACES_SLABBED, mesh_counts["grid"],
+              new_err["grid"], new_times["grid"], new_times["grid"][2]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -108,8 +108,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--mesh",
         action="store_true",
-        help="Batched mode only: shard the lanes across devices (not "
-        "ported yet).",
+        help="Batched mode only: shard the lanes across the visible CUDA "
+        "devices, one shard per device (with --device cpu: one CPU shard).",
     )
     p.add_argument(
         "--device",
@@ -221,14 +221,19 @@ def main(argv=None) -> int:
             )
             return 1
 
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A8)")
     if args.batched:
+        mesh = None
+        if args.mesh:
+            from syllable_detector_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(devices=[device] if device.type == "cpu" else None)
+            print(f"Mesh: {mesh}.", file=sys.stderr)
         scan_corpus_files(
             configs,
             args.audio,
             debounce_seconds=args.debounce,
             method=args.method,
+            mesh=mesh,
             resample=not args.no_resample,
             group_files=args.batch_files,
             device=device,

@@ -10,8 +10,9 @@ Per-file sample accounting and debounce reproduce ``TrackDetector``'s.
 Files whose rate differs from the net's are resampled per channel by the
 polyphase resampler (the framed GEMM kernel on a card).
 
-Every entry takes a ``device``; it defaults to ``cuda``. The JAX module's
-mesh-sharded scan is not ported yet (ROADMAP A8).
+Every entry takes a ``device``; it defaults to ``cuda``. With a ``mesh``
+(``parallel.make_mesh``) the lane axis is split across the mesh's shards,
+each on its own device and stream.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from syllable_detector_tpu_torch.utils.wav import read_audio
 
 __all__ = [
     "batch_offline_outputs_shared",
+    "sharded_batch_offline_outputs_shared",
     "scan_corpus",
     "corpus_csv_lines",
     "scan_corpus_files",
@@ -58,6 +60,25 @@ def batch_offline_outputs_shared(
     if method == "fused":
         return fused_batch_offline_outputs(spec, params, xs)
     return offline_outputs_batch(spec, params, xs, method)
+
+
+def sharded_batch_offline_outputs_shared(
+    mesh, spec: DetectorSpec, params, xs: torch.Tensor, method: str = "matmul"
+) -> torch.Tensor:
+    """[C, n] streams split over the mesh's shards -> [C, E, outputs] on
+    shard 0's device. ``params``: one shared net (used by every shard) or C
+    distinct per-lane nets (split with their lanes). C must divide by the
+    mesh size (scan_corpus pads). Lanes never communicate."""
+    from syllable_detector_tpu_torch.models.neural_net import stack_params
+    from syllable_detector_tpu_torch.parallel.mesh import (
+        sharded_fused_offline_outputs,
+        sharded_offline_outputs,
+    )
+
+    if method == "fused":
+        return sharded_fused_offline_outputs(mesh, spec, params, xs)
+    plist = list(params) if isinstance(params, (list, tuple)) else [params] * xs.shape[0]
+    return sharded_offline_outputs(mesh, spec, stack_params(plist), xs, method=method)
 
 
 # bounded LRU so long-lived callers don't accumulate specs for dead configs
@@ -93,6 +114,7 @@ def scan_corpus(
     cfg: SyllableDetectorConfig,
     streams: Sequence[np.ndarray],
     method: str = "matmul",
+    mesh=None,
     lane_configs: Optional[Sequence[SyllableDetectorConfig]] = None,
     device="cuda",
 ) -> list[np.ndarray]:
@@ -102,6 +124,9 @@ def scan_corpus(
     trimmed back to the stream's true evaluation count. Zero padding cannot
     create detections by itself, but an eval window straddling the end of a
     short stream sees padded zeros exactly as the reference sees silence.
+    With ``mesh``, the lane axis is split across the mesh's shards (lanes
+    padded to a multiple of the mesh size); the batch is placed on
+    ``device`` and each shard takes its lanes from there.
 
     ``lane_configs`` gives each stream its own DISTINCT network, one config
     per stream, all sharing ``cfg``'s pipeline geometry (thresholds may
@@ -127,14 +152,22 @@ def scan_corpus(
                 )
             params.append(p_i)
     streams = [np.asarray(s, np.float32).reshape(-1) for s in streams]
-    xs = np.zeros((len(streams), _bucket(max(len(s) for s in streams))), np.float32)
+    lanes = len(streams)
+    if mesh is not None:
+        n_dev = int(np.prod(list(mesh.shape.values())))
+        lanes = -(-lanes // n_dev) * n_dev
+        if lane_configs is not None:
+            # padding lanes reuse net 0 (their outputs are sliced away)
+            params = params + [params[0]] * (lanes - len(streams))
+    xs = np.zeros((lanes, _bucket(max(len(s) for s in streams))), np.float32)
     for i, s in enumerate(streams):
         xs[i, : len(s)] = s
-    outs = (
-        batch_offline_outputs_shared(spec, params, torch.from_numpy(xs).to(device), method)
-        .cpu()
-        .numpy()
-    )
+    xd = torch.from_numpy(xs).to(device)
+    if mesh is not None:
+        outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
+    else:
+        outs = batch_offline_outputs_shared(spec, params, xd, method)
+    outs = outs.cpu().numpy()
     results = []
     for i, s in enumerate(streams):
         f = num_frames(len(s), cfg.window_length, cfg.window_overlap)
@@ -175,6 +208,7 @@ def scan_corpus_files(
     err=None,
     method: str = "matmul",
     headers: Optional[bool] = None,
+    mesh=None,
     resample: bool = True,
     group_files: Optional[int] = None,
     device="cuda",
@@ -205,7 +239,8 @@ def scan_corpus_files(
             scan_corpus_files(
                 cfgs, paths[i : i + group_files],
                 debounce_seconds=debounce_seconds, emit=emit, err=err,
-                method=method, headers=forced, resample=resample, device=device,
+                method=method, mesh=mesh, headers=forced, resample=resample,
+                device=device,
             )
         return
     streams = []  # one entry per (file, channel) lane
@@ -234,7 +269,9 @@ def scan_corpus_files(
     if not streams:
         return
     lane_cfgs = [cfgs[c % len(cfgs)] for _, c in lanes] if len(cfgs) > 1 else None
-    results = scan_corpus(cfg, streams, method=method, lane_configs=lane_cfgs, device=device)
+    results = scan_corpus(
+        cfg, streams, method=method, mesh=mesh, lane_configs=lane_cfgs, device=device
+    )
     debounce = int((debounce_seconds or 0.0) * cfg.sampling_rate)
     multiple = len(good_paths) > 1 if headers is None else headers
     by_file: dict[int, list] = {}

@@ -33,6 +33,7 @@ __all__ = [
     "pick_thresholds",
     "FRAMED_GEMM_GEOMETRIES",
     "RESAMPLE_PAIRS",
+    "TIER_CASES",
 ]
 
 RATE = 44100
@@ -51,6 +52,18 @@ RESAMPLE_PAIRS = (
     (32000.0, 44100.0),
     (22050.0, 44100.0),
 )
+
+# precision tier -> (the fused entries' keywords for it, rtol, atol): the
+# tolerance a tier is held to against its plain version and against the JAX
+# kernel run with the same keywords. rtol=2e-3, atol=5e-4 is the JAX
+# package's bound for its split tiers, 1e-2 / 1e-2 its own for split=4; one
+# bf16 pass (fast) keeps about three digits.
+TIER_CASES = {
+    "fast": ({"fast": True}, 1e-2, 1e-2),
+    "split": ({"split": True}, 2e-3, 5e-4),
+    "conv": ({"split": "conv"}, 2e-3, 5e-4),
+    "split4": ({"split": 4}, 1e-2, 1e-2),
+}
 
 
 def sample_geometry_config(

@@ -7,6 +7,9 @@ Counterpart of ``syllable_detector_tpu.models.detector``:
     stack -> scaling -> MLP. The unfused path and the port's oracle.
   * :func:`offline_outputs_batch` — the same over ``[C, n]`` streams with
     one shared net or one net per channel (``torch.func.vmap``).
+  * :func:`streaming_init`, :func:`streaming_step`, :func:`streaming_scan` —
+    fixed-shape streaming with a (residual samples, frame history) carry,
+    the form the mesh shards over lanes.
   * :class:`Detector` — host-side object with the reference's
     appendAudioData / processNewValue semantics for arbitrary chunk sizes,
     draining either through the unfused path (``matmul`` / ``rfft``) or
@@ -51,6 +54,9 @@ __all__ = [
     "detect_features",
     "offline_outputs",
     "offline_outputs_batch",
+    "streaming_init",
+    "streaming_step",
+    "streaming_scan",
     "deinterleave_frames",
     "Detector",
     "MAX_DRAIN_FRAMES",
@@ -94,6 +100,11 @@ class DetectorSpec:
     def history(self) -> int:
         """Frames of history carried between evals (timeRange - 1)."""
         return self.time_range - 1
+
+    @property
+    def residual(self) -> int:
+        """Samples left in the ring after each consumed hop."""
+        return normalize_overlap(self.window_overlap)[1]
 
     @property
     def first_output_sample(self) -> int:
@@ -185,6 +196,105 @@ def offline_outputs_batch(
             lambda p, x: offline_outputs(spec, p, x, method)
         )(stack_params(list(params)), xs)
     return torch.func.vmap(lambda x: offline_outputs(spec, params, x, method))(xs)
+
+
+def streaming_init(
+    spec: DetectorSpec, prefix: torch.Tensor | None = None, device="cuda"
+) -> dict:
+    """Initial streaming carry on ``device`` (on ``prefix``'s device when one
+    is given).
+
+    ``prefix`` must be the stream's first ``spec.residual`` samples (they
+    prime the overlap window); pass None to start from zeros (outputs for
+    the first ``time_range - 1`` frames are then warm-up garbage and the
+    first ``residual`` samples are treated as zero).
+    """
+    r = spec.residual
+    if prefix is not None:
+        prefix = torch.as_tensor(prefix, dtype=torch.float32)
+        if prefix.shape != (r,):
+            raise ValueError(
+                f"prefix must be the stream's first {r} samples "
+                f"(spec.residual), got shape {tuple(prefix.shape)}"
+            )
+        device = prefix.device
+        res = prefix
+    else:
+        res = torch.zeros(r, dtype=torch.float32, device=device)
+    return {
+        "residual": res,
+        "history": torch.zeros(
+            (spec.history, spec.n_bins), dtype=torch.float32, device=device
+        ),
+    }
+
+
+def streaming_step(
+    spec: DetectorSpec,
+    params: dict,
+    carry: dict,
+    chunk: torch.Tensor,
+    method: str = "matmul",
+) -> tuple[dict, torch.Tensor]:
+    """One fixed-shape step over a chunk of ``H * hop`` samples.
+
+    Emits exactly H outputs (one per hop). Output h of the global stream's
+    frame g is valid once g >= time_range - 1; the caller discards the
+    warm-up rows, reproducing the reference's "first decision after
+    window + hop*(timeRange-1) samples" accounting.
+    """
+    hop = spec.hop
+    h_hops = chunk.shape[0] // hop
+    if chunk.shape[0] != h_hops * hop:
+        raise ValueError(
+            f"chunk length {chunk.shape[0]} must be a multiple of the "
+            f"hop ({hop})"
+        )
+    samples = torch.cat([carry["residual"], chunk])
+    band = _band(spec, samples, h_hops, method)
+    hist = torch.cat([carry["history"], band])  # [T-1+H, B]
+    outs = detect_features(spec, params, stack_features(hist, spec.time_range))
+    new_carry = {
+        "residual": samples[h_hops * hop :],
+        "history": hist[h_hops:],
+    }
+    return new_carry, outs
+
+
+def streaming_scan(
+    spec: DetectorSpec,
+    params: dict,
+    x: torch.Tensor,
+    chunk_hops: int = 16,
+    method: str = "matmul",
+) -> torch.Tensor:
+    """Run a whole stream through :func:`streaming_step`, chunk after chunk
+    -> [n_evals, outputs].
+
+    Numerically identical to :func:`offline_outputs` (the first
+    ``spec.residual`` samples prime the carry; warm-up rows are dropped).
+    The JAX package scans on the device; here the loop over chunks is
+    Python's.
+    """
+    r = spec.residual
+    step_len = chunk_hops * spec.hop
+    n = x.shape[0]
+    # zero-pad the tail to a whole number of chunks; each evaluation depends
+    # only on its own sample window, so the padded ones are sliced away below
+    n_chunks = -(-(n - r) // step_len) if n > r else 0
+    usable = r + n_chunks * step_len
+    if usable > n:
+        x = torch.cat([x, x.new_zeros(usable - n)])
+    carry = streaming_init(spec, prefix=x[:r])
+    outs = []
+    for chunk in x[r:usable].reshape(n_chunks, step_len):
+        carry, o = streaming_step(spec, params, carry, chunk, method=method)
+        outs.append(o)
+    f = num_frames(n, spec.window_length, spec.window_overlap)
+    n_evals = max(0, f - spec.time_range + 1)
+    if not outs:
+        return x.new_zeros((0, spec.net.outputs))
+    return torch.cat(outs)[spec.history : spec.history + n_evals]
 
 
 def deinterleave_frames(

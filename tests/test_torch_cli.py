@@ -225,6 +225,22 @@ def test_runs_with_jax_blocked(files):
     assert proc.stdout.splitlines() == want and len(want) > 20
 
 
+@pytest.mark.parametrize("module", ["cli", "sim", "monitor", "dist_scan"])
+def test_entry_points_print_help(module):
+    """Each entry point of the port starts as ``python -m`` with jax blocked
+    (``--help`` parses nothing else and exits 0)."""
+    proc = blocked_run(
+        "import runpy\n"
+        f"sys.argv = ['{module}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('syllable_detector_tpu_torch.{module}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout and "--device" in proc.stdout
+
+
 def test_source_never_imports_jax():
     """No module of the port, and not chip_smoke.py, imports jax or any
     part of the JAX package, or loads a file by its path."""
@@ -241,6 +257,8 @@ def test_source_never_imports_jax():
         assert pattern.search(bad), bad
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
+    for new in ("parallel/__init__.py", "parallel/mesh.py", "dist_scan.py"):
+        assert PORT / new in sources
     hits = [
         f"{src}: {m.group(0).strip()}"
         for src in sources

@@ -128,10 +128,21 @@ def test_sequential_cli_resamples_like_jax(corpus, method, monkeypatch):
     assert_csv_close(batched, got)
 
 
-def test_cli_mesh_is_not_ported(corpus):
+def test_cli_mesh_is_not_ported(corpus, monkeypatch):
+    """``--mesh`` used to raise; it now shards the lanes (on the CPU: one
+    shard) and gives the unsharded CSV and the JAX CLI's (the name is kept
+    from the time it was not ported)."""
     _, _, p = corpus
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_main(["-n", p["net0"], "-a", p["one"], "--batched", "--mesh", "--device", "cpu"])
+    argv = ["-n", p["net0"], "-a", p["two"], "-a", p["fast"], "--batched"]
+    rc, got, err = run(port_main, argv + ["--mesh", "--method", "fused", "--device", "cpu"])
+    assert rc == 0 and "Mesh: 1 shard(s) on cpu." in err
+    assert got == run(port_main, argv + ["--method", "fused", "--device", "cpu"])[1]
+    jrc, want, _ = run_jax(argv + ["--mesh"], monkeypatch)
+    assert jrc == 0 and len(got) == len(want) > 5
+    files = [p["two"], p["fast"]]
+    got_f, want_f = split_files(got, files), split_files(want, files)
+    for path in files:
+        assert_csv_close(got_f[path], want_f[path])
 
 
 @pytest.mark.parametrize("method", ["matmul", "fused"])

@@ -193,9 +193,16 @@ def test_flat_batch_n_evals_contract_and_tiers(cfgs):
     np.testing.assert_array_equal(short.numpy(), full[:, :5].numpy())
     with pytest.raises(ValueError, match="per-channel networks"):
         tfused.fused_flat_batch_offline_outputs(tspec, tparams[:2], xs)
-    for kw in ({"fast": True}, {"split": True}, {"packed": True}, {"layout": "grid"}):
-        with pytest.raises(NotImplementedError, match="B4"):
-            tfused.fused_batch_offline_outputs(tspec, tparams, xs, **kw)
+    # the tiers and the grid layout run (tests/test_torch_tiers.py holds them
+    # against the JAX kernel); packed and the fp32 grid change no value
+    for kw, atol in (({"fast": True}, 1e-2), ({"split": True}, 5e-4),
+                     ({"packed": True}, 0.0), ({"layout": "grid", "slab_channels": 2}, 0.0)):
+        got = tfused.fused_batch_offline_outputs(tspec, tparams, xs, **kw)
+        np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0, atol=atol)
+    with pytest.raises(ValueError, match="unknown split"):
+        tfused.fused_batch_offline_outputs(tspec, tparams, xs, split=3)
+    with pytest.raises(ValueError, match="unknown layout"):
+        tfused.fused_batch_offline_outputs(tspec, tparams, xs, layout="rows")
     assert tfused.fused_batch_program(tspec, tparams, 1000, "int16", "cpu") is None
     with pytest.raises(ValueError, match="per-lane params list"):
         tfused.fused_batch_program(tspec, tparams[0], 5536, "int16", "cpu")
