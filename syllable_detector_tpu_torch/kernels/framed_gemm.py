@@ -12,22 +12,181 @@ gap before every frame).
 CUDA tensor, raising rather than falling back, and runs the plain PyTorch
 version, :func:`framed_gemm_reference`, for a CPU tensor. Launches are
 counted in :data:`FRAMED_GEMM_LAUNCHES`.
+
+The kernel skips G's zeros. The resampler's G is banded, so for each tile
+of neighbouring columns only a short range of rows holds a non-zero.
+:func:`tiling` picks the tile width and the frames per CTA from the shape,
+:func:`column_bands` finds each tile's row range ``[lo, hi)`` from the
+tensor (a dense G gives ``[0, window)``), and :func:`band_layout` lays the
+bands out as the kernel reads them; both are computed once per G and kept
+(:func:`_bands_of`). A skipped row would have added an exact zero, so on
+finite samples the result is the dense product's. On a NaN or an Inf it
+would not be: ``0 * NaN`` is NaN, so the dense product (the plain version,
+and the JAX kernel) has NaN in EVERY column of a frame that holds a
+non-finite sample wherever G has a zero in that row. The kernel keeps that
+result: a CTA whose staged samples hold a NaN or an Inf sums over all of
+G's rows, so NaN falls in the same places as in the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length, normalize_overlap
 
-__all__ = ["FRAMED_GEMM_LAUNCHES", "framed_gemm", "framed_gemm_reference"]
+__all__ = [
+    "FRAMED_GEMM_LAUNCHES",
+    "Tiling",
+    "tiling",
+    "column_bands",
+    "band_layout",
+    "framed_gemm",
+    "framed_gemm_reference",
+]
 
 # Kernel launches in this process; reset to 0 before a run whose launches
 # are to be counted.
 FRAMED_GEMM_LAUNCHES = 0
+# Dynamic shared memory one CTA may opt in to on Hopper (227 KB), and the
+# span above which a CTA takes fewer frames: small CTAs, many to an SM, hide
+# the staging of one behind the sums of another (on an H100 at 48k -> 44.1k,
+# 32 frames a CTA took two thirds of the time of 64 and half that of 128).
+SMEM_LIMIT = 232448
+SPAN_TARGET = 24 * 1024
+# The kernel's register tile: frames x columns per thread.
+FRAMES_PER_THREAD = 8
+COLS_PER_THREAD = 4
+MAX_WARPS = 8
+# A CTA with fewer units than SPLIT_WARPS splits the rows of each over
+# several warps, a part of at least MIN_PART_ROWS rows each.
+SPLIT_WARPS = 4
+MIN_PART_ROWS = 16
+
+
+class Tiling(NamedTuple):
+    """How one launch is cut: a warp is ``32 // cg`` threads across frames
+    by ``cg`` across columns, a thread owns 8 frames x 4 columns, so a
+    warp's unit is ``8 * 32 // cg`` frames x ``cw = 4 * cg`` columns; a CTA
+    stages the span of ``frames`` frames and its warps take the
+    ``n_tiles * frames // unit frames`` units in turn, or, with ``ksplit``
+    above 1, ``ksplit`` warps share each unit, a part of the rows each."""
+
+    cg: int  # threads of a warp across columns: 1, 2, 4 or 8
+    cw: int  # columns per tile
+    n_tiles: int  # column tiles
+    frames: int  # frames per CTA
+    ksplit: int  # warps per unit
+    threads: int  # threads per CTA
+    vec: bool  # samples read as float4 along k (hop % 4 == 0)
+    span_bytes: int  # shared memory per CTA for the samples
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _span_bytes(frames: int, window: int, hop: int) -> int:
+    # 8 floats of slack: a tile's rows run to lo + rows <= window + 6
+    return _round_up((frames - 1) * hop + window + 8, 4) * 4
+
+
+def tiling(window: int, m: int, hop: int) -> Tiling:
+    """The kernel's tiling of a ``[*, window] @ [window, m]`` product at
+    ``hop``: the narrowest column tile of 4, 8, 16 or 32 that holds ``m``
+    (32 for wider products), and as many frames per CTA as give 8 warps a
+    unit each, fewer while the staged span is above :data:`SPAN_TARGET`.
+    A CTA left with one or two units (a narrow G at a long hop) gives each
+    to 4 or 2 warps, a part of the rows each (at least
+    :data:`MIN_PART_ROWS`), so that it has warps enough to hide its loads.
+    Else a CTA has a warp per unit up to 4, 4 warps for 5 to 7 units (5
+    such CTAs fit an SM's registers, 4 of 5 warps do not fill a wave of the
+    resampler's grid) and 8 from 8 units on. Raises when one unit's span
+    does not fit in shared memory."""
+    cw = next((w for w in (4, 8, 16) if m <= w), 32)
+    cg = cw // COLS_PER_THREAD
+    n_tiles = -(-m // cw)
+    unit = FRAMES_PER_THREAD * 32 // cg
+    blocks = max(1, -(-MAX_WARPS // n_tiles))
+    while blocks > 1 and _span_bytes(blocks * unit, window, hop) > SPAN_TARGET:
+        blocks -= 1
+    span = _span_bytes(blocks * unit, window, hop)
+    units = n_tiles * blocks
+    ksplit = 1
+    while units * ksplit * 2 <= SPLIT_WARPS and window // (ksplit * 2) >= MIN_PART_ROWS:
+        ksplit *= 2
+    if ksplit > 1:
+        warps = units * ksplit  # one warp per part of each unit
+        span_and_sums = span + 4 * 32 * warps * FRAMES_PER_THREAD * COLS_PER_THREAD
+    else:
+        warps = units if units <= 4 else 4 if units < MAX_WARPS else MAX_WARPS
+        span_and_sums = span
+    if span_and_sums > SMEM_LIMIT:
+        raise ValueError(
+            f"the framed GEMM kernel stages {span_and_sums} bytes per CTA at window "
+            f"{window}, hop {hop}; the card offers {SMEM_LIMIT}"
+        )
+    return Tiling(cg, cw, n_tiles, blocks * unit, ksplit, 32 * warps, hop % 4 == 0, span)
+
+
+def column_bands(g: torch.Tensor, cw: int) -> list[tuple[int, int]]:
+    """For each tile of ``cw`` neighbouring columns of ``g`` [window, m],
+    the row range ``[lo, hi)`` outside which all of the tile's columns are
+    zero (``(0, 0)`` for a tile of zeros). A dense ``g`` gives
+    ``(0, window)`` for every tile."""
+    window, m = g.shape
+    n_tiles = -(-m // cw)
+    nz = torch.zeros((window, n_tiles * cw), dtype=torch.bool, device=g.device)
+    nz[:, :m] = g != 0
+    rows = nz.view(window, n_tiles, cw).any(dim=2)  # [window, tiles]
+    idx = torch.arange(window, device=g.device)[:, None]
+    lo = torch.where(rows, idx, window).min(dim=0).values
+    hi = torch.where(rows, idx + 1, 0).max(dim=0).values
+    return [(int(a), int(b)) if b > a else (0, 0) for a, b in zip(lo.tolist(), hi.tolist())]
+
+
+def band_layout(
+    g: torch.Tensor, bands: list[tuple[int, int]], cg: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(band [tiles, rows, 4*cg] float32, ranges [tiles, 2] int32)`` on
+    ``g``'s device, as the kernel reads them: tile t covers rows ``[lo4,
+    lo4 + n)`` of ``g`` with ``lo4 = lo`` rounded down and ``n`` rounded up
+    to a multiple of 4 (``ranges[t] = (lo4, n)``; rows past ``hi`` or the
+    window are zero), and a thread's four columns lie side by side:
+    ``band[t, r, ci*4 + j] = g[lo4 + r, t*cw + j*cg + ci]``."""
+    window, m = g.shape
+    cw = COLS_PER_THREAD * cg
+    ranges = [(lo // 4 * 4, _round_up(hi - lo // 4 * 4, 4)) for lo, hi in bands]
+    depth = max(4, max(n for _, n in ranges))
+    padded = g.new_zeros((window + 4, len(bands) * cw))
+    padded[:window, :m] = g
+    band = g.new_zeros((len(bands), depth, cw))
+    for t, (lo4, n) in enumerate(ranges):
+        src = padded[lo4 : lo4 + n, t * cw : (t + 1) * cw]
+        band[t, :n] = src.reshape(n, COLS_PER_THREAD, cg).transpose(1, 2).reshape(n, cw)
+    return band.contiguous(), torch.tensor(ranges, dtype=torch.int32, device=g.device)
+
+
+# (data pointer, version, shape, device) of a G -> (G, band, ranges, bands):
+# G itself is held so that its memory cannot be handed to another tensor
+# while the entry lives; an in-place write to G changes its version.
+_BANDS: dict = {}
+_BANDS_KEPT = 16
+
+
+def _bands_of(g: torch.Tensor, cg: int):
+    key = (g.data_ptr(), g._version, tuple(g.shape), g.device, cg)
+    hit = _BANDS.get(key)
+    if hit is None:
+        bands = column_bands(g, COLS_PER_THREAD * cg)
+        hit = (g, *band_layout(g, bands, cg), bands)
+        while len(_BANDS) >= _BANDS_KEPT:
+            _BANDS.pop(next(iter(_BANDS)))
+        _BANDS[key] = hit
+    return hit
 
 
 def framed_gemm_reference(
@@ -43,7 +202,10 @@ def framed_gemm(
 ) -> torch.Tensor:
     """``frame_signal(x, n_frames, window, window_overlap) @ g``: [n] float32
     x [window, m] float32 -> [n_frames, m] float32. A CUDA ``x`` launches the
-    kernel, or raises; a CPU ``x`` runs :func:`framed_gemm_reference`."""
+    kernel, or raises; a CPU ``x`` runs :func:`framed_gemm_reference`. Any
+    ``g`` is served; the zero rows of its column tiles are found once per
+    ``g`` and skipped, and a non-finite sample gives NaN where the dense
+    product has it (see the note at the head of this module)."""
     global FRAMED_GEMM_LAUNCHES
     if g.dim() != 2 or g.shape[0] != window:
         raise ValueError(f"g of shape {tuple(g.shape)} does not have {window} rows")
@@ -56,10 +218,13 @@ def framed_gemm(
     lib = _library()
     gap, _ = normalize_overlap(window_overlap)
     hop = hop_length(window, window_overlap)
+    cut = tiling(window, m, hop)
+    _, band, ranges, _ = _bands_of(g, cut.cg)
     out = torch.empty((n_frames, m), dtype=torch.float32, device=x.device)
     err = lib.sd_framed_gemm(
         x.data_ptr(), x.shape[0], g.data_ptr(), window, m, hop, gap, n_frames,
-        out.data_ptr(),
+        out.data_ptr(), band.data_ptr(), ranges.data_ptr(), band.shape[1], cut.cg,
+        cut.ksplit, cut.frames, cut.threads, int(cut.vec),
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -99,7 +264,7 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.load("framed_gemm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, i, p]
+    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, p, p, i, i, i, i, i, i, i, p]
     lib.sd_framed_gemm.restype = i
     lib.sd_framed_gemm_error_string.argtypes = [i]
     lib.sd_framed_gemm_error_string.restype = ctypes.c_char_p

@@ -22,7 +22,20 @@ slabs of ``slab_channels`` lanes, one launch per slab. The algebra:
   * the output chain's reverse mapping is one affine after the last layer.
 
 :func:`fold_constants` computes those operands in float64 and casts them
-once (:func:`fold_constants_stacked` for one net per channel). Each entry
+once (:func:`fold_constants_stacked` for one net per channel).
+
+The fp32 kernel runs the band DFT on the tensor cores (``wgmma``) as three
+TF32 products of split operands (``a_lo @ c_hi + a_hi @ c_lo + a_hi @
+c_hi``, accumulated in fp32), which keeps fp32 accuracy (about 1e-6
+relative; the counterpart of ``Precision.HIGHEST``'s bf16 passes on the
+TPU). The fold splits C once and lays it out as the tensor cores read it
+(:func:`tile_dft_matrix`, from :func:`pad_dft_matrix`: columns permuted into
+8-column re and im tiles, zero-padded); the kernel splits the samples as it
+loads them; :func:`split_dft_reference` is that arithmetic in plain
+PyTorch. A CTA transforms ``frames`` frames for ``frames - timeRange + 1``
+evaluations; :func:`cta_frames` picks ``frames`` from the launch shape (64
+for a live bucket on many lanes, 128 for long lanes) and
+:func:`fp32_smem_bytes` is the shared memory it needs. Each entry
 launches the kernel for a CUDA tensor, raising rather than falling back,
 and runs its plain PyTorch version (:func:`fused_offline_outputs_reference`,
 :func:`fused_batch_outputs_reference`, :func:`fused_tier_outputs_reference`,
@@ -70,6 +83,12 @@ __all__ = [
     "fusable",
     "fold_constants",
     "fold_constants_stacked",
+    "pad_dft_matrix",
+    "tile_dft_matrix",
+    "split_dft_reference",
+    "cta_frames",
+    "fp32_smem_bytes",
+    "stage_shares",
     "dequant_int16",
     "dequant_mulaw8",
     "dequant",
@@ -83,11 +102,26 @@ __all__ = [
     "fused_batch_program",
 ]
 
-# Evaluations per CTA. At the sample geometry one CTA then stages ~33 KB of
-# shared memory (samples, spectrogram, activations). Measured on an H100:
-# within 2 % of the best tile for one CLI drain step (~500 evaluations) and
-# within 13 % for a 60 s stream (PERF.md).
+# Evaluations per CTA of the tier kernel before it is rounded to whole
+# tensor-core fragments (see _tiers_tile).
 TILE = 32
+# Frames one CTA of the fp32 kernel may transform (multiples of the 64 rows
+# of a wgmma tile); it serves frames - timeRange + 1 evaluations.
+CTA_FRAMES = (64, 128)
+# The fp32 kernel's staging of C: rows per shared-memory stage, stages, and
+# the bins of one column tile (csrc/fused_detector.cu).
+DFT_BLOCK_ROWS = 16
+DFT_STAGES = 3
+DFT_GROUP_BINS = 8
+# Columns of one wgmma tile: 4 bin groups, re and im.
+DFT_UNIT_COLS = 64
+# An H100's SMs (for choosing a tile where no card can be asked), the shared
+# memory and registers of one, and the registers a thread of the fp32 kernel
+# takes at most (ptxas reports 106-114; the build log has them).
+H100_SMS = 132
+SM_SMEM = 233472
+SM_REGISTERS = 65536
+KERNEL_REGISTERS = 120
 # Dynamic shared memory one CTA may opt in to on Hopper (227 KB).
 SMEM_LIMIT = 232448
 
@@ -146,6 +180,9 @@ class FusedOperands(NamedTuple):
     # bf16 halves for the tier kernel, split once per fold: (c_hi, c_lo,
     # w1g_hi, w1g_lo), see split_operands
     tiers: tuple | None = None
+    # c split into TF32 halves in the fp32 kernel's layout, see
+    # tile_dft_matrix
+    c_tiled: torch.Tensor | None = None
 
 
 def fusable(spec: DetectorSpec) -> bool:
@@ -213,11 +250,81 @@ def fold_constants(spec: DetectorSpec, params: dict, device) -> FusedOperands:
         has_l2=has_l2,
         mids_flat=dev(np.concatenate(flat) if flat else np.zeros(0)),
         tiers=split_operands(c_t, w1_t),
+        c_tiled=tile_dft_matrix(c_t),
     )
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (float32) rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: the bit pattern
+    plus half a unit of the last kept place, the 13 low bits cleared."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t`` as two TF32 halves: ``hi = tf32(t)``, ``lo = tf32(t - hi)``."""
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _tile_columns(bins: int, device) -> torch.Tensor:
+    """Column of re of each bin in the fp32 kernel's layout: tiles of 8, tile
+    ``2j`` re of bins ``8j .. 8j+7`` and tile ``2j+1`` their im (8 further)."""
+    k = torch.arange(bins, device=device)
+    return (k // DFT_GROUP_BINS) * 2 * DFT_GROUP_BINS + k % DFT_GROUP_BINS
+
+
+def pad_dft_matrix(c: torch.Tensor) -> torch.Tensor:
+    """The folded ``c`` [window, 2*bins] (re | im) with its columns in the
+    fp32 kernel's tiles of 8 (tile ``2j`` re of bins ``8j .. 8j+7``, tile
+    ``2j+1`` their im), zero-padded to whole :data:`DFT_UNIT_COLS` columns
+    and :data:`DFT_BLOCK_ROWS` rows: ``[rows, cols]`` float32. A padded
+    column or row adds nothing."""
+    window, two_b = c.shape
+    b = two_b // 2
+    col = _tile_columns(b, c.device)
+    cols = _round_up(2 * DFT_GROUP_BINS * -(-b // DFT_GROUP_BINS), DFT_UNIT_COLS)
+    padded = c.new_zeros((_round_up(window, DFT_BLOCK_ROWS), cols))
+    padded[:window, col] = c[:, :b]
+    padded[:window, col + DFT_GROUP_BINS] = c[:, b:]
+    return padded
+
+
+def tile_dft_matrix(c: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's DFT operand from the folded ``c``: the padded
+    matrix of :func:`pad_dft_matrix` split into TF32 halves and laid out as
+    the tensor cores read it from shared memory, so that a row block is one
+    contiguous copy: ``[blocks, 2 (hi, lo), steps, chunks, 8, 2, 8, 4]`` =
+    blocks of :data:`DFT_BLOCK_ROWS` rows x halves x k-steps of 8 rows x
+    chunks of 64 columns x blocks of 8 columns x halves of a k-step x
+    column x row."""
+    padded = pad_dft_matrix(c)
+    rows, cols = padded.shape
+    halves = torch.stack(_tf32_hi_lo(padded))  # [2, rows, cols]
+    steps = DFT_BLOCK_ROWS // 8
+    t = halves.reshape(2, rows // DFT_BLOCK_ROWS, steps, 2, 4, cols // DFT_UNIT_COLS, 8, 8)
+    # (half, block, step, k half, k, chunk, column block, column)
+    return t.permute(1, 0, 2, 5, 6, 3, 7, 4).contiguous()
+
+
+def split_dft_reference(frames: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's band DFT in plain PyTorch: ``[..., window]`` frames
+    and the folded ``c`` [window, 2*bins] -> ``[..., 2*bins]`` (re | im) as
+    the three TF32 products of the split operands (``hi = tf32(v)``, ``lo =
+    tf32(v - hi)``), small terms first, through the padded layout. The
+    halves are exact in float32, so each product is a float32 matmul of
+    them; the tensor cores sum in another order, to the same accuracy."""
+    window, bins = c.shape[0], c.shape[1] // 2
+    c_hi, c_lo = _tf32_hi_lo(pad_dft_matrix(c)[:window])
+    a_hi, a_lo = _tf32_hi_lo(frames)
+    big = a_lo @ c_hi + a_hi @ c_lo + a_hi @ c_hi
+    col = _tile_columns(bins, frames.device)
+    return torch.cat([big[..., col], big[..., col + DFT_GROUP_BINS]], dim=-1)
 
 
 def _hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -277,6 +384,7 @@ def fold_constants_stacked(
             stack(f.tiers[2] for f in folds),
             stack(f.tiers[3] for f in folds),
         ),
+        c_tiled=f0.c_tiled.to(device),
     )
 
 
@@ -700,6 +808,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sd_fused_detector.restype = i
     lib.sd_fused_detector_smem_bytes.argtypes = [i] * 7
     lib.sd_fused_detector_smem_bytes.restype = ll
+    for fn in (lib.sd_fused_detector_c_blocks, lib.sd_fused_detector_c_chunks):
+        fn.argtypes = [i]
+        fn.restype = i
+    lib.sd_fused_detector_set_profile.argtypes = [p]
+    lib.sd_fused_detector_set_profile.restype = None
     lib.sd_max_layers.argtypes = []
     lib.sd_max_layers.restype = i
     lib.sd_error_string.argtypes = [i]
@@ -738,8 +851,94 @@ def _tiers_library() -> ctypes.CDLL:
     return _bind_tiers(_build.load("fused_detector_tiers"))
 
 
+def _dft_chunks(spec: DetectorSpec) -> int:
+    """Chunks of :data:`DFT_UNIT_COLS` columns that hold the padded C."""
+    return -(-2 * DFT_GROUP_BINS * -(-spec.n_bins // DFT_GROUP_BINS) // DFT_UNIT_COLS)
+
+
+def fp32_smem_bytes(spec: DetectorSpec, frames: int, max_width: int) -> int:
+    """Dynamic shared memory of one CTA of the fp32 kernel that transforms
+    ``frames`` frames (``smem_floats`` of ``csrc/fused_detector.cu``): the
+    sample span, the stages of C's row blocks (both halves), the spectrogram, its row sums and two activation
+    buffers."""
+    gap, _ = normalize_overlap(spec.window_overlap)
+    span = _round_up((frames - 1) * spec.hop + gap + spec.window_length, 4)
+    cols = DFT_UNIT_COLS * _dft_chunks(spec)
+    tile = frames - spec.time_range + 1
+    floats = (span + DFT_STAGES * 2 * DFT_BLOCK_ROWS * cols
+              + frames * spec.n_bins + frames + 2 * tile * max_width)
+    return 4 * floats
+
+
+def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
+               n_sm: int = H100_SMS) -> int:
+    """Frames one CTA of the fp32 kernel transforms for a launch of
+    ``lanes`` x ``n_evals`` evaluations on a card of ``n_sm`` SMs. A CTA of
+    ``f`` frames serves ``f - timeRange + 1`` evaluations, so a large ``f``
+    wastes few transforms (128 frames: 1.08 per evaluation at timeRange 10,
+    64 frames: 1.16), while a CTA's time hardly depends on ``f`` (its chain
+    of barriers and loads does not). The choice over :data:`CTA_FRAMES`
+    takes the fewest waves, ``ceil(CTAs / (n_sm * CTAs resident on an
+    SM))``, then the fewest frames in all, then the larger ``f``: 64 frames
+    for a live bucket on 256 lanes, 128 for one 60 s stream and for long
+    lanes. A ``timeRange`` above every choice takes the next multiple of
+    64. Raises when no choice fits in shared memory."""
+    halo = spec.time_range - 1
+    choices = [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
+    best = None
+    for frames in choices:
+        smem = fp32_smem_bytes(spec, frames, max_width)
+        if smem > SMEM_LIMIT:
+            continue
+        threads = 128 * min(2, frames // 64 * _dft_chunks(spec))
+        resident = max(1, min(SM_SMEM // (smem + 1024), SM_REGISTERS // (KERNEL_REGISTERS * threads)))
+        ctas = lanes * -(-n_evals // (frames - halo))
+        key = (-(-ctas // (n_sm * resident)), ctas * frames, -frames)
+        if best is None or key < best[0]:
+            best = (key, frames)
+    if best is None:
+        raise ValueError(
+            f"the fused kernel needs {fp32_smem_bytes(spec, choices[0], max_width)} bytes "
+            f"of shared memory per CTA at this geometry; the card offers {SMEM_LIMIT}"
+        )
+    return best[1]
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+STAGES = ("staging", "C wait", "band DFT", "|X|", "first layer", "rest")
+
+
+def stage_shares(launch, device="cuda") -> dict:
+    """Where the fp32 kernel's CTAs spend their cycles: runs ``launch()``
+    (any call that launches the kernel of ``csrc/fused_detector.cu`` on
+    ``device``) with the kernel's ``clock64()`` counters on, and returns each
+    stage's share of the cycles the CTAs' first threads counted
+    (:data:`STAGES`: staging the span, waiting for a block of C, the wgmma
+    steps, |X| and scaling, row sums and first layer, hidden layers and
+    output). CTAs that share an SM slow each other, so the shares say where
+    a CTA waits, not what a stage costs alone. For measurements only."""
+    lib = _library()
+    counters = torch.zeros(8, dtype=torch.int64, device=device)
+    torch.cuda.synchronize(device)
+    lib.sd_fused_detector_set_profile(counters.data_ptr())
+    try:
+        launch()
+        torch.cuda.synchronize(device)
+    finally:
+        lib.sd_fused_detector_set_profile(None)
+    c = counters.cpu().numpy().astype(np.float64)
+    total = float(c.sum())
+    order = (0, 4, 5, 1, 2, 3)
+    return {name: float(c[i]) / total for name, i in zip(STAGES, order)}
+
+
 def _tile(n_evals: int) -> int:
-    """Evaluations per CTA: TILE, cut down for small drains as the JAX
+    """Evaluations per CTA of the tier kernel before rounding
+    (:func:`_tiers_tile`): TILE, cut down for small drains as the JAX
     program cuts its flat tile (``min(tile, max(8, round_up(E, 8)))``), so
     that a bucket of 8 does not leave three quarters of each CTA idle."""
     return min(TILE, max(8, _round_up(n_evals, 8)))
@@ -757,7 +956,7 @@ def _check_launchable(x: torch.Tensor, folded: FusedOperands, lanes: int) -> Non
     """Raise unless ``x`` lies on a Hopper card with ``folded`` beside it."""
     if x.device.type != "cuda":
         raise ValueError(f"no fused detector kernel for device {x.device}")
-    operands = (folded.c, folded.w1, folded.c1, folded.mids_flat,
+    operands = (folded.c, folded.c_tiled, folded.w1, folded.c1, folded.mids_flat,
                 folded.out_a, folded.out_c)
     if any(o.device != x.device for o in operands):
         raise ValueError("folded operands and samples lie on different devices")
@@ -823,8 +1022,17 @@ def _launch(
             dft_passes, conv_passes,
         )
     else:
-        tile = _tile(n_evals)
+        want_c = (lib.sd_fused_detector_c_blocks(spec.window_length), 2,
+                  DFT_BLOCK_ROWS // 8, lib.sd_fused_detector_c_chunks(spec.n_bins), 8, 2, 8, 4)
+        if folded.c_tiled is None or tuple(folded.c_tiled.shape) != want_c:
+            raise ValueError(f"the fused kernel takes C tiled as {want_c} (tile_dft_matrix)")
+        tile = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device))
         smem = lib.sd_fused_detector_smem_bytes(*geometry, tile, max(widths))
+        if smem != fp32_smem_bytes(spec, tile, max(widths)):
+            raise RuntimeError(
+                f"the kernel's shared memory ({smem} bytes) is not fp32_smem_bytes' "
+                f"({fp32_smem_bytes(spec, tile, max(widths))})"
+            )
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"the fused kernel needs {smem} bytes of shared memory per CTA "
@@ -873,7 +1081,7 @@ def _launch(
         scale = MULAW_INV127 if wire == "mulaw8" else INT16_SCALE
         err = lib.sd_fused_detector(
             at(xs, False), WIRE_CODES[wire], lanes, ld, n, n_evals,
-            folded.c.data_ptr(), at(folded.w1), *net_ptrs,
+            folded.c_tiled.data_ptr(), at(folded.w1), *net_ptrs,
             *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), tile,
             *tail, float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
             device, stream,

@@ -148,3 +148,139 @@ def test_kernel_matches_plain_version_on_card():
             got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol,
             err_msg=name,
         )
+
+
+# ---------------------------------------------------------------------------
+# the fp32 kernel's tile choice, shared memory and 3xTF32 band DFT
+# ---------------------------------------------------------------------------
+
+
+def sample_spec():
+    return tdet.detector_spec_from_config(CASES["linear"][1], "cpu")[0]
+
+
+@pytest.mark.parametrize(
+    "lanes,n_evals,frames",
+    [
+        (1, 497, 128),  # one CLI drain step: 5 CTAs
+        (1, 20035, 128),  # a 60 s stream: 169 CTAs, one wave of two per SM
+        (16, 31766, 128),  # the corpus scan's lanes
+        (4, 31766, 128),  # one shard of it
+        (1, 200444, 128),  # a 10-minute stream
+        (256, 8, 64),  # live buckets, 256 lanes: one wave of small CTAs
+        (256, 16, 64),
+        (256, 32, 64),
+        (256, 64, 128),  # 64 evaluations need two CTAs of 64 frames, one of 128
+        (256, 128, 64),  # two waves either way: fewer frames in all
+        (8, 128, 64),
+    ],
+)
+def test_cta_frames_for_the_paths_launch_shapes(lanes, n_evals, frames):
+    spec = sample_spec()
+    got = tfused.cta_frames(spec, n_evals, lanes, 4)
+    assert got == frames
+    tile = got - spec.time_range + 1
+    assert got % 64 == 0 and tile >= 1
+    assert tfused.fp32_smem_bytes(spec, got, 4) <= tfused.SMEM_LIMIT
+
+    def waves(f):  # two CTAs of 128 frames or three of 64 share an SM
+        ctas = lanes * -(-n_evals // (f - spec.time_range + 1))
+        return -(-ctas // (132 * {64: 3, 128: 2}[f]))
+
+    assert all(waves(got) <= waves(f) for f in tfused.CTA_FRAMES)
+
+
+def test_cta_frames_and_shared_memory_bounds():
+    spec = sample_spec()
+    sizes = [tfused.fp32_smem_bytes(spec, f, 4) for f in tfused.CTA_FRAMES]
+    assert sizes == sorted(sizes)
+    assert 2 * (sizes[-1] + 1024) <= tfused.SM_SMEM  # two CTAs of 128 frames an SM
+    assert 3 * (sizes[0] + 1024) <= tfused.SM_SMEM  # three of 64
+    # span + three 16-row stages of C's two halves, 64 columns + spectrogram
+    # + row sums + activations
+    span = -(-(127 * 132 + 256) // 4) * 4
+    assert sizes[-1] == 4 * (span + 3 * 2 * 16 * 64 + 128 * 29 + 128 + 2 * 119 * 4)
+    for name in CASES:
+        s = tdet.detector_spec_from_config(CASES[name][1], "cpu")[0]
+        width = max(w for _, w in s.net.layer_sizes)
+        for lanes, n_evals in ((1, 1), (1, 3330), (3, 998), (160, 657)):
+            frames = tfused.cta_frames(s, n_evals, lanes, width)
+            assert frames in tfused.CTA_FRAMES
+            assert tfused.fp32_smem_bytes(s, frames, width) <= tfused.SMEM_LIMIT
+    # a timeRange above every choice takes the next multiple of 64; one that
+    # cannot fit raises
+    long = dataclasses.replace(spec, time_range=150)
+    assert tfused.cta_frames(long, 1000, 1, 4) == 192
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.cta_frames(dataclasses.replace(spec, time_range=2000), 1000, 1, 4)
+
+
+def test_tile_dft_matrix_layout():
+    spec, params = tdet.detector_spec_from_config(CASES["linear"][1], "cpu")
+    folded = tfused.fold_constants(spec, params, "cpu")
+    b = spec.n_bins
+    padded = tfused.pad_dft_matrix(folded.c)
+    assert padded.shape == (256, 64) and padded.dtype == torch.float32
+    for k in (0, 7, 8, 28):
+        col = (k // 8) * 16 + k % 8
+        np.testing.assert_array_equal(padded[:, col].numpy(), folded.c[:, k].numpy())
+        np.testing.assert_array_equal(padded[:, col + 8].numpy(), folded.c[:, b + k].numpy())
+    assert padded[:, 48 + 5 : 56].abs().sum() == 0 and padded[:, 56 + 5 :].abs().sum() == 0
+    # the kernel's operand: both TF32 halves, a row block contiguous, inside
+    # it the tensor cores' core matrices of 8 columns x 4 rows
+    tiled = folded.c_tiled
+    assert tiled.shape == (16, 2, 2, 1, 8, 2, 8, 4) and tiled.is_contiguous()
+    hi, lo = tfused._tf32_hi_lo(padded)
+    for r, c in ((0, 0), (37, 21), (255, 63), (100, 8)):
+        at = (r // 16, slice(None), (r % 16) // 8, c // 64, (c % 64) // 8, (r % 8) // 4, c % 8, r % 4)
+        assert tiled[at].tolist() == [float(hi[r, c]), float(lo[r, c])]
+    gap_spec, gap_params = tdet.detector_spec_from_config(CASES["gap"][1], "cpu")
+    gap = tfused.fold_constants(gap_spec, gap_params, "cpu")
+    assert tfused.pad_dft_matrix(gap.c).shape == (64, 64)  # 24 bins: 48 columns, padded
+    assert gap.c_tiled.shape == (4, 2, 2, 1, 8, 2, 8, 4)
+    stacked = tfused.fold_constants_stacked(spec, [params, params], "cpu")
+    np.testing.assert_array_equal(stacked.c_tiled.numpy(), tiled.numpy())
+    # TF32 keeps 10 mantissa bits, rounded to nearest, ties away from zero
+    v = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-11 - 2.0**-23, -1.0 - 2.0**-11, 3.14159265])
+    got = tfused._tf32(v)
+    assert got.tolist() == [1.0, 1.0 + 2.0**-10, 1.0, -1.0 - 2.0**-10, 3.140625]
+    hi, lo = tfused._tf32_hi_lo(v)
+    assert ((v - hi - lo).abs() <= v.abs() * 2.0**-21).all()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_three_tf32_products_reproduce_the_fp32_band_dft(name):
+    """The kernel's band DFT arithmetic, emulated on the CPU: chirp frames
+    and the padded C, each split into TF32 halves, three products. Bound:
+    each dropped term (a_lo @ c_lo, and the rounding of the lo halves) is
+    under 2^-21 of |a||c| per product, far below fp32's own rounding of a
+    256-term sum; 5e-6 of the frame's largest magnitude holds all of it."""
+    from syllable_detector_tpu.ops.stft import frame_signal as jframe_signal
+    from syllable_detector_tpu.ops.stft import spectral_frames as jspectral_frames
+    from syllable_detector_tpu_torch.ops.stft import frame_signal, num_frames, spectral_frames
+
+    _, cfg, x, _, _ = CASES[name]
+    spec, params = tdet.detector_spec_from_config(cfg, "cpu")
+    folded = tfused.fold_constants(spec, params, "cpu")
+    f = num_frames(len(x), spec.window_length, spec.window_overlap)
+    frames = frame_signal(torch.from_numpy(x), f, spec.window_length, spec.window_overlap)
+    b = spec.n_bins
+    got = tfused.split_dft_reference(frames, folded.c)
+    assert got.shape == (f, 2 * b)
+    exact = frames.double() @ folded.c.double()
+    scale = exact.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    assert float(((got.double() - exact).abs() / scale).max()) < 5e-6
+    # one TF32 product alone is far worse: the split matters
+    one = tfused._tf32(frames) @ tfused._tf32(folded.c)
+    assert float(((one.double() - exact).abs() / scale).max()) > 5e-5
+    mag = torch.sqrt(got[:, :b] ** 2 + got[:, b:] ** 2).numpy()
+    want = spectral_frames(frames, spec.fourier_length, "hamming", spec.bins).numpy()
+    jwant = np.asarray(
+        jspectral_frames(
+            jframe_signal(jnp.asarray(x), f, spec.window_length, spec.window_overlap),
+            spec.fourier_length, "hamming", spec.bins,
+        )
+    )
+    top = np.maximum(want.max(axis=1, keepdims=True), 1e-30)
+    assert float((np.abs(mag - want) / top).max()) < 5e-6
+    assert float((np.abs(mag - jwant) / top).max()) < 5e-6
