@@ -4,7 +4,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
   1. device  — require a CUDA card; print its name and power limit.
   2. build   — build every kernel from csrc/ with nvcc, one nvcc per
-               source, all started together.
+               source, all started together; ptxas' registers and spill
+               bytes of every kernel (the fused detector's instantiations
+               named by wire, arithmetic and input form): any spill fails,
+               and so do fp32 instantiations outside 106-108 registers.
   3. kernel  — the kernel against its plain PyTorch version and the
                unfused path, on the card, for every configuration of
                fixtures.fused_cases (10 s streams, a short one, log and dB
@@ -67,11 +70,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
                stream with a shared net and on 3 lanes with per-lane nets,
                against its plain version (rtol=2e-3, atol=5e-4 for split
                and conv; 1e-2, 1e-2 for split4 and fast) and against the
-               fp32 kernel; the frames input against its plain version and
-               against raw input (rtol=1e-4, atol=1e-5: the frames kernel
-               sums the band DFT in fp32 FMAs, the raw-input kernel as three
-               TF32 products on the tensor cores, so they agree to rounding
-               and no longer bit for bit); the grid layout
+               fp32 kernel; the frames input, in full fp32 and under each
+               tier, against its plain version and against raw input under
+               the same tier, bit for bit (one kernel and one DFT
+               arithmetic read the same values from either); the grid layout
                with 160 lanes in slabs of 64 (3 slabs, the last shorter),
                shared and per-lane nets, against the flat kernel (1e-6) and
                its plain version.
@@ -98,11 +100,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
                global count; a rank that fails or outlasts its timeout fails
                the phase, and every process is stopped.
   15. times  — device ms of each tier and of the frames input on the 60 s
-               stream beside their plain versions and the fp32 kernel; of
-               the grid layout and each tier on the scan's [16, 2^22] lanes
-               beside the flat kernel, with each tier's bound there; the
-               fp32 kernel's clock64() stage shares on the 60 s stream, a
-               256 x 128 round and the scan's lanes; host wall of the
+               stream beside their plain versions, the fp32 kernel and
+               their times before the redesign of the tier kernel (the
+               frames input also as its gather and its kernel apart); of the grid layout and each tier on the
+               scan's [16, 2^22] lanes beside the flat kernel, with each
+               tier's bound and earlier time there; the kernel's clock64()
+               stage shares in fp32 on the 60 s stream, a 256 x 128 round
+               and the scan's lanes, and under the split tier on the 60 s
+               stream and the scan's lanes; host wall of the
                4-shard mesh scan
                beside the unsharded scan, in turns, of the time-sharded
                fused path beside the whole stream, and of the two-process
@@ -154,7 +159,6 @@ from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
 
 KERNEL_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector.cu"
 FRAMED_SOURCE = "syllable_detector_tpu_torch/csrc/framed_gemm.cu"
-TIERS_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector_tiers.cu"
 REPLACES = "syllable_detector_tpu/kernels/fused_detector.py:671"
 REPLACES_FLAT = "syllable_detector_tpu/kernels/fused_detector.py:1704"
 REPLACES_PROGRAM = "syllable_detector_tpu/kernels/fused_detector.py:1615"
@@ -171,15 +175,20 @@ LONG_SECONDS = 600.0  # the time-sharded stream
 LANES = 256  # the live-scale harness's lane count (scripts/live_scale_hw.py)
 CHUNK = 2048  # its capture chunk
 WIRES = ("float32", "int16", "mulaw8")
-# The frames-input kernel against the raw-input kernel on the same stream.
-# Both compute the fp32 algebra, but the frames kernel sums the band DFT as
-# fp32 FMAs in k order and the raw-input kernel as three TF32 products on the
-# tensor cores (fp32 accumulation in the hardware's order): they differ by
-# rounding, ~1e-6 of |X|, which log and dB scaling turn into ~3e-5 absolute
-# near a spectral zero. rtol=1e-4, atol=1e-5 is the unfused path's own bound
-# against the JAX CLI, ten times under the kernels' bound against their
-# plain versions.
+# The time-sharded fused path against the frames-input kernel on the whole
+# 10-minute stream: both compute the fp32 algebra, the shards on their own
+# spans. rtol=1e-4, atol=1e-5 is the unfused path's own bound against the
+# JAX CLI, ten times under the kernels' bound against their plain versions.
 CROSS_KERNEL_TOL = (1e-4, 1e-5)
+# The tier and frames-input times before the tier kernel's redesign on the
+# fp32 kernel's structure (a separate source that built each CTA's frame
+# tile in shared memory; NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
+# table), printed beside this run's: the 60 s stream and the scan's
+# [16, 2^22] lanes.
+EARLIER_MS = {
+    "fast": (0.0699, 1.704), "split": (0.1014, 2.531), "conv": (0.0916, 2.251),
+    "split4": (0.1016, 2.529), "frames": (0.1315, None),
+}
 # the corpus: 8 two-channel files of 60 s, their rates cycling
 CORPUS_FILES = 8
 CORPUS_SECONDS = 60.0
@@ -271,16 +280,18 @@ def framed_bound(x: torch.Tensor, g: torch.Tensor, n_frames: int) -> tuple[float
     return bound(2.0 * n_frames * nnz, nbytes)
 
 
-def tile_of(spec, lanes: int, n: int) -> str:
-    """The fp32 kernel's tile for a launch on ``[lanes, n]`` samples, as its
-    wrapper chooses it: frames a CTA transforms, evaluations it serves, CTAs."""
+def tile_of(spec, lanes: int, n: int, tier: str | None = None,
+            frames_input: bool = False) -> str:
+    """The kernel's tile for a launch on ``[lanes, n]`` samples under
+    ``tier``, as its wrapper chooses it: frames a CTA transforms,
+    evaluations it serves, CTAs, shared memory."""
     evals = num_frames(n, spec.window_length, spec.window_overlap) - spec.time_range + 1
     width = max(w for _, w in spec.net.layer_sizes)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    frames = fused.cta_frames(spec, evals, lanes, width, sms)
+    frames = fused.cta_frames(spec, evals, lanes, width, sms, tier, frames_input)
     tile = frames - spec.time_range + 1
     return (f"{frames} frames a CTA for {tile} evals, {lanes * -(-evals // tile)} CTAs, "
-            f"{fused.fp32_smem_bytes(spec, frames, width)} B shared")
+            f"{fused.smem_bytes(spec, frames, width, tier, frames_input)} B shared")
 
 
 def tiling_of(g: torch.Tensor, window: int, hop: int) -> str:
@@ -297,6 +308,33 @@ def tiling_of(g: torch.Tensor, window: int, hop: int) -> str:
 
 def _round_up4(v: int) -> int:
     return -(-v // 4) * 4
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes) of every kernel in an nvcc build log
+    with ``-Xptxas -v``. A fused detector instantiation is named by its
+    template arguments: the wire, the DFT and first-layer arithmetic (fp32
+    or the tier's bf16 passes) and the input form."""
+    wires = {"f": "float32", "s": "int16", "a": "mulaw8"}
+    tiers = {(p[0], p[1]): t for t, p in fused.TIERS.items()}
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            m = re.search(r"fused_detector_kernelI([fsa])Li(\d)ELi(\d)ELb([01])E", name)
+            if m:
+                tier = tiers.get((int(m.group(2)), int(m.group(3))), "fp32")
+                form = "frames" if m.group(4) == "1" else "samples"
+                name = f"fused_detector {wires[m.group(1)]} {tier} {form}"
+            out.append([name, -1, -1])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and out:
+            out[-1][2] = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out:
+            out[-1][1] = int(regs.group(1))
+    return [tuple(k) for k in out]
 
 
 def run_cli(argv: list[str]) -> tuple[list[str], float, str]:
@@ -1139,22 +1177,31 @@ def phase_tiers() -> dict:
                       held(got_lanes, fp32_lanes, *wide, f"{name} {tier} per-lane vs fp32"))
             worst[tier] = max(worst[tier], err)
             report.append(f"{tier} {err:.3g} (vs fp32 {off:.3g})")
-        before = fused.FRAMES_LAUNCHES
-        got = fused.fused_offline_outputs(spec, params, xd, folded=folded, input_mode="frames")
-        torch.cuda.synchronize()
-        if fused.FRAMES_LAUNCHES != before + 1:
-            raise AssertionError(f"{name}: the frames-input kernel was not launched")
         f = num_frames(len(x), spec.window_length, spec.window_overlap)
         frames = frame_signal(xd, f, spec.window_length, spec.window_overlap)
-        err = held(got, fused.fused_frames_outputs_reference(spec, folded, frames), rtol, atol,
-                   f"{name} frames")
-        cross = CROSS_KERNEL_TOL
-        raw = held(got, fp32, *cross, f"{name} frames vs raw")
-        worst["frames"] = max(worst["frames"], err)
+        frames_report = []
+        for tier in (None, *fused.TIERS):
+            kw = TIER_KW[tier] if tier else {}
+            before = fused.FRAMES_LAUNCHES
+            got = fused.fused_offline_outputs(spec, params, xd, folded=folded,
+                                              input_mode="frames", **kw)
+            torch.cuda.synchronize()
+            if fused.FRAMES_LAUNCHES != before + 1:
+                raise AssertionError(f"{name}: the frames-input kernel was not launched")
+            f_rtol, f_atol = TIER_TOL[tier] if tier else (rtol, atol)
+            err = held(got, fused.fused_frames_outputs_reference(spec, folded, frames, tier),
+                       f_rtol, f_atol, f"{name} frames {tier}")
+            raw = fp32 if tier is None else fused.fused_offline_outputs(
+                spec, params, xd, folded=folded, **kw)
+            held(got, raw, 0.0, 0.0, f"{name} frames vs raw input, {tier or 'fp32'}")
+            if tier is None:
+                worst["frames"] = max(worst["frames"], err)
+            frames_report.append(f"{tier or 'fp32'} {err:.3g}")
         print(
             f"phase 12 tiers {name}: evals {len(fp32)}, one stream and 3 per-lane nets, vs plain "
-            f"max_abs: {', '.join(report)}; frames input vs plain {err:.3g} (rtol={rtol}, "
-            f"atol={atol}), vs raw input {raw:.3g} (rtol={cross[0]}, atol={cross[1]}) ok",
+            f"max_abs: {', '.join(report)}; frames input vs plain max_abs: "
+            f"{', '.join(frames_report)} (fp32 rtol={rtol}, atol={atol}; tiers as above), equal "
+            f"to raw input bit for bit under each ok",
             flush=True,
         )
     # the slabbed grid: 160 lanes in slabs of 64 (64 + 64 + 32)
@@ -1424,12 +1471,22 @@ def phase_new_times(scan: dict, scan_xs: torch.Tensor, scan_k1e, dist_wall: floa
         spec, params, xd, folded=folded, input_mode="frames"))
     plain = event_ms(lambda: fused.fused_frames_outputs_reference(spec, folded, frames))
     times["frames"] = (kernel[0], plain[0], fused_bound(spec, 1, n, 4, 1, frames_input=True))
+    # the frames input's two parts: the gather, and the kernel on its result
+    gather_ms = event_ms(lambda: frame_signal(
+        xd, f, spec.window_length, spec.window_overlap).contiguous())[0]
+    gathered = frames[None]
+    alone_ms = event_ms(lambda: fused._launch(
+        spec, folded, gathered, f - spec.time_range + 1, frames_input=True))[0]
     for name, (k, p, least) in times.items():
+        tier = None if name == "frames" else name
         print(
             f"phase 15 times [{card_line}]: {name} on the 60 s stream ({n} samples), median of "
-            f"21 x 10 calls: kernel {k:.4f} ms device, plain {p:.4f} ms device, the fp32 kernel "
+            f"21 x 10 calls: kernel {k:.4f} ms device ({tile_of(spec, 1, n, tier, name == 'frames')}; "
+            f"before: {EARLIER_MS[name][0]} ms), plain {p:.4f} ms device, the fp32 kernel "
             f"{k1a:.4f} ms ({tile_of(spec, 1, n)}); bound {least[0]:.4f} ms ({least[1]})"
-            + (" (the kernel's time includes gathering the frames)" if name == "frames" else ""),
+            + (f" (the kernel's time includes gathering the frames: the gather alone "
+               f"{gather_ms:.4f} ms, the kernel alone on the gathered frames {alone_ms:.4f} ms)"
+               if name == "frames" else ""),
             flush=True,
         )
     # the grid layout and the tiers on the corpus scan's lanes, beside the
@@ -1449,8 +1506,8 @@ def phase_new_times(scan: dict, scan_xs: torch.Tensor, scan_k1e, dist_wall: floa
     times["grid"] = (statistics.median(grid), scan_k1e[1], scan_k1e[2])
     tier_bounds = {tier: fused_bound(net_spec, lanes, width, 4, 1, tier=tier) for tier in TIER_KW}
     tier_report = ", ".join(
-        f"{t} {ms:.4f} ms (bound {tier_bounds[t][0]:.4f} ms, {tier_bounds[t][1]})"
-        for t, ms in tiers.items())
+        f"{t} {ms:.4f} ms (before: {EARLIER_MS[t][1]} ms; bound {tier_bounds[t][0]:.4f} ms, "
+        f"{tier_bounds[t][1]})" for t, ms in tiers.items())
     print(
         f"phase 15 times [{card_line}]: the scan's [{lanes}, {width}] lanes, median of 11 x 5 "
         f"calls, in turns: flat kernel {flat[0]:.4f} / {flat[1]:.4f} ms, grid layout (one slab "
@@ -1459,22 +1516,28 @@ def phase_new_times(scan: dict, scan_xs: torch.Tensor, scan_k1e, dist_wall: floa
         f"its tile: {tile_of(net_spec, lanes, width)}",
         flush=True,
     )
-    # where the fp32 kernel's CTAs spend their cycles (clock64 per stage)
+    # where the kernel's CTAs spend their cycles (clock64 per stage), in
+    # full fp32 and under the split tier
     n_round = bucket_samples(spec, 128)
     round_xs = scan_xs[:1, :n_round].expand(LANES, n_round).contiguous()
     shapes = (
-        ("the 60 s stream", lambda: fused.fused_offline_outputs(spec, params, xd, folded=folded)),
-        (f"a {LANES} x 128 round", lambda: fused.fused_flat_batch_offline_outputs(
+        ("fp32", "the 60 s stream", lambda: fused.fused_offline_outputs(
+            spec, params, xd, folded=folded)),
+        ("fp32", f"a {LANES} x 128 round", lambda: fused.fused_flat_batch_offline_outputs(
             spec, params, round_xs, folded=folded)),
-        (f"the scan's [{lanes}, {width}] lanes", lambda: fused.fused_batch_offline_outputs(
+        ("fp32", f"the scan's [{lanes}, {width}] lanes", lambda: fused.fused_batch_offline_outputs(
             net_spec, net_params, scan_xs, folded=net_folded)),
+        ("split", "the 60 s stream", lambda: fused.fused_offline_outputs(
+            spec, params, xd, folded=folded, split=True)),
+        ("split", f"the scan's [{lanes}, {width}] lanes", lambda: fused.fused_batch_offline_outputs(
+            net_spec, net_params, scan_xs, folded=net_folded, split=True)),
     )
-    for name, launch in shapes:
+    for tier, name, launch in shapes:
         launch()
         shares = fused.stage_shares(launch)
         print(
-            f"phase 15 stages [{card_line}]: the fp32 kernel on {name}, share of the CTAs' cycles: "
-            f"{', '.join(f'{stage} {share:.3f}' for stage, share in shares.items())}",
+            f"phase 15 stages [{card_line}]: the kernel ({tier}) on {name}, share of the CTAs' "
+            f"cycles: {', '.join(f'{stage} {share:.3f}' for stage, share in shares.items())}",
             flush=True,
         )
     # host walls: the sharded scan beside the unsharded one, in turns
@@ -1520,18 +1583,20 @@ def main() -> int:
         flush=True,
     )
 
-    names = ("fused_detector", "framed_gemm", "fused_detector_tiers")
+    names = ("fused_detector", "framed_gemm")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.build, names))
     for name, (_, seconds, log) in zip(names, builds):
-        regs = [line.strip() for line in log.splitlines() if "registers" in line]
-        spills = [int(v) for line in log.splitlines() if "spill" in line
-                  for v in re.findall(r"(\d+) bytes spill", line)]
-        if not regs or not spills or max(spills) != 0:
+        kernels = ptxas_report(log)
+        if not kernels or any(spill != 0 for _, _, spill in kernels):
             raise AssertionError(f"{name}.cu: ptxas reports spills or nothing: {log[-2000:]}")
+        fp32 = [regs for kernel, regs, _ in kernels if kernel.endswith("fp32 samples")]
+        if name == "fused_detector" and (len(fp32) != 3 or not all(106 <= r <= 108 for r in fp32)):
+            raise AssertionError(f"the fp32 instantiations use {fp32} registers, not 106-108")
         print(
-            f"phase 2 build: {name}.cu in {seconds:.2f} s; {' '.join(regs)}; "
-            f"spill bytes {max(spills)} over {len(spills) // 2} kernels ok",
+            f"phase 2 build: {name}.cu in {seconds:.2f} s; registers: "
+            f"{'; '.join(f'{kernel} {regs}' for kernel, regs, _ in kernels)}; spill bytes 0 "
+            f"over {len(kernels)} kernels ok",
             flush=True,
         )
 
@@ -1587,9 +1652,9 @@ def main() -> int:
               batch_err["mulaw8"], times["mulaw8"], times["mulaw8"][2]),
         entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"], resample_err,
               (kernel[0], plain[0]), least, library[0]),
-        entry("fused_detector_frames", TIERS_SOURCE, REPLACES_FRAMES, mesh_counts["frames"],
+        entry("fused_detector_frames", KERNEL_SOURCE, REPLACES_FRAMES, mesh_counts["frames"],
               new_err["frames"], new_times["frames"], new_times["frames"][2]),
-        *(entry(f"fused_detector_tiers {tier}", TIERS_SOURCE, REPLACES_TIERS,
+        *(entry(f"fused_detector_tiers {tier}", KERNEL_SOURCE, REPLACES_TIERS,
                 mesh_counts["tiers"][tier], new_err[tier], new_times[tier], new_times[tier][2])
           for tier in fused.TIERS),
         entry("fused_detector_grid corpus", KERNEL_SOURCE, REPLACES_SLABBED, mesh_counts["grid"],

@@ -2,15 +2,18 @@
 //
 // Replaces the Pallas TPU kernel of syllable_detector_tpu/kernels/
 // fused_detector.py (_make_kernel, launched by _fused_call through
-// pl.pallas_call) in its full-fp32 raw-sample forms: one stream
+// pl.pallas_call) in every form the JAX package launches it: one stream
 // (fused_offline_outputs, K1a), a [lanes, n] batch of streams with one
 // shared net or one net per lane (fused_flat_batch_offline_outputs /
-// _flat_core, K1e), slabs of such lanes (_batch_core_slabbed, K1d), and that
+// _flat_core, K1e), slabs of such lanes (_batch_core_slabbed, K1d), that
 // batch read from an int16 or 8-bit mu-law wire and dequantised on the card
-// (fused_batch_program, K1f). For every evaluation e of a lane it computes,
-// without writing any intermediate to device memory:
+// (fused_batch_program, K1f), the pre-gathered frames input
+// (input_mode="frames", K1b) and the precision tiers (fast / split,
+// _batch_core's split_dot, K1c). For every evaluation e of a lane it
+// computes, without writing any intermediate to device memory:
 //
-//   frames  x[e*hop + gap + i], i < window      (hop-strided, zero past n)
+//   frames  x[e*hop + gap + i], i < window      (hop-strided, zero past n),
+//           or row e of a [F, window] frames matrix
 //   band    re|im = frame @ C, C = [window, 2*bins] with the hamming window
 //           folded in; |X| = sqrt(re^2 + im^2)
 //   scaling linear, log(|X|), or dB as 20/ln(10) * log(|X|)
@@ -29,28 +32,46 @@
 // thread per bin the stage took 3/4 of a CTA's cycles waiting for C.
 //
 // What the design does about it. The band DFT runs on the tensor cores as
-// a GEMM [frames, window] @ [window, 2*bins] in wgmma m64n64k8 TF32 tiles,
-// kept to fp32 accuracy by splitting both operands into two TF32 halves
-// (hi = tf32(v), lo = tf32(v - hi), round to nearest) and summing three
-// products per k-step, small terms first: a_lo*c_hi + a_hi*c_lo +
-// a_hi*c_hi, accumulated in fp32. This is what Precision.HIGHEST does on
-// the TPU with bf16 passes.
+// a GEMM [frames, window] @ [window, 2*bins], A from registers, B from
+// shared memory, in one of two arithmetics chosen at compile time:
+//   * full fp32 (kDftPasses = 0): wgmma m64n64k8 TF32 tiles, kept to fp32
+//     accuracy by splitting both operands into two TF32 halves (hi =
+//     tf32(v), lo = tf32(v - hi), round to nearest) and summing three
+//     products per k-step, small terms first: a_lo*c_hi + a_hi*c_lo +
+//     a_hi*c_hi, accumulated in fp32. This is what Precision.HIGHEST does on
+//     the TPU with bf16 passes.
+//   * a precision tier (kDftPasses = 1, 3 or 4): wgmma m64n64k16 bf16 tiles
+//     of the JAX kernel's split_dot halves, hi = bf16(v), lo = bf16(v - hi),
+//     round to nearest even: 1 pass hi*hi (fast), 3 passes hi*hi + hi*lo +
+//     lo*hi (split=True), 4 with lo*lo (split=4). All passes go into ONE
+//     fp32 accumulator, small terms first within each k-step (lo*lo,
+//     lo*hi, hi*lo, hi*hi), where split_dot sums one product per pass and
+//     adds the passes; the two orders differ by fp32 rounding only, far
+//     inside the tiers' tolerances. Never TF32.
+// Both arithmetics share the structure:
 //   * A comes from registers. A thread loads its fragment element by
 //     element straight from the staged sample span: frame f, column k is
 //     span[f*hop + gap + k], so the overlapping frames are never
-//     materialised. At hop = 132 = 4 (mod 32) a fragment's 32 addresses
-//     fall on 32 banks; another hop only costs bank conflicts. Samples are
-//     split into halves as they are loaded. The fragments of the next row
-//     block are loaded while the tensor cores work on this one.
+//     materialised (frames input: row f of the staged rows, at a padded
+//     stride of window rounded up to 32, plus 4). At a row stride of 4 (mod
+//     32) a fragment's 32 addresses fall on 32 banks; another stride only
+//     costs bank conflicts. Samples are split into halves as they are
+//     loaded. The fragments of the next row block are loaded while the
+//     tensor cores work on this one. A thread loads the same columns for a
+//     bf16 k-step of 16 as for two TF32 k-steps of 8 (k, k+4, k+8, k+12):
+//     the bf16 fragment's k order is permuted to match, and C's rows with
+//     it (the fold's tile_dft_matrix_bf16), which leaves the sum unchanged.
 //   * B comes from shared memory. C is split once on the host (fold time),
 //     its columns permuted so that 8-column tile 2j holds re of bins
 //     8j..8j+7 and tile 2j+1 their im (a thread then holds re and im of the
 //     same bin and frame), padded with zeros to whole chunks of 64 columns
-//     and whole blocks of kBlockRows rows, and stored in the very order the
-//     tensor cores read a k-step from shared memory (core matrices of 8
-//     columns x 4 rows), so a row block is one contiguous cp.async copy.
-//     The CTA streams the blocks through kStages stages, one barrier per
-//     block. One block serves all the CTA's frames.
+//     and whole row blocks, and stored in the very order the tensor cores
+//     read a k-step from shared memory (core matrices of 8 columns x 16
+//     bytes), so a row block is one contiguous cp.async copy. A row block is
+//     16 rows of TF32 or 32 rows of bf16 (the same bytes), so a bf16 tier
+//     has half the blocks: 8 at window 256. The CTA streams the blocks
+//     through kStages stages, one barrier per block. One block serves all
+//     the CTA's frames. The fast tier copies only the hi halves.
 //   * A warpgroup owns 64 frames x 64 columns (one wgmma tile, 32
 //     accumulators a thread). A CTA has one warpgroup per such unit, at
 //     most 2; more units run in rounds. (With mma.sync m16n8k8, 24
@@ -61,12 +82,24 @@
 //     frames for 119 evaluations is 1.08 transforms per evaluation. An
 //     evaluation's sums do not depend on its place in a tile, on the tile
 //     size, or on the lane slab or shard it is launched in.
-// The rest (|X|, scaling, row sums, first layer, l2, transfers, hidden
-// layers, output affine) is fp32 on the CUDA cores. The first layer's
-// weights are copied into the freed stages of C; a thread takes a stretch of
-// the dot product for 4 evaluations x 4 hidden units, and the stretches are
-// summed by shuffles. Geometry, layer widths and transfer codes are runtime
-// values, so one build serves every net the fused path accepts.
+// The first layer is fp32 on the CUDA cores (kConvPasses = 0) or, under a
+// tier, the JAX kernel's conv filter-bank GEMM [frames, bins] @ [bins,
+// T*h1] in the tier's bf16 passes on the tensor cores (wgmma m64n64k16 over
+// all T taps at once; A from the fp32 spectrogram, split as loaded; B the
+// bank w1g[k, t*h1 + j] = W1'[t, k, j], tiled by the fold's
+// tile_conv_bank_bf16 and copied into the freed stages of C), its product
+// written over the span, which is dead by then; evaluation e then sums its
+// T diagonal blocks conv[e+t, t*h1 : (t+1)*h1]. Padded bins never enter the
+// spectrogram (|X| is taken per real bin), so log(0) of a padded column
+// cannot reach a product. The row sums of squares for l2 always come from
+// the fp32 spectrogram. The rest (|X|, scaling, l2, transfers, hidden
+// layers, output affine) is fp32 on the CUDA cores. In the fp32 first
+// layer the weights are copied into the freed stages of C; a thread takes a
+// stretch of the dot product for 4 evaluations x 4 hidden units, and the
+// stretches are summed by shuffles. Geometry, layer widths and transfer
+// codes are runtime values, so one build serves every net the fused path
+// accepts; the arithmetic, the wire and the input form are template
+// arguments, so the full-fp32 forms carry no code of the tiers.
 //
 // Built without --use_fast_math on purpose: tanhf, expf, expm1f, logf,
 // sqrtf and the division keep their IEEE behaviour, including the NaN on
@@ -74,6 +107,7 @@
 // contracted into an FMA: the int16 wire's samples are bit-exact with the
 // JAX program's; the band DFT after them agrees to rounding (~1e-6).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
@@ -87,8 +121,11 @@ constexpr int kMaxWarps = 8;
 constexpr int kMaxGroups = kMaxWarps / 4;  // warpgroups of a CTA
 constexpr int kMaxLayers = 8;
 constexpr int kMaxDevices = 64;
-// Rows of C per shared-memory stage, and stages in flight.
+// Rows of C per shared-memory stage (TF32; bf16 has twice the rows in the
+// same bytes), the k-steps they hold, and stages in flight.
 constexpr int kBlockRows = 16;
+constexpr int kBf16BlockRows = 32;
+constexpr int kStepsPerBlock = 2;
 constexpr int kStages = 3;
 // Samples a thread has in flight while it stages the span.
 constexpr int kStageUnroll = 8;
@@ -97,8 +134,11 @@ constexpr int kStageUnroll = 8;
 constexpr int kUnitFrames = 64;
 constexpr int kUnitCols = 64;
 constexpr int kGroupBins = 8;
-// Floats of one k-step (8 rows of C) of one unit of one half: 8 x 64.
+// Floats of one k-step (8 rows of TF32 or 16 of bf16) of one unit of one
+// half: 8 x 64 floats.
 constexpr int kStepFloats = 8 * kUnitCols;
+// Rows of the bf16 conv filter bank per k-step.
+constexpr int kBf16StepRows = 16;
 // Stretches the first layer's dot product is cut into (a power of two, at
 // most 32: they are summed across neighbouring lanes).
 constexpr int kSplits = 8;
@@ -119,6 +159,10 @@ struct Geometry {
   int has_l2;
   int frames;  // frames a CTA transforms, a multiple of kUnitFrames
   int max_width;
+  int h1;            // width of the first layer
+  int dft_passes;    // 0: TF32x3; 1, 3 or 4 bf16 products (the kernel's kDftPasses)
+  int conv_passes;   // 0: fp32 first layer; else its bf16 products (kConvPasses)
+  int frames_input;  // 0: samples; 1: a [n, window] frames matrix (kFramesIn)
 };
 
 struct NetMeta {
@@ -134,6 +178,7 @@ struct LaneStrides {
   long long c1;
   long long mids;
   long long out;  // out_a and out_c
+  long long w1g;  // the tiled bf16 conv filter bank, in floats
 };
 
 enum Wire { kFloat32 = 0, kInt16 = 1, kMulaw8 = 2 };
@@ -168,12 +213,9 @@ __host__ __device__ inline int bin_groups(const Geometry& g) {
 __host__ __device__ inline int col_chunks(const Geometry& g) {
   return (2 * kGroupBins * bin_groups(g) + kUnitCols - 1) / kUnitCols;
 }
-__host__ __device__ inline int rows_pad(const Geometry& g) {
-  return (g.window + kBlockRows - 1) / kBlockRows * kBlockRows;
-}
 // Floats of one staged row block: both halves, every k-step and chunk.
 __host__ __device__ inline int block_floats(const Geometry& g) {
-  return 2 * (kBlockRows / 8) * col_chunks(g) * kStepFloats;
+  return 2 * kStepsPerBlock * col_chunks(g) * kStepFloats;
 }
 // Units of a CTA, one warpgroup each.
 __host__ __device__ inline int n_units(const Geometry& g) {
@@ -189,10 +231,50 @@ __host__ __device__ inline long long span_floats(const Geometry& g) {
   const long long span = (long long)(g.frames - 1) * g.hop + g.gap + g.window;
   return (span + 3) / 4 * 4;
 }
+// Floats between two staged rows of the frames input: the window rounded up
+// to 32, plus 4, so that a fragment's rows fall on different banks.
+__host__ __device__ inline int frame_stride(const Geometry& g) {
+  return (g.window + 31) / 32 * 32 + 4;
+}
+// Chunks of kUnitCols columns of the bf16 conv GEMM's output (T * h1
+// columns), its k-steps over the bins, and its output's row stride (8
+// floats past the chunks, so that a fragment's rows fall on other banks).
+__host__ __device__ inline int conv_chunks(const Geometry& g) {
+  return (g.time_range * g.h1 + kUnitCols - 1) / kUnitCols;
+}
+__host__ __device__ inline int conv_steps(const Geometry& g) {
+  return (g.bins + kBf16StepRows - 1) / kBf16StepRows;
+}
+__host__ __device__ inline int conv_ld(const Geometry& g) {
+  return conv_chunks(g) * kUnitCols + 8;
+}
+// Floats of one half (hi or lo) of the tiled bf16 conv filter bank.
+__host__ __device__ inline long long conv_half_floats(const Geometry& g) {
+  return (long long)conv_steps(g) * conv_chunks(g) * kStepFloats;
+}
+// The first region: the staged span or frame rows, and under a bf16 first
+// layer also its product, written there once the DFT is done with them.
+__host__ __device__ inline long long staged_floats(const Geometry& g) {
+  long long v = g.frames_input ? (long long)g.frames * frame_stride(g) : span_floats(g);
+  if (g.conv_passes) {
+    const long long conv = (long long)g.frames * conv_ld(g);
+    v = conv > v ? conv : v;
+  }
+  return v;
+}
+// The stages of C; under a bf16 first layer they also take its filter bank.
+__host__ __device__ inline long long stage_region_floats(const Geometry& g) {
+  long long v = (long long)kStages * block_floats(g);
+  if (g.conv_passes) {
+    const long long bank = 2 * conv_half_floats(g);
+    v = bank > v ? bank : v;
+  }
+  return v;
+}
 
 __host__ __device__ inline long long smem_floats(const Geometry& g) {
   const long long tile = g.frames - g.time_range + 1;
-  return span_floats(g) + (long long)kStages * block_floats(g) +
+  return staged_floats(g) + stage_region_floats(g) +
          (long long)g.frames * g.bins + g.frames + 2 * tile * g.max_width;
 }
 
@@ -259,6 +341,61 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d += a @ b for one warpgroup: a [64, 16] bf16 from registers (this
+// warp's 16 rows in the m16n8k16 fragment layout, two values a register),
+// b [16, 64] bf16 from shared memory in the same core-matrix layout as the
+// TF32 tiles (16 bytes of k a row), d as in wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The bf16 halves of two values, packed as a fragment register holds them
+// (the first value in the low half): hi = bf16(v), lo = bf16(v - hi), both
+// rounded to nearest even, as the JAX kernel's split_dot rounds them.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// A bf16 k-step's A fragment from 8 values a thread loaded: v[h][q] is
+// column k0 + 8h + tig + 4 * (q >> 1) of row gid + 8 * (q & 1). Register
+// 2h + r holds fragment columns 8h + 2*tig and 8h + 2*tig + 1 of row r: the
+// columns k0 + 8h + tig and k0 + 8h + tig + 4, which is the permutation of
+// k that tile_dft_matrix_bf16 and tile_conv_bank_bf16 apply to B's rows.
+template <bool kLo>
+__device__ __forceinline__ void pack_bf16_step(const float (&v)[2][4], uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t l;
+      split_bf16x2(v[h][r], v[h][r + 2], hi[2 * h + r], l);
+      if (kLo) lo[2 * h + r] = l;
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
@@ -283,12 +420,16 @@ __device__ __forceinline__ void stamp(unsigned long long* prof, int slot,
   }
 }
 
-template <typename Sample>
+// Sample: the wire's type. kDftPasses: 0 for the TF32x3 band DFT, else its
+// bf16 products; kConvPasses: 0 for the fp32 first layer, else the bf16
+// products of its conv GEMM; kFramesIn: x holds [n, window] frames.
+template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn>
 __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     const Sample* __restrict__ x,         // [lanes, ld]: lane samples on the wire
     long long ld, long long n, long long n_evals,
-    const float* __restrict__ cs,    // C's TF32 halves in the kernel's tiles
+    const float* __restrict__ cs,    // C's TF32 or bf16 halves in the kernel's tiles
     const float* __restrict__ w1,    // per net [T*bins, h1]
+    const float* __restrict__ w1g,   // per net, the tiled bf16 conv bank (kConvPasses)
     const float* __restrict__ c1,    // per net [h1]
     const float* __restrict__ mids,  // per net, per hidden layer: W [in, out], b [out]
     const float* __restrict__ out_a, const float* __restrict__ out_c,
@@ -299,6 +440,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   const long long lane = blockIdx.y;
   x += lane * ld;
   w1 += lane * ls.w1;
+  w1g += lane * ls.w1g;
   c1 += lane * ls.c1;
   mids += lane * ls.mids;
   out_a += lane * ls.out;
@@ -308,13 +450,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   const int T = g.time_range;
   const int tile = g.frames - T + 1;
   const int mw = g.max_width;
+  constexpr bool kBf16Dft = kDftPasses > 0;
+  constexpr int kRows = kBf16Dft ? kBf16BlockRows : kBlockRows;
   const long long span = span_floats(g);
-  const int kp = rows_pad(g);
+  const int kp = (g.window + kRows - 1) / kRows * kRows;
   const int chunks = col_chunks(g);
   const int block = block_floats(g);
+  // A's rows: the span at stride hop from the gap, or the staged frame rows
+  const int rs = kFramesIn ? frame_stride(g) : g.hop;
+  const int r0 = kFramesIn ? 0 : g.gap;
   float* samples = smem;
-  float* stages = samples + span;  // [kStages][block]
-  float* spec = stages + kStages * block;  // [frames, bins]
+  float* stages = samples + staged_floats(g);  // [kStages][block]
+  float* spec = stages + stage_region_floats(g);  // [frames, bins]
   float* rowsq = spec + g.frames * b;                        // [frames]
   float* act_a = rowsq + g.frames;                           // [tile, max_width]
   float* act_b = act_a + tile * mw;                          // [tile, max_width]
@@ -323,17 +470,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   const long long start = e0 * g.hop;
   long long t_prof = prof != nullptr ? clock64() : 0;
 
-  // Row block kb of both halves of C into stage kb % kStages.
-  // Row block kb into stage kb % kStages: one contiguous piece of `cs`.
+  // Row block kb into stage kb % kStages: one contiguous piece of `cs`, both
+  // halves (hi first), or the hi half alone for one bf16 pass.
+  const int copied = kDftPasses == 1 ? block / 2 : block;
   auto prefetch = [&](int kb) {
     float* dst = stages + (kb % kStages) * block;
     const float* src = cs + (long long)kb * block;
-    for (int i = 4 * threadIdx.x; i < block; i += 4 * blockDim.x) {
+    for (int i = 4 * threadIdx.x; i < copied; i += 4 * blockDim.x) {
       cp_async16(dst + i, src + i);
     }
     cp_async_commit();
   };
-  const int n_blocks = kp / kBlockRows;
+  const int n_blocks = kp / kRows;
   // kStages - 1 blocks in flight; a group is committed per block even when
   // there is none left, so that the wait counts stay the same
   auto prefetch_or_skip = [&](int kb) {
@@ -348,8 +496,45 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
 
   // 1. this tile's sample span, dequantised; reads past the stream are
   //    zero. Where the lane's samples are 16-byte aligned they are read 16
-  //    bytes at a time, kStageUnroll loads in flight per thread.
-  {
+  //    bytes at a time, kStageUnroll loads in flight per thread. Frames
+  //    input: rows e0 .. e0 + frames - 1 of the frames matrix, each at
+  //    frame_stride, rows past the matrix zero.
+  if constexpr (kFramesIn) {
+    const int stride = frame_stride(g);
+    const float* xs = reinterpret_cast<const float*>(x) + e0 * g.window;
+    const long long left = n - e0;  // rows of the matrix from e0
+    const int rows = left < 0 ? 0 : (left < g.frames ? static_cast<int>(left) : g.frames);
+    if ((g.window & 3) == 0 && (reinterpret_cast<uintptr_t>(xs) & 15) == 0) {
+      const int per_row = g.window / 4;
+      const int n_vec = rows * per_row;
+      const float4* xv = reinterpret_cast<const float4*>(xs);
+      const int step = blockDim.x * kStageUnroll;
+      for (int v0 = threadIdx.x; v0 < n_vec; v0 += step) {
+        float4 raw[kStageUnroll];
+#pragma unroll
+        for (int q = 0; q < kStageUnroll; ++q) {
+          const int v = v0 + q * blockDim.x;
+          if (v < n_vec) raw[q] = __ldcs(xv + v);
+        }
+#pragma unroll
+        for (int q = 0; q < kStageUnroll; ++q) {
+          const int v = v0 + q * blockDim.x;
+          if (v < n_vec) {
+            const int r = v / per_row;
+            *reinterpret_cast<float4*>(samples + r * stride + 4 * (v - r * per_row)) = raw[q];
+          }
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * g.window; i += blockDim.x) {
+        const int r = i / g.window;
+        samples[r * stride + i - r * g.window] = xs[i];
+      }
+    }
+    for (int i = rows * stride + threadIdx.x; i < g.frames * stride; i += blockDim.x) {
+      samples[i] = 0.0f;
+    }
+  } else {
     // The mu-law expansion costs an expm1f a sample: its 256 values are
     // computed once, by the same expression, into the stage of C that no
     // copy is in flight to, and looked up from there.
@@ -413,28 +598,45 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     const int mg = u / chunks;        // which 64 frames
     const int ch = u - mg * chunks;   // which 64 columns
     // rows gid and gid + 8 of this warp's 16 frames, at column tig
-    const float* arow0 =
-        samples + (long long)(mg * kUnitFrames + wrow + gid) * g.hop + g.gap + tig;
-    const float* arow1 = arow0 + 8 * g.hop;
+    const float* arow0 = samples + (long long)(mg * kUnitFrames + wrow + gid) * rs + r0 + tig;
+    const float* arow1 = arow0 + 8 * rs;
     float acc[32];
 #pragma unroll
     for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
-    // The A fragments of one row block, split into halves: for each k-step
-    // (gid, tig), (gid + 8, tig), (gid, tig + 4), (gid + 8, tig + 4), zero
-    // past the window.
-    constexpr int kSteps = kBlockRows / 8;
+    // The A fragments of one row block, split into halves. TF32: for each
+    // k-step of 8, (gid, tig), (gid + 8, tig), (gid, tig + 4), (gid + 8, tig
+    // + 4); bf16: for each k-step of 16 the same columns and those 8 further
+    // (pack_bf16_step). Zero past the window.
+    constexpr int kSteps = kStepsPerBlock;
     auto load_a = [&](int kb, uint32_t (&hi)[kSteps][4], uint32_t (&lo)[kSteps][4]) {
+      if constexpr (kBf16Dft) {
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        const int k0 = kb * kBlockRows + ks * 8;
-        const bool in0 = k0 + tig < g.window;
-        const bool in1 = k0 + tig + 4 < g.window;
+        for (int ks = 0; ks < kSteps; ++ks) {
+          float v[2][4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool in = q < 2 ? in0 : in1;
-          const float v = in ? ((q & 1) ? arow1 : arow0)[k0 + (q >> 1) * 4] : 0.0f;
-          hi[ks][q] = to_tf32(v);
-          lo[ks][q] = to_tf32(v - __uint_as_float(hi[ks][q]));
+          for (int h = 0; h < 2; ++h) {
+            const int k0 = kb * kRows + ks * 16 + h * 8;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int k = k0 + (q >> 1) * 4;
+              v[h][q] = k + tig < g.window ? ((q & 1) ? arow1 : arow0)[k] : 0.0f;
+            }
+          }
+          pack_bf16_step<(kDftPasses > 1)>(v, hi[ks], lo[ks]);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          const int k0 = kb * kBlockRows + ks * 8;
+          const bool in0 = k0 + tig < g.window;
+          const bool in1 = k0 + tig + 4 < g.window;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bool in = q < 2 ? in0 : in1;
+            const float v = in ? ((q & 1) ? arow1 : arow0)[k0 + (q >> 1) * 4] : 0.0f;
+            hi[ks][q] = to_tf32(v);
+            lo[ks][q] = to_tf32(v - __uint_as_float(hi[ks][q]));
+          }
         }
       }
     };
@@ -455,16 +657,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
       stamp(prof, 4, t_prof);
       if (active) {
         const float* cb = stages + (kb % kStages) * block;
-        // three products per k-step, small terms first
+        // the products of each k-step, small terms first, into one
+        // accumulator
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kSteps; ++ks) {
           const float* step = cb + (ks * chunks + ch) * kStepFloats;
           const uint64_t b_hi = b_descriptor(step);
-          const uint64_t b_lo = b_descriptor(step + block / 2);
-          wgmma_tf32(acc, a_lo[ks], b_hi);
-          wgmma_tf32(acc, a_hi[ks], b_lo);
-          wgmma_tf32(acc, a_hi[ks], b_hi);
+          if constexpr (kBf16Dft) {
+            if constexpr (kDftPasses > 1) {
+              const uint64_t b_lo = b_descriptor(step + block / 2);
+              if constexpr (kDftPasses == 4) wgmma_bf16(acc, a_lo[ks], b_lo);
+              wgmma_bf16(acc, a_lo[ks], b_hi);
+              wgmma_bf16(acc, a_hi[ks], b_lo);
+            }
+            wgmma_bf16(acc, a_hi[ks], b_hi);
+          } else {
+            const uint64_t b_lo = b_descriptor(step + block / 2);
+            wgmma_tf32(acc, a_lo[ks], b_hi);
+            wgmma_tf32(acc, a_hi[ks], b_lo);
+            wgmma_tf32(acc, a_hi[ks], b_hi);
+          }
         }
         wgmma_commit();
         // the next block's fragments are loaded while the tensor cores run;
@@ -478,10 +691,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
         for (int ks = 0; ks < kSteps; ++ks) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            asm volatile("" ::"r"(a_hi[ks][q]), "r"(a_lo[ks][q]));
-            if (more) {
-              a_hi[ks][q] = n_hi[ks][q];
-              a_lo[ks][q] = n_lo[ks][q];
+            if constexpr (kDftPasses == 1) {
+              asm volatile("" ::"r"(a_hi[ks][q]));
+              if (more) a_hi[ks][q] = n_hi[ks][q];
+            } else {
+              asm volatile("" ::"r"(a_hi[ks][q]), "r"(a_lo[ks][q]));
+              if (more) {
+                a_hi[ks][q] = n_hi[ks][q];
+                a_lo[ks][q] = n_lo[ks][q];
+              }
             }
           }
         }
@@ -513,12 +731,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   }
   // The stages of C are free now: the first layer's weights go there, when
   // they fit, while the row sums are taken (L1 is small beside this much
-  // shared memory, and the sample loads stream through it).
+  // shared memory, and the sample loads stream through it). Under a bf16
+  // first layer its tiled filter bank goes there (the layout makes room):
+  // both halves, or the hi half alone for one pass.
   const int h1 = net.widths[0];
   const int n_feat = T * b;
   const bool w1_vec = (h1 & 3) == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
-  const bool w1_staged = w1_vec && n_feat * h1 <= kStages * block;
-  if (w1_staged) {
+  const bool w1_staged = kConvPasses == 0 && w1_vec && n_feat * h1 <= kStages * block;
+  if constexpr (kConvPasses > 0) {
+    const long long bank = (kConvPasses == 1 ? 1 : 2) * conv_half_floats(g);
+    for (long long i = 4 * threadIdx.x; i < bank; i += 4 * blockDim.x) {
+      cp_async16(stages + i, w1g + i);
+    }
+    cp_async_commit();
+  } else if (w1_staged) {
     for (int i = 4 * threadIdx.x; i < n_feat * h1; i += 4 * blockDim.x) {
       cp_async16(stages + i, w1 + i);
     }
@@ -549,83 +775,163 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
       norms[e] = sqrtf(norm);
     }
   }
-  if (w1_staged) cp_async_wait<0>();
+  if (kConvPasses > 0 || w1_staged) cp_async_wait<0>();
   __syncthreads();
 
-  // 4. first layer: the feature vector of evaluation e is spectrogram rows
-  //    e .. e+T-1, contiguous in shared memory, so the T-tap convolution is
-  //    one dot product of length T*bins per hidden unit. A thread takes one
-  //    of kSplits stretches of that dot product for kL1Evals neighbouring
-  //    evaluations x 4 neighbouring hidden units: a row of weights (one
-  //    16-byte load where h1 is a multiple of 4) feeds kL1Evals evaluations
-  //    and a feature 4 hidden units. The stretches are neighbouring lanes
-  //    and are summed by shuffles, in the same order for every evaluation.
-  const int quads = (h1 + 3) / 4;
-  const int e_groups = (tile + kL1Evals - 1) / kL1Evals;
-  const int stretch = (n_feat + kSplits - 1) / kSplits;
-  const float* w1s = w1_staged ? stages : w1;
-  const int items = e_groups * quads * kSplits;
-  for (int p0 = 0; p0 < items; p0 += blockDim.x) {
-    const int p = p0 + threadIdx.x;
-    const bool valid = p < items;
-    const int sp = p % kSplits;
-    const int rest = p / kSplits;
-    const int eg = valid ? rest / quads : 0;
-    const int j0 = 4 * (rest - (rest / quads) * quads);
-    const int d0 = sp * stretch;
-    const int d1 = valid ? min(d0 + stretch, n_feat) : d0;
-    // an evaluation past the tile repeats the last one and is not stored
-    const float* feat[kL1Evals];
-#pragma unroll
-    for (int i = 0; i < kL1Evals; ++i) {
-      feat[i] = spec + min(eg * kL1Evals + i, tile - 1) * b;
-    }
-    float part[kL1Evals][4];
-#pragma unroll
-    for (int i = 0; i < kL1Evals; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
-    }
-#pragma unroll 4
-    for (int d = d0; d < d1; ++d) {
-      float w[4];
-      if (w1_vec) {
-        const float4 wv = *reinterpret_cast<const float4*>(w1s + d * h1 + j0);
-        w[0] = wv.x; w[1] = wv.y; w[2] = wv.z; w[3] = wv.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) w[c] = j0 + c < h1 ? __ldg(w1 + d * h1 + j0 + c) : 0.0f;
-      }
+  if constexpr (kConvPasses == 0) {
+    // 4. first layer: the feature vector of evaluation e is spectrogram rows
+    //    e .. e+T-1, contiguous in shared memory, so the T-tap convolution is
+    //    one dot product of length T*bins per hidden unit. A thread takes one
+    //    of kSplits stretches of that dot product for kL1Evals neighbouring
+    //    evaluations x 4 neighbouring hidden units: a row of weights (one
+    //    16-byte load where h1 is a multiple of 4) feeds kL1Evals evaluations
+    //    and a feature 4 hidden units. The stretches are neighbouring lanes
+    //    and are summed by shuffles, in the same order for every evaluation.
+    const int quads = (h1 + 3) / 4;
+    const int e_groups = (tile + kL1Evals - 1) / kL1Evals;
+    const int stretch = (n_feat + kSplits - 1) / kSplits;
+    const float* w1s = w1_staged ? stages : w1;
+    const int items = e_groups * quads * kSplits;
+    for (int p0 = 0; p0 < items; p0 += blockDim.x) {
+      const int p = p0 + threadIdx.x;
+      const bool valid = p < items;
+      const int sp = p % kSplits;
+      const int rest = p / kSplits;
+      const int eg = valid ? rest / quads : 0;
+      const int j0 = 4 * (rest - (rest / quads) * quads);
+      const int d0 = sp * stretch;
+      const int d1 = valid ? min(d0 + stretch, n_feat) : d0;
+      // an evaluation past the tile repeats the last one and is not stored
+      const float* feat[kL1Evals];
 #pragma unroll
       for (int i = 0; i < kL1Evals; ++i) {
-        const float f = feat[i][d];
+        feat[i] = spec + min(eg * kL1Evals + i, tile - 1) * b;
+      }
+      float part[kL1Evals][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part[i][c] = fmaf(f, w[c], part[i][c]);
+      for (int i = 0; i < kL1Evals; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+      }
+#pragma unroll 4
+      for (int d = d0; d < d1; ++d) {
+        float w[4];
+        if (w1_vec) {
+          const float4 wv = *reinterpret_cast<const float4*>(w1s + d * h1 + j0);
+          w[0] = wv.x; w[1] = wv.y; w[2] = wv.z; w[3] = wv.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) w[c] = j0 + c < h1 ? __ldg(w1 + d * h1 + j0 + c) : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < kL1Evals; ++i) {
+          const float f = feat[i][d];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[i][c] = fmaf(f, w[c], part[i][c]);
+        }
+      }
+      // every lane of a group of kSplits gets all the sums; lane sp then
+      // finishes sums sp, sp + kSplits, ... (chosen by selects, so that the
+      // lanes of a warp stay together through the division and the transfer)
+      float total[kL1Evals * 4];
+#pragma unroll
+      for (int q = 0; q < kL1Evals * 4; ++q) {
+        float acc = part[q >> 2][q & 3];
+#pragma unroll
+        for (int m = 1; m < kSplits; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+        total[q] = acc;
+      }
+#pragma unroll
+      for (int r = 0; r < kL1Evals * 4 / kSplits; ++r) {
+        const int idx = sp + kSplits * r;
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kL1Evals * 4; ++q) acc = q == idx ? total[q] : acc;
+        const int e = eg * kL1Evals + (idx >> 2);
+        const int j = j0 + (idx & 3);
+        if (valid && e < tile && j < h1) {
+          if (g.has_l2) acc = acc / norms[e];
+          act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), net.transfers[0]);
+        }
       }
     }
-    // every lane of a group of kSplits gets all the sums; lane sp then
-    // finishes sums sp, sp + kSplits, ... (chosen by selects, so that the
-    // lanes of a warp stay together through the division and the transfer)
-    float total[kL1Evals * 4];
+  } else {
+    // 4. first layer under a tier: the conv filter-bank GEMM [frames, bins]
+    //    @ [bins, T*h1] on the tensor cores, A from the fp32 spectrogram
+    //    split as loaded (the DFT's column order within a k-step), its
+    //    product written over the span; evaluation e then sums its T
+    //    diagonal blocks conv[e+t, t*h1 : (t+1)*h1] in t order.
+    float* conv = samples;  // [frames, conv_ld]
+    const int ldc = conv_ld(g);
+    const int cchunks = conv_chunks(g);
+    const int ksteps = conv_steps(g);
+    const long long half = conv_half_floats(g);
+    const int units_c = g.frames / kUnitFrames * cchunks;
+    for (int u0 = 0; u0 < units_c; u0 += groups_n) {
+      const int u = u0 + group;
+      if (u < units_c) {  // the same for a whole warpgroup
+        const int mg = u / cchunks;
+        const int ch = u - mg * cchunks;
+        const float* srow0 = spec + (mg * kUnitFrames + wrow + gid) * b + tig;
+        const float* srow1 = srow0 + 8 * b;
+        float acc[32];
 #pragma unroll
-    for (int q = 0; q < kL1Evals * 4; ++q) {
-      float acc = part[q >> 2][q & 3];
+        for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
+        for (int s = 0; s < ksteps; ++s) {
+          float v[2][4];
 #pragma unroll
-      for (int m = 1; m < kSplits; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-      total[q] = acc;
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int k = s * kBf16StepRows + h * 8 + (q >> 1) * 4;
+              v[h][q] = k + tig < b ? ((q & 1) ? srow1 : srow0)[k] : 0.0f;
+            }
+          }
+          uint32_t a_hi[4], a_lo[4];
+          pack_bf16_step<(kConvPasses > 1)>(v, a_hi, a_lo);
+          const float* step = stages + (s * cchunks + ch) * kStepFloats;
+          const uint64_t b_hi = b_descriptor(step);
+          wgmma_fence();
+          if constexpr (kConvPasses > 1) {
+            const uint64_t b_lo = b_descriptor(step + half);
+            if constexpr (kConvPasses == 4) wgmma_bf16(acc, a_lo, b_lo);
+            wgmma_bf16(acc, a_lo, b_hi);
+            wgmma_bf16(acc, a_hi, b_lo);
+          }
+          wgmma_bf16(acc, a_hi, b_hi);
+          wgmma_commit();
+          wgmma_wait();
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (kConvPasses > 1) {
+              asm volatile("" ::"r"(a_hi[q]), "r"(a_lo[q]));
+            } else {
+              asm volatile("" ::"r"(a_hi[q]));
+            }
+          }
+        }
+        // column tile j holds columns 8j .. 8j+7 of this chunk; this thread
+        // has 2*tig, 2*tig + 1 of rows gid and gid + 8
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int f = mg * kUnitFrames + wrow + gid + r * 8;
+            const int col = ch * kUnitCols + 8 * j + 2 * tig;
+            *reinterpret_cast<float2*>(conv + f * ldc + col) =
+                make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+          }
+        }
+      }
     }
-#pragma unroll
-    for (int r = 0; r < kL1Evals * 4 / kSplits; ++r) {
-      const int idx = sp + kSplits * r;
+    __syncthreads();
+    for (int p = threadIdx.x; p < tile * h1; p += blockDim.x) {
+      const int e = p / h1;
+      const int j = p - e * h1;
       float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kL1Evals * 4; ++q) acc = q == idx ? total[q] : acc;
-      const int e = eg * kL1Evals + (idx >> 2);
-      const int j = j0 + (idx & 3);
-      if (valid && e < tile && j < h1) {
-        if (g.has_l2) acc = acc / norms[e];
-        act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), net.transfers[0]);
-      }
+      for (int t = 0; t < T; ++t) acc += conv[(e + t) * ldc + t * h1 + j];
+      if (g.has_l2) acc = acc / norms[e];
+      act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), net.transfers[0]);
     }
   }
   __syncthreads();
@@ -671,10 +977,25 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
 // Device buffer of 8 cycle counters, or null: see stamp().
 unsigned long long* g_profile = nullptr;
 
+// The pointers and counts of one launch.
+struct Args {
+  const void* x;
+  int lanes;
+  long long ld, n, n_evals;
+  const float* cs;
+  const float* w1;
+  const float* w1g;
+  const float* c1;
+  const float* mids;
+  const float* out_a;
+  const float* out_c;
+  float* out;
+};
+
 // Above 48 KB of dynamic shared memory a launch is refused unless the
 // kernel opts in first. The opt-in is a maximum, so it is raised once per
 // kernel instantiation, device and size, not on every launch.
-template <typename Sample>
+template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn>
 cudaError_t opt_in(int device, size_t smem) {
   static std::mutex mutex;
   static size_t granted[kMaxDevices] = {};
@@ -684,34 +1005,56 @@ cudaError_t opt_in(int device, size_t smem) {
     return cudaSuccess;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_detector_kernel<Sample>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
     granted[device] = smem;
   }
   return err;
 }
 
-template <typename Sample>
-int launch(const void* x, int lanes, long long ld, long long n,
-           long long n_evals, const float* cs, const float* w1,
-           const float* c1, const float* mids, const float* out_a,
-           const float* out_c, float* out, const Geometry& g,
-           const NetMeta& net, const LaneStrides& ls, const Dequant& dq,
-           size_t smem, int device, cudaStream_t stream) {
-  const cudaError_t err = opt_in<Sample>(device, smem);
+template <typename Sample, int kDftPasses = 0, int kConvPasses = 0, bool kFramesIn = false>
+int launch(const Args& a, const Geometry& g, const NetMeta& net, const LaneStrides& ls,
+           const Dequant& dq, size_t smem, int device, cudaStream_t stream) {
+  const cudaError_t err =
+      opt_in<Sample, kDftPasses, kConvPasses, kFramesIn>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile = g.frames - g.time_range + 1;
-  const dim3 grid(static_cast<unsigned>((n_evals + tile - 1) / tile),
-                  static_cast<unsigned>(lanes));
-  fused_detector_kernel<Sample><<<grid, 128 * n_groups(g), smem, stream>>>(
-      static_cast<const Sample*>(x), ld, n, n_evals, cs, w1, c1, mids, out_a,
-      out_c, out, g, net, ls, dq, g_profile);
+  const dim3 grid(static_cast<unsigned>((a.n_evals + tile - 1) / tile),
+                  static_cast<unsigned>(a.lanes));
+  fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn>
+      <<<grid, 128 * n_groups(g), smem, stream>>>(
+          static_cast<const Sample*>(a.x), a.ld, a.n, a.n_evals, a.cs, a.w1, a.w1g,
+          a.c1, a.mids, a.out_a, a.out_c, a.out, g, net, ls, dq, g_profile);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The float32 instantiations: the full-fp32 kernel or a precision tier
+// (TIERS in kernels/fused_detector.py), from samples or from frames.
+template <bool kFramesIn>
+int launch_float(const Args& a, const Geometry& g, const NetMeta& net,
+                 const LaneStrides& ls, const Dequant& dq, size_t smem, int device,
+                 cudaStream_t stream) {
+  const int tier = g.dft_passes * 10 + g.conv_passes;
+  switch (tier) {
+    case 0:
+      return launch<float, 0, 0, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+    case 11:  // fast
+      return launch<float, 1, 1, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+    case 33:  // split
+      return launch<float, 3, 3, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+    case 3:  // conv
+      return launch<float, 0, 3, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+    case 44:  // split4
+      return launch<float, 4, 4, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
-                       int scaling, int has_l2, int frames, int max_width) {
+                       int scaling, int has_l2, int frames, int max_width, int h1,
+                       int dft_passes, int conv_passes, int frames_input) {
   Geometry g;
   g.window = window;
   g.hop = hop;
@@ -722,6 +1065,10 @@ Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
   g.has_l2 = has_l2;
   g.frames = frames;
   g.max_width = max_width;
+  g.h1 = h1;
+  g.dft_passes = dft_passes;
+  g.conv_passes = conv_passes;
+  g.frames_input = frames_input;
   return g;
 }
 
@@ -730,29 +1077,41 @@ Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
 extern "C" {
 
 // Dynamic shared memory, in bytes, that one CTA of the kernel needs when it
-// transforms `frames` frames.
+// transforms `frames` frames with the given arithmetic and input form.
 long long sd_fused_detector_smem_bytes(int window, int hop, int gap, int bins,
-                                       int time_range, int frames,
-                                       int max_width) {
-  const Geometry g = make_geometry(window, hop, gap, bins, time_range, 0, 0,
-                                   frames, max_width);
+                                       int time_range, int frames, int max_width,
+                                       int h1, int dft_passes, int conv_passes,
+                                       int frames_input) {
+  const Geometry g = make_geometry(window, hop, gap, bins, time_range, 0, 0, frames,
+                                   max_width, h1, dft_passes, conv_passes, frames_input);
   return smem_floats(g) * (long long)sizeof(float);
 }
 
 int sd_max_layers() { return kMaxLayers; }
 
 
-// Shape of the split C the kernel reads: [blocks, 2, steps, chunks, 8, 2, 8,
-// 4] floats = blocks of kBlockRows rows x (hi, lo) x k-steps of 8 rows x
-// chunks of 64 columns x blocks of 8 columns x halves of a k-step x column
-// x row: element (row r, column c) of half h lies at block r / 16, h, step
-// (r % 16) / 8, chunk c / 64, (c % 64) / 8, (r % 8) / 4, c % 8, r % 4.
-int sd_fused_detector_c_blocks(int window) {
-  return (window + kBlockRows - 1) / kBlockRows;
+// Shape of the split C the kernel reads. TF32 (dft_passes 0): [blocks, 2,
+// steps, chunks, 8, 2, 8, 4] floats = blocks of kBlockRows rows x (hi, lo) x
+// k-steps of 8 rows x chunks of 64 columns x blocks of 8 columns x halves of
+// a k-step x column x row: element (row r, column c) of half h lies at block
+// r / 16, h, step (r % 16) / 8, chunk c / 64, (c % 64) / 8, (r % 8) / 4, c %
+// 8, r % 4. bf16: [blocks, 2, steps, chunks, 8, 2, 8, 8] bf16 with blocks of
+// kBf16BlockRows rows and k-steps of 16, each k-step's rows in the order of
+// pack_bf16_step (tile_dft_matrix_bf16 in kernels/fused_detector.py).
+int sd_fused_detector_c_blocks(int window, int dft_passes) {
+  const int rows = dft_passes ? kBf16BlockRows : kBlockRows;
+  return (window + rows - 1) / rows;
 }
 int sd_fused_detector_c_chunks(int bins) {
   return (2 * kGroupBins * ((bins + kGroupBins - 1) / kGroupBins) + kUnitCols - 1) /
          kUnitCols;
+}
+// Floats (4-byte words) of one net's tiled bf16 conv filter bank, both
+// halves: [2, steps, chunks, 8, 2, 8, 8] bf16 over ceil(bins / 16) k-steps
+// and ceil(time_range * h1 / 64) chunks (tile_conv_bank_bf16).
+long long sd_fused_detector_conv_bank_floats(int bins, int time_range, int h1) {
+  Geometry g = make_geometry(0, 1, 0, bins, time_range, 0, 0, 0, 0, h1, 0, 1, 0);
+  return 2 * conv_half_floats(g);
 }
 
 const char* sd_error_string(int err) {
@@ -770,28 +1129,36 @@ void sd_fused_detector_set_profile(void* counters) {
 
 // Launches the kernel on `stream` (device `device`) for `lanes` streams of
 // `n` samples each, lane l at x + l * ld, as wire type `wire` (a Wire
-// code). All pointers are device pointers except `widths` and `transfers`,
-// host arrays of n_layers ints. `cs` is C padded with zeros, its columns in
-// tiles of 8 (re of bins 8j..8j+7, then their im), split into TF32 halves
-// and laid out as sd_fused_detector_c_blocks / _c_chunks describe. `frames` is the number
-// of frames one CTA transforms, a multiple of 64 above time_range - 1; it
-// serves frames - time_range + 1 evaluations. `per_lane_nets` is 0 when
-// every lane shares one net and 1 when the net operands hold one net per
-// lane, stacked. Returns cudaGetLastError() after the launch: 0 when the
-// launch was taken.
+// code); with `frames_input` 1 a lane is instead a row-major [n, window]
+// float32 matrix of frames. All pointers are device pointers except
+// `widths` and `transfers`, host arrays of n_layers ints. `cs` is C padded
+// with zeros, its columns in tiles of 8 (re of bins 8j..8j+7, then their
+// im), split into TF32 halves (dft_passes 0) or bf16 halves (1, 3 or 4
+// products) and laid out as sd_fused_detector_c_blocks / _c_chunks
+// describe. `w1g` is the tiled bf16 conv filter bank
+// (sd_fused_detector_conv_bank_floats per net) when conv_passes is 1, 3 or
+// 4, else unused. The tiers take the float32 wire only. `frames` is the
+// number of frames one CTA transforms, a multiple of 64 above time_range -
+// 1; it serves frames - time_range + 1 evaluations. `per_lane_nets` is 0
+// when every lane shares one net and 1 when the net operands hold one net
+// per lane, stacked. Returns cudaGetLastError() after the launch: 0 when
+// the launch was taken.
 int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
-                      long long n, long long n_evals, const float* cs,
-                      const float* w1, const float* c1, const float* mids,
-                      const float* out_a, const float* out_c, float* out,
-                      int per_lane_nets, int window, int hop, int gap,
+                      long long n, long long n_evals, const void* cs,
+                      const float* w1, const void* w1g, const float* c1,
+                      const float* mids, const float* out_a, const float* out_c,
+                      float* out, int per_lane_nets, int window, int hop, int gap,
                       int bins, int time_range, int scaling, int has_l2,
-                      int frames, int n_layers, const int* widths,
+                      int frames, int dft_passes, int conv_passes,
+                      int frames_input, int n_layers, const int* widths,
                       const int* transfers, float dq_scale, float dq_ln1mu,
                       float dq_inv_mu, int device, void* stream) {
+  const bool plain = dft_passes == 0 && conv_passes == 0 && !frames_input;
   if (n_layers < 1 || n_layers > kMaxLayers || n_evals < 1 || lanes < 1 ||
-      lanes > 65535 || n < 0 || ld < n || window < 1 || hop < 1 || gap < 0 ||
-      bins < 1 || time_range < 1 || frames < kUnitFrames ||
-      frames % kUnitFrames != 0 || frames < time_range) {
+      lanes > 65535 || n < 0 || ld < (frames_input ? n * window : n) ||
+      window < 1 || hop < 1 || gap < 0 || bins < 1 || time_range < 1 ||
+      frames < kUnitFrames || frames % kUnitFrames != 0 || frames < time_range ||
+      (!plain && wire != kFloat32) || (conv_passes && w1g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tile = frames - time_range + 1;
@@ -806,11 +1173,12 @@ int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
     net.transfers[l] = l < n_layers ? transfers[l] : 0;
     if (net.widths[l] > max_width) max_width = net.widths[l];
   }
-  const Geometry g = make_geometry(window, hop, gap, bins, time_range,
-                                   scaling, has_l2, frames, max_width);
+  const Geometry g = make_geometry(window, hop, gap, bins, time_range, scaling, has_l2,
+                                   frames, max_width, net.widths[0], dft_passes,
+                                   conv_passes, frames_input);
   const size_t smem = static_cast<size_t>(smem_floats(g)) * sizeof(float);
 
-  LaneStrides s = {0, 0, 0, 0};
+  LaneStrides s = {0, 0, 0, 0, 0};
   if (per_lane_nets) {
     s.w1 = static_cast<long long>(time_range) * bins * net.widths[0];
     s.c1 = net.widths[0];
@@ -819,22 +1187,23 @@ int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
                 net.widths[l];
     }
     s.out = net.widths[n_layers - 1];
+    s.w1g = conv_passes ? 2 * conv_half_floats(g) : 0;
   }
   const Dequant dq = {dq_scale, dq_ln1mu, dq_inv_mu};
+  const Args a = {x, lanes, ld, n, n_evals, static_cast<const float*>(cs), w1,
+                  static_cast<const float*>(w1g), c1, mids, out_a, out_c, out};
 
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (frames_input) return launch_float<true>(a, g, net, s, dq, smem, device, st);
   switch (wire) {
     case kFloat32:
-      return launch<float>(x, lanes, ld, n, n_evals, cs, w1, c1, mids, out_a,
-                           out_c, out, g, net, s, dq, smem, device, st);
+      return launch_float<false>(a, g, net, s, dq, smem, device, st);
     case kInt16:
-      return launch<int16_t>(x, lanes, ld, n, n_evals, cs, w1, c1, mids, out_a,
-                             out_c, out, g, net, s, dq, smem, device, st);
+      return launch<int16_t>(a, g, net, s, dq, smem, device, st);
     case kMulaw8:
-      return launch<int8_t>(x, lanes, ld, n, n_evals, cs, w1, c1, mids, out_a,
-                            out_c, out, g, net, s, dq, smem, device, st);
+      return launch<int8_t>(a, g, net, s, dq, smem, device, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,17 +1,16 @@
-"""Fused STFT + feature + MLP detection: the CUDA kernels and their plain versions.
+"""Fused STFT + feature + MLP detection: the CUDA kernel and its plain versions.
 
 Replaces the JAX package's Pallas kernel (``kernels/fused_detector.py``,
-``_fused_call`` / ``_make_kernel``) on every path that reaches it. The
-full-fp32 raw-sample paths launch the kernel of ``csrc/fused_detector.cu``:
-one stream (``fused_offline_outputs``), a ``[C, n]`` batch with a shared net
-or one net per channel (``fused_flat_batch_offline_outputs``,
-``fused_batch_offline_outputs``), and the live drain program that reads
-that batch from an int16 or mu-law wire (``fused_batch_program``). The
-precision tiers (``fast=`` / ``split=``: the two big GEMMs as 1, 3 or 4 bf16
-products on the tensor cores, :data:`TIERS`) and the pre-gathered frames
-input (``input_mode="frames"``) launch the kernel of
-``csrc/fused_detector_tiers.cu``. ``layout="grid"`` runs either kernel over
-slabs of ``slab_channels`` lanes, one launch per slab. The algebra:
+``_fused_call`` / ``_make_kernel``) on every path that reaches it, all
+through the kernel of ``csrc/fused_detector.cu``: one stream
+(``fused_offline_outputs``), a ``[C, n]`` batch with a shared net or one net
+per channel (``fused_flat_batch_offline_outputs``,
+``fused_batch_offline_outputs``), the live drain program that reads that
+batch from an int16 or mu-law wire (``fused_batch_program``), the precision
+tiers (``fast=`` / ``split=``: the two big GEMMs as 1, 3 or 4 bf16 products
+on the tensor cores, :data:`TIERS`) and the pre-gathered frames input
+(``input_mode="frames"``). ``layout="grid"`` runs it over slabs of
+``slab_channels`` lanes, one launch per slab. The algebra:
 
   * window multiply + zero-pad + DFT + band slice fold into one
     ``[window, 2*bins]`` matrix C (re | im);
@@ -24,18 +23,22 @@ slabs of ``slab_channels`` lanes, one launch per slab. The algebra:
 :func:`fold_constants` computes those operands in float64 and casts them
 once (:func:`fold_constants_stacked` for one net per channel).
 
-The fp32 kernel runs the band DFT on the tensor cores (``wgmma``) as three
-TF32 products of split operands (``a_lo @ c_hi + a_hi @ c_lo + a_hi @
-c_hi``, accumulated in fp32), which keeps fp32 accuracy (about 1e-6
-relative; the counterpart of ``Precision.HIGHEST``'s bf16 passes on the
-TPU). The fold splits C once and lays it out as the tensor cores read it
-(:func:`tile_dft_matrix`, from :func:`pad_dft_matrix`: columns permuted into
-8-column re and im tiles, zero-padded); the kernel splits the samples as it
-loads them; :func:`split_dft_reference` is that arithmetic in plain
-PyTorch. A CTA transforms ``frames`` frames for ``frames - timeRange + 1``
-evaluations; :func:`cta_frames` picks ``frames`` from the launch shape (64
-for a live bucket on many lanes, 128 for long lanes) and
-:func:`fp32_smem_bytes` is the shared memory it needs. Each entry
+The kernel runs the band DFT on the tensor cores (``wgmma``, A from
+registers). In full fp32 it is three TF32 products of split operands
+(``a_lo @ c_hi + a_hi @ c_lo + a_hi @ c_hi``, accumulated in fp32), which
+keeps fp32 accuracy (about 1e-6 relative; the counterpart of
+``Precision.HIGHEST``'s bf16 passes on the TPU); under a tier it is the
+tier's bf16 products of the JAX kernel's hi/lo halves, and so is the first
+layer's conv filter-bank GEMM. The fold splits C once and lays it out as
+the tensor cores read it (:func:`tile_dft_matrix` in TF32,
+:func:`tile_dft_matrix_bf16` in bf16, from :func:`pad_dft_matrix`: columns
+permuted into 8-column re and im tiles, zero-padded), and the conv filter
+bank likewise (:func:`tile_conv_bank_bf16`); the kernel splits the samples
+as it loads them; :func:`split_dft_reference` is the TF32 arithmetic in
+plain PyTorch. A CTA transforms ``frames`` frames for ``frames - timeRange
++ 1`` evaluations; :func:`cta_frames` picks ``frames`` from the launch shape
+(64 for a live bucket on many lanes, 128 for long lanes) and
+:func:`smem_bytes` is the shared memory it needs. Each entry
 launches the kernel for a CUDA tensor, raising rather than falling back,
 and runs its plain PyTorch version (:func:`fused_offline_outputs_reference`,
 :func:`fused_batch_outputs_reference`, :func:`fused_tier_outputs_reference`,
@@ -85,9 +88,12 @@ __all__ = [
     "fold_constants_stacked",
     "pad_dft_matrix",
     "tile_dft_matrix",
+    "tile_dft_matrix_bf16",
+    "tile_conv_bank_bf16",
+    "split_operands",
     "split_dft_reference",
     "cta_frames",
-    "fp32_smem_bytes",
+    "smem_bytes",
     "stage_shares",
     "dequant_int16",
     "dequant_mulaw8",
@@ -102,22 +108,29 @@ __all__ = [
     "fused_batch_program",
 ]
 
-# Evaluations per CTA of the tier kernel before it is rounded to whole
-# tensor-core fragments (see _tiers_tile).
-TILE = 32
-# Frames one CTA of the fp32 kernel may transform (multiples of the 64 rows
-# of a wgmma tile); it serves frames - timeRange + 1 evaluations.
+# Frames one CTA of the kernel may transform (multiples of the 64 rows of a
+# wgmma tile); it serves frames - timeRange + 1 evaluations.
 CTA_FRAMES = (64, 128)
-# The fp32 kernel's staging of C: rows per shared-memory stage, stages, and
-# the bins of one column tile (csrc/fused_detector.cu).
+# The kernel's staging of C: rows per shared-memory stage (TF32; bf16 has
+# twice the rows in the same bytes), stages, and the bins of one column tile
+# (csrc/fused_detector.cu).
 DFT_BLOCK_ROWS = 16
+DFT_BF16_BLOCK_ROWS = 32
 DFT_STAGES = 3
 DFT_GROUP_BINS = 8
 # Columns of one wgmma tile: 4 bin groups, re and im.
 DFT_UNIT_COLS = 64
+# Rows of one bf16 k-step, and the order in which the kernel's A fragment
+# holds them (pack_bf16_step in csrc/fused_detector.cu): fragment column
+# 8h + 2t is row 8h + t of the k-step and 8h + 2t + 1 is row 8h + t + 4, so
+# that a thread loads the columns it loads for two TF32 k-steps of 8. The
+# bf16 tiles store B's rows in this order; a sum over k does not change.
+BF16_STEP_ROWS = 16
+BF16_STEP_ORDER = tuple(8 * (p // 8) + (p % 8) // 2 + 4 * (p % 2) for p in range(16))
 # An H100's SMs (for choosing a tile where no card can be asked), the shared
-# memory and registers of one, and the registers a thread of the fp32 kernel
-# takes at most (ptxas reports 106-114; the build log has them).
+# memory and registers of one, and the registers a thread of the kernel
+# takes at most (ptxas reports 106-114 for the fp32 forms; the build log has
+# every instantiation's).
 H100_SMS = 132
 SM_SMEM = 233472
 SM_REGISTERS = 65536
@@ -134,10 +147,10 @@ DB_PER_NEPER = np.float32(20.0 / np.log(10.0))
 # stream). BATCH_LAUNCHES: fused_flat_batch_offline_outputs (float32
 # [C, n], also reached through fused_batch_offline_outputs and a float32
 # fused_batch_program). PROGRAM_LAUNCHES: fused_batch_program per
-# dequantising wire. TIER_LAUNCHES: launches of the tier kernel per precision
-# tier, from any entry. FRAMES_LAUNCHES: fused_offline_outputs with
+# dequantising wire. TIER_LAUNCHES: launches under each precision tier, from
+# any entry. FRAMES_LAUNCHES: fused_offline_outputs with
 # input_mode="frames". GRID_LAUNCHES: slab launches of the grid layout
-# (fused_batch_offline_outputs with layout="grid" or a tier), either kernel.
+# (fused_batch_offline_outputs with layout="grid" or a tier).
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
 PROGRAM_LAUNCHES = {"int16": 0, "mulaw8": 0}
@@ -148,7 +161,7 @@ TIERS = {"fast": (1, 1), "split": (3, 3), "conv": (0, 3), "split4": (4, 4)}
 TIER_LAUNCHES = {tier: 0 for tier in TIERS}
 FRAMES_LAUNCHES = 0
 GRID_LAUNCHES = 0
-# wmma fragment edge: the tier kernel's GEMM extents are padded to it
+# bf16 k-step: split_operands pads the untiled halves to it
 FRAG = 16
 
 # Host wire types of a drain round, and their codes in the kernel.
@@ -177,12 +190,13 @@ class FusedOperands(NamedTuple):
     has_l2: bool
     mids_flat: torch.Tensor  # mids concatenated (w, b, w, b, ...) for the kernel
     per_lane: bool = False
-    # bf16 halves for the tier kernel, split once per fold: (c_hi, c_lo,
-    # w1g_hi, w1g_lo), see split_operands
-    tiers: tuple | None = None
-    # c split into TF32 halves in the fp32 kernel's layout, see
-    # tile_dft_matrix
+    # c split into TF32 halves in the kernel's layout, see tile_dft_matrix
     c_tiled: torch.Tensor | None = None
+    # for the precision tiers: c and the first layer's conv filter bank (per
+    # lane with per-lane nets) split into bf16 halves in the kernel's
+    # layout, see tile_dft_matrix_bf16 and tile_conv_bank_bf16
+    c_bf16: torch.Tensor | None = None
+    w1g_bf16: torch.Tensor | None = None
 
 
 def fusable(spec: DetectorSpec) -> bool:
@@ -249,8 +263,9 @@ def fold_constants(spec: DetectorSpec, params: dict, device) -> FusedOperands:
         out_c=dev(out_c),
         has_l2=has_l2,
         mids_flat=dev(np.concatenate(flat) if flat else np.zeros(0)),
-        tiers=split_operands(c_t, w1_t),
         c_tiled=tile_dft_matrix(c_t),
+        c_bf16=tile_dft_matrix_bf16(c_t),
+        w1g_bf16=tile_conv_bank_bf16(w1_t),
     )
 
 
@@ -273,30 +288,30 @@ def _tf32_hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _tile_columns(bins: int, device) -> torch.Tensor:
-    """Column of re of each bin in the fp32 kernel's layout: tiles of 8, tile
+    """Column of re of each bin in the kernel's layout: tiles of 8, tile
     ``2j`` re of bins ``8j .. 8j+7`` and tile ``2j+1`` their im (8 further)."""
     k = torch.arange(bins, device=device)
     return (k // DFT_GROUP_BINS) * 2 * DFT_GROUP_BINS + k % DFT_GROUP_BINS
 
 
-def pad_dft_matrix(c: torch.Tensor) -> torch.Tensor:
+def pad_dft_matrix(c: torch.Tensor, block_rows: int = DFT_BLOCK_ROWS) -> torch.Tensor:
     """The folded ``c`` [window, 2*bins] (re | im) with its columns in the
-    fp32 kernel's tiles of 8 (tile ``2j`` re of bins ``8j .. 8j+7``, tile
+    kernel's tiles of 8 (tile ``2j`` re of bins ``8j .. 8j+7``, tile
     ``2j+1`` their im), zero-padded to whole :data:`DFT_UNIT_COLS` columns
-    and :data:`DFT_BLOCK_ROWS` rows: ``[rows, cols]`` float32. A padded
-    column or row adds nothing."""
+    and ``block_rows`` rows: ``[rows, cols]`` float32. A padded column or
+    row adds nothing."""
     window, two_b = c.shape
     b = two_b // 2
     col = _tile_columns(b, c.device)
     cols = _round_up(2 * DFT_GROUP_BINS * -(-b // DFT_GROUP_BINS), DFT_UNIT_COLS)
-    padded = c.new_zeros((_round_up(window, DFT_BLOCK_ROWS), cols))
+    padded = c.new_zeros((_round_up(window, block_rows), cols))
     padded[:window, col] = c[:, :b]
     padded[:window, col + DFT_GROUP_BINS] = c[:, b:]
     return padded
 
 
 def tile_dft_matrix(c: torch.Tensor) -> torch.Tensor:
-    """The fp32 kernel's DFT operand from the folded ``c``: the padded
+    """The kernel's full-fp32 DFT operand from the folded ``c``: the padded
     matrix of :func:`pad_dft_matrix` split into TF32 halves and laid out as
     the tensor cores read it from shared memory, so that a row block is one
     contiguous copy: ``[blocks, 2 (hi, lo), steps, chunks, 8, 2, 8, 4]`` =
@@ -312,8 +327,53 @@ def tile_dft_matrix(c: torch.Tensor) -> torch.Tensor:
     return t.permute(1, 0, 2, 5, 6, 3, 7, 4).contiguous()
 
 
+def _tile_bf16(padded: torch.Tensor, steps_per_block: int) -> torch.Tensor:
+    """``padded`` [rows, cols] float32 (rows a multiple of 16 x
+    ``steps_per_block``, cols of 64) split into bf16 halves and laid out as
+    the kernel's bf16 wgmma reads B from shared memory: ``[blocks, 2 (hi,
+    lo), steps, chunks, 8, 2, 8, 8]`` = blocks of ``steps_per_block``
+    k-steps x halves x k-steps of 16 rows x chunks of 64 columns x blocks of
+    8 columns x halves of a k-step x column x row, each k-step's rows in
+    :data:`BF16_STEP_ORDER`."""
+    rows, cols = padded.shape
+    halves = torch.stack(_hi_lo(padded))  # [2, rows, cols]
+    order = torch.tensor(BF16_STEP_ORDER, device=padded.device)
+    steps = halves.reshape(2, rows // BF16_STEP_ROWS, BF16_STEP_ROWS, cols)[:, :, order]
+    t = steps.reshape(2, rows // (BF16_STEP_ROWS * steps_per_block), steps_per_block, 2, 8,
+                      cols // DFT_UNIT_COLS, 8, 8)
+    # (half, block, step, k half, k, chunk, column block, column)
+    return t.permute(1, 0, 2, 5, 6, 3, 7, 4).contiguous()
+
+
+def tile_dft_matrix_bf16(c: torch.Tensor) -> torch.Tensor:
+    """The kernel's DFT operand under a precision tier: the padded matrix of
+    :func:`pad_dft_matrix` (rows to whole :data:`DFT_BF16_BLOCK_ROWS`)
+    split into the JAX kernel's bf16 halves (``hi = bf16(c)``, ``lo =
+    bf16(c - hi)``) and tiled as :func:`_tile_bf16` says, two k-steps of 16
+    a row block, so that a row block is one contiguous copy of the same
+    bytes as a TF32 block: ``[blocks, 2, 2, chunks, 8, 2, 8, 8]``
+    bfloat16."""
+    return _tile_bf16(pad_dft_matrix(c, DFT_BF16_BLOCK_ROWS),
+                      DFT_BF16_BLOCK_ROWS // BF16_STEP_ROWS)
+
+
+def tile_conv_bank_bf16(w1: torch.Tensor) -> torch.Tensor:
+    """The kernel's first-layer operand under a precision tier, from one
+    net's folded ``w1`` [T, bins, h1]: the conv filter bank ``w1g[k, t*h1 +
+    j] = w1[t, k, j]``, zero-padded to whole k-steps of 16 bins and chunks
+    of 64 columns, split into bf16 halves and tiled as :func:`_tile_bf16`
+    says, one k-step a block: ``[2 (hi, lo), steps, chunks, 8, 2, 8, 8]``
+    bfloat16 (the block axis folded into the steps)."""
+    t_range, b, h1 = w1.shape
+    bank = w1.transpose(0, 1).reshape(b, t_range * h1)
+    padded = w1.new_zeros((_round_up(b, BF16_STEP_ROWS), _round_up(t_range * h1, DFT_UNIT_COLS)))
+    padded[:b, : t_range * h1] = bank
+    tiled = _tile_bf16(padded, 1)  # [steps, 2, 1, chunks, 8, 2, 8, 8]
+    return tiled.squeeze(2).transpose(0, 1).contiguous()
+
+
 def split_dft_reference(frames: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The fp32 kernel's band DFT in plain PyTorch: ``[..., window]`` frames
+    """The kernel's full-fp32 band DFT in plain PyTorch: ``[..., window]`` frames
     and the folded ``c`` [window, 2*bins] -> ``[..., 2*bins]`` (re | im) as
     the three TF32 products of the split operands (``hi = tf32(v)``, ``lo =
     tf32(v - hi)``), small terms first, through the padded layout. The
@@ -335,12 +395,13 @@ def _hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def split_operands(c: torch.Tensor, w1: torch.Tensor) -> tuple:
-    """The tier kernel's bf16 operands (c_hi, c_lo, w1g_hi, w1g_lo) of one
-    net, from its folded ``c`` [window, 2*bins] and ``w1`` [T, bins, h1].
-    The first layer becomes the conv filter bank ``w1g[k, t*h1 + j] =
-    w1[t, k, j]``, so that one GEMM over the bins computes all T taps.
-    Every extent is padded with zeros to a multiple of 16, the tensor
-    cores' fragment, in both halves."""
+    """The precision tiers' bf16 operands (c_hi, c_lo, w1g_hi, w1g_lo) of
+    one net, untiled, from its folded ``c`` [window, 2*bins] and ``w1`` [T,
+    bins, h1]: the JAX kernel's ``hi_lo`` halves of C and of the conv filter
+    bank ``w1g[k, t*h1 + j] = w1[t, k, j]`` (one GEMM over the bins computes
+    all T taps), every extent padded with zeros to a multiple of 16. The
+    kernel reads the same values tiled (:func:`tile_dft_matrix_bf16`,
+    :func:`tile_conv_bank_bf16`)."""
     window, two_b = c.shape
     c_pad = c.new_zeros((_round_up(window, FRAG), _round_up(two_b, FRAG)))
     c_pad[:window, :two_b] = c
@@ -378,13 +439,9 @@ def fold_constants_stacked(
         has_l2=f0.has_l2,
         mids_flat=stack(f.mids_flat for f in folds),
         per_lane=True,
-        tiers=(
-            f0.tiers[0].to(device),
-            f0.tiers[1].to(device),
-            stack(f.tiers[2] for f in folds),
-            stack(f.tiers[3] for f in folds),
-        ),
         c_tiled=f0.c_tiled.to(device),
+        c_bf16=f0.c_bf16.to(device),
+        w1g_bf16=stack(f.w1g_bf16 for f in folds),
     )
 
 
@@ -521,7 +578,7 @@ def fused_batch_outputs_reference(
 def fused_offline_outputs_reference(
     spec: DetectorSpec, folded: FusedOperands, x: torch.Tensor
 ) -> torch.Tensor:
-    """The fp32 kernel's plain PyTorch version for one stream: [n] ->
+    """The kernel's full-fp32 plain PyTorch version for one stream: [n] ->
     [E, outputs], the same folded algebra as ``csrc/fused_detector.cu`` on
     any device."""
     return fused_batch_outputs_reference(spec, folded, x[None])[0]
@@ -534,7 +591,7 @@ def fused_tier_outputs_reference(
     tier: str,
     n_evals: int | None = None,
 ) -> torch.Tensor:
-    """The tier kernel's plain PyTorch version: ``[L, n]`` float32 samples
+    """The kernel's plain PyTorch version under a tier: ``[L, n]`` float32 samples
     -> ``[L, E, outputs]`` with the band DFT and conv GEMMs as the bf16
     products of ``tier`` (a :data:`TIERS` key): halves cast with
     ``.to(torch.bfloat16)``, products as float32 matmuls of the rounded
@@ -567,12 +624,17 @@ def fused_offline_outputs(
     fast: bool = False,
     split=None,
     packed: bool | None = None,
+    n_evals: int | None = None,
 ) -> torch.Tensor:
     """Whole-signal detection through a fused kernel: [n] -> [E, outputs].
 
     A CUDA ``x`` launches a kernel, or raises; it never falls back. A CPU
     ``x`` runs the matching plain version. ``folded`` (from
     :func:`fold_constants` on ``x``'s device) saves refolding per call.
+    ``n_evals`` caps the evaluations (default: every one the ``n`` samples
+    hold; more raises ``ValueError``). An unfusable spec runs the unfused
+    path (:func:`~syllable_detector_tpu_torch.models.detector.offline_outputs`)
+    under the same ``n_evals`` contract, as the JAX function does.
 
     ``input_mode="raw"`` (default) hands the kernel the samples, and it
     rebuilds the overlapping windows in shared memory; ``"frames"``
@@ -586,12 +648,20 @@ def fused_offline_outputs(
     tier = _tier_of(fast, split)
     if input_mode not in ("raw", "frames"):
         raise ValueError(f"unknown input_mode {input_mode!r}")
-    if folded is None:
-        folded = fold_constants(spec, params, x.device)
     if x.dim() != 1:
         raise ValueError(f"expected samples of shape [n], got {tuple(x.shape)}")
-    n_evals = _n_evals(spec, x.shape[0])
-    if n_evals == 0:
+    max_evals = _n_evals(spec, x.shape[0])
+    if n_evals is None:
+        n_evals = max_evals
+    elif n_evals > max_evals:
+        raise ValueError(f"n_evals={n_evals} needs more than {x.shape[0]} samples")
+    if not fusable(spec):
+        from syllable_detector_tpu_torch.models.detector import offline_outputs
+
+        return offline_outputs(spec, params, x)[: max(n_evals, 0)]
+    if folded is None:
+        folded = fold_constants(spec, params, x.device)
+    if n_evals <= 0:
         return x.new_zeros((0, spec.net.outputs))
     if input_mode == "frames":
         frames = frame_signal(
@@ -604,7 +674,9 @@ def fused_offline_outputs(
         FRAMES_LAUNCHES += 1
     else:
         if x.device.type == "cpu":
-            return fused_batch_outputs_reference(spec, folded, x[None], tier=tier)[0]
+            return fused_batch_outputs_reference(
+                spec, folded, x[None], n_evals=n_evals, tier=tier
+            )[0]
         _check_launchable(x, folded, 1)
         out = _launch(spec, folded, x[None], n_evals, tier=tier)[0]
         if tier is None:
@@ -803,14 +875,17 @@ def fused_batch_program(
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.sd_fused_detector.argtypes = (
-        [p, i, i, ll, ll, ll] + [p] * 7 + [i] * 10 + [p, p, f, f, f, i, p]
+        [p, i, i, ll, ll, ll] + [p] * 8 + [i] * 13 + [p, p, f, f, f, i, p]
     )
     lib.sd_fused_detector.restype = i
-    lib.sd_fused_detector_smem_bytes.argtypes = [i] * 7
+    lib.sd_fused_detector_smem_bytes.argtypes = [i] * 11
     lib.sd_fused_detector_smem_bytes.restype = ll
-    for fn in (lib.sd_fused_detector_c_blocks, lib.sd_fused_detector_c_chunks):
-        fn.argtypes = [i]
-        fn.restype = i
+    lib.sd_fused_detector_c_blocks.argtypes = [i, i]
+    lib.sd_fused_detector_c_blocks.restype = i
+    lib.sd_fused_detector_c_chunks.argtypes = [i]
+    lib.sd_fused_detector_c_chunks.restype = i
+    lib.sd_fused_detector_conv_bank_floats.argtypes = [i, i, i]
+    lib.sd_fused_detector_conv_bank_floats.restype = ll
     lib.sd_fused_detector_set_profile.argtypes = [p]
     lib.sd_fused_detector_set_profile.restype = None
     lib.sd_max_layers.argtypes = []
@@ -820,35 +895,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _bind_tiers(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sd_fused_tiers.argtypes = (
-        [p, i, i, ll, ll, ll] + [p] * 11 + [i] * 12 + [p, p, i, p]
-    )
-    lib.sd_fused_tiers.restype = i
-    lib.sd_fused_tiers_smem_bytes.argtypes = [i] * 11
-    lib.sd_fused_tiers_smem_bytes.restype = ll
-    lib.sd_tiers_max_layers.argtypes = []
-    lib.sd_tiers_max_layers.restype = i
-    lib.sd_tiers_error_string.argtypes = [i]
-    lib.sd_tiers_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built and bound fp32 kernel library (built at the first launch)."""
+    """The built and bound kernel library (built at the first launch)."""
     from syllable_detector_tpu_torch.kernels import _build
 
     return _bind(_build.load("fused_detector"))
-
-
-@functools.cache
-def _tiers_library() -> ctypes.CDLL:
-    """The built and bound tier and frames-input kernel library."""
-    from syllable_detector_tpu_torch.kernels import _build
-
-    return _bind_tiers(_build.load("fused_detector_tiers"))
 
 
 def _dft_chunks(spec: DetectorSpec) -> int:
@@ -856,38 +908,54 @@ def _dft_chunks(spec: DetectorSpec) -> int:
     return -(-2 * DFT_GROUP_BINS * -(-spec.n_bins // DFT_GROUP_BINS) // DFT_UNIT_COLS)
 
 
-def fp32_smem_bytes(spec: DetectorSpec, frames: int, max_width: int) -> int:
-    """Dynamic shared memory of one CTA of the fp32 kernel that transforms
-    ``frames`` frames (``smem_floats`` of ``csrc/fused_detector.cu``): the
-    sample span, the stages of C's row blocks (both halves), the spectrogram, its row sums and two activation
-    buffers."""
+def smem_bytes(spec: DetectorSpec, frames: int, max_width: int,
+               tier: str | None = None, frames_input: bool = False) -> int:
+    """Dynamic shared memory of one CTA of the kernel that transforms
+    ``frames`` frames under ``tier`` (a :data:`TIERS` key, None for full
+    fp32), from samples or with ``frames_input`` from a frames matrix
+    (``smem_floats`` of ``csrc/fused_detector.cu``): the sample span (or the
+    frame rows at a stride of the window rounded up to 32, plus 4), the
+    stages of C's row blocks (both halves), the spectrogram, its row sums
+    and two activation buffers. Under a bf16 first layer the first region
+    also holds that layer's product ([frames, 64 per chunk of T*h1 columns
+    + 8]) and the stages its tiled filter bank (both halves)."""
+    _, conv_passes = TIERS[tier] if tier else (0, 0)
     gap, _ = normalize_overlap(spec.window_overlap)
-    span = _round_up((frames - 1) * spec.hop + gap + spec.window_length, 4)
-    cols = DFT_UNIT_COLS * _dft_chunks(spec)
+    window = spec.window_length
+    if frames_input:
+        staged = frames * (_round_up(window, 32) + 4)
+    else:
+        staged = _round_up((frames - 1) * spec.hop + gap + window, 4)
+    step = 8 * DFT_UNIT_COLS  # floats of one k-step of one 64-column chunk
+    stages = DFT_STAGES * 2 * 2 * step * _dft_chunks(spec)
+    if conv_passes:
+        chunks = -(-spec.time_range * spec.net.layer_sizes[0][1] // DFT_UNIT_COLS)
+        staged = max(staged, frames * (DFT_UNIT_COLS * chunks + 8))
+        stages = max(stages, 2 * -(-spec.n_bins // BF16_STEP_ROWS) * chunks * step)
     tile = frames - spec.time_range + 1
-    floats = (span + DFT_STAGES * 2 * DFT_BLOCK_ROWS * cols
-              + frames * spec.n_bins + frames + 2 * tile * max_width)
-    return 4 * floats
+    return 4 * (staged + stages + frames * spec.n_bins + frames + 2 * tile * max_width)
 
 
 def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
-               n_sm: int = H100_SMS) -> int:
-    """Frames one CTA of the fp32 kernel transforms for a launch of
-    ``lanes`` x ``n_evals`` evaluations on a card of ``n_sm`` SMs. A CTA of
-    ``f`` frames serves ``f - timeRange + 1`` evaluations, so a large ``f``
-    wastes few transforms (128 frames: 1.08 per evaluation at timeRange 10,
-    64 frames: 1.16), while a CTA's time hardly depends on ``f`` (its chain
-    of barriers and loads does not). The choice over :data:`CTA_FRAMES`
-    takes the fewest waves, ``ceil(CTAs / (n_sm * CTAs resident on an
-    SM))``, then the fewest frames in all, then the larger ``f``: 64 frames
-    for a live bucket on 256 lanes, 128 for one 60 s stream and for long
-    lanes. A ``timeRange`` above every choice takes the next multiple of
-    64. Raises when no choice fits in shared memory."""
+               n_sm: int = H100_SMS, tier: str | None = None,
+               frames_input: bool = False) -> int:
+    """Frames one CTA of the kernel transforms for a launch of ``lanes`` x
+    ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
+    input form as :func:`smem_bytes` takes them. A CTA of ``f`` frames
+    serves ``f - timeRange + 1`` evaluations, so a large ``f`` wastes few
+    transforms (128 frames: 1.08 per evaluation at timeRange 10, 64 frames:
+    1.16), while a CTA's time hardly depends on ``f`` (its chain of barriers
+    and loads does not). The choice over :data:`CTA_FRAMES` takes the fewest
+    waves, ``ceil(CTAs / (n_sm * CTAs resident on an SM))``, then the fewest
+    frames in all, then the larger ``f``: 64 frames for a live bucket on 256
+    lanes, 128 for one 60 s stream and for long lanes. A ``timeRange`` above
+    every choice takes the next multiple of 64. Raises when no choice fits
+    in shared memory."""
     halo = spec.time_range - 1
     choices = [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
     best = None
     for frames in choices:
-        smem = fp32_smem_bytes(spec, frames, max_width)
+        smem = smem_bytes(spec, frames, max_width, tier, frames_input)
         if smem > SMEM_LIMIT:
             continue
         threads = 128 * min(2, frames // 64 * _dft_chunks(spec))
@@ -898,7 +966,8 @@ def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
             best = (key, frames)
     if best is None:
         raise ValueError(
-            f"the fused kernel needs {fp32_smem_bytes(spec, choices[0], max_width)} bytes "
+            f"the fused kernel needs "
+            f"{smem_bytes(spec, choices[0], max_width, tier, frames_input)} bytes "
             f"of shared memory per CTA at this geometry; the card offers {SMEM_LIMIT}"
         )
     return best[1]
@@ -913,9 +982,10 @@ STAGES = ("staging", "C wait", "band DFT", "|X|", "first layer", "rest")
 
 
 def stage_shares(launch, device="cuda") -> dict:
-    """Where the fp32 kernel's CTAs spend their cycles: runs ``launch()``
-    (any call that launches the kernel of ``csrc/fused_detector.cu`` on
-    ``device``) with the kernel's ``clock64()`` counters on, and returns each
+    """Where the kernel's CTAs spend their cycles: runs ``launch()`` (any
+    call that launches the kernel of ``csrc/fused_detector.cu`` on
+    ``device``, under any tier or input form) with the kernel's
+    ``clock64()`` counters on, and returns each
     stage's share of the cycles the CTAs' first threads counted
     (:data:`STAGES`: staging the span, waiting for a block of C, the wgmma
     steps, |X| and scaling, row sums and first layer, hidden layers and
@@ -936,29 +1006,13 @@ def stage_shares(launch, device="cuda") -> dict:
     return {name: float(c[i]) / total for name, i in zip(STAGES, order)}
 
 
-def _tile(n_evals: int) -> int:
-    """Evaluations per CTA of the tier kernel before rounding
-    (:func:`_tiers_tile`): TILE, cut down for small drains as the JAX
-    program cuts its flat tile (``min(tile, max(8, round_up(E, 8)))``), so
-    that a bucket of 8 does not leave three quarters of each CTA idle."""
-    return min(TILE, max(8, _round_up(n_evals, 8)))
-
-
-def _tiers_tile(spec: DetectorSpec, n_evals: int) -> int:
-    """Evaluations per CTA of the tier kernel: :func:`_tile` raised until
-    the tile's ``tile + timeRange - 1`` frames fill whole 16-row tensor-core
-    fragments (39 at the sample geometry: 48 frames)."""
-    halo = spec.time_range - 1
-    return _round_up(_tile(n_evals) + halo, FRAG) - halo
-
-
 def _check_launchable(x: torch.Tensor, folded: FusedOperands, lanes: int) -> None:
     """Raise unless ``x`` lies on a Hopper card with ``folded`` beside it."""
     if x.device.type != "cuda":
         raise ValueError(f"no fused detector kernel for device {x.device}")
-    operands = (folded.c, folded.c_tiled, folded.w1, folded.c1, folded.mids_flat,
-                folded.out_a, folded.out_c)
-    if any(o.device != x.device for o in operands):
+    operands = (folded.c, folded.c_tiled, folded.c_bf16, folded.w1g_bf16, folded.w1,
+                folded.c1, folded.mids_flat, folded.out_a, folded.out_c)
+    if any(o is not None and o.device != x.device for o in operands):
         raise ValueError("folded operands and samples lie on different devices")
     if folded.per_lane and folded.w1.shape[0] != lanes:
         raise ValueError(
@@ -987,10 +1041,8 @@ def _launch(
     card: ``[C, n]`` samples of the wire's type or, with ``frames_input``,
     ``[C, F, window]`` float32 frames) into the same lanes of ``out``
     ``[C, n_evals, outputs]`` float32 (allocated when None), which it
-    returns. The lanes' slice of every operand is a pointer offset. A
-    ``tier`` or ``frames_input`` launches the kernel of
-    ``csrc/fused_detector_tiers.cu``, else that of ``csrc/fused_detector.cu``.
-    """
+    returns, under ``tier`` (a :data:`TIERS` key, None for full fp32). The
+    lanes' slice of every operand is a pointer offset."""
     c, n = xs.shape[:2]
     lanes = c - lane0 if lanes is None else lanes
     want = (3, spec.window_length) if frames_input else (2, n)
@@ -1004,40 +1056,37 @@ def _launch(
             f"the fused kernel takes a contiguous [lanes, n] {wire} tensor (or "
             f"[lanes, F, window] frames), got {xs.dtype} of shape {tuple(xs.shape)}"
         )
-    tiered = tier is not None or frames_input
-    if tiered and wire != "float32":
-        raise ValueError("the tier and frames-input kernel reads float32 only")
-    lib = _tiers_library() if tiered else _library()
-    max_layers = lib.sd_tiers_max_layers() if tiered else lib.sd_max_layers()
+    if (tier is not None or frames_input) and wire != "float32":
+        raise ValueError("the tiers and the frames input read float32 only")
+    lib = _library()
     widths = [w for _, w in spec.net.layer_sizes]
-    if len(widths) > max_layers:
-        raise ValueError(f"the fused kernel takes at most {max_layers} layers")
+    if len(widths) > lib.sd_max_layers():
+        raise ValueError(f"the fused kernel takes at most {lib.sd_max_layers()} layers")
     gap, _ = normalize_overlap(spec.window_overlap)
     geometry = (spec.window_length, spec.hop, gap, spec.n_bins, spec.time_range)
     dft_passes, conv_passes = TIERS[tier] if tier else (0, 0)
-    if tiered:
-        tile = _tiers_tile(spec, n_evals)
-        smem = lib.sd_fused_tiers_smem_bytes(
-            *geometry, tile, max(widths), widths[0], int(frames_input),
-            dft_passes, conv_passes,
-        )
-    else:
-        want_c = (lib.sd_fused_detector_c_blocks(spec.window_length), 2,
-                  DFT_BLOCK_ROWS // 8, lib.sd_fused_detector_c_chunks(spec.n_bins), 8, 2, 8, 4)
-        if folded.c_tiled is None or tuple(folded.c_tiled.shape) != want_c:
-            raise ValueError(f"the fused kernel takes C tiled as {want_c} (tile_dft_matrix)")
-        tile = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device))
-        smem = lib.sd_fused_detector_smem_bytes(*geometry, tile, max(widths))
-        if smem != fp32_smem_bytes(spec, tile, max(widths)):
-            raise RuntimeError(
-                f"the kernel's shared memory ({smem} bytes) is not fp32_smem_bytes' "
-                f"({fp32_smem_bytes(spec, tile, max(widths))})"
-            )
-    if smem > SMEM_LIMIT:
+    cs = folded.c_bf16 if dft_passes else folded.c_tiled
+    want_c = (lib.sd_fused_detector_c_blocks(spec.window_length, dft_passes), 2, 2,
+              lib.sd_fused_detector_c_chunks(spec.n_bins), 8, 2, 8, 8 if dft_passes else 4)
+    if cs is None or tuple(cs.shape) != want_c:
         raise ValueError(
-            f"the fused kernel needs {smem} bytes of shared memory per CTA "
-            f"at this geometry; the card offers {SMEM_LIMIT}"
-        )
+            f"the fused kernel takes C tiled as {want_c} "
+            f"({'tile_dft_matrix_bf16' if dft_passes else 'tile_dft_matrix'})")
+    if conv_passes:
+        bank = folded.w1g_bf16
+        floats = lib.sd_fused_detector_conv_bank_floats(spec.n_bins, spec.time_range, widths[0])
+        one_net = bank[0] if bank is not None and folded.per_lane else bank
+        if one_net is None or one_net.numel() * 2 != 4 * floats:
+            raise ValueError("the fused kernel takes the conv filter bank of "
+                             "tile_conv_bank_bf16 under this tier")
+    frames = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device), tier,
+                        frames_input)
+    smem = lib.sd_fused_detector_smem_bytes(
+        *geometry, frames, max(widths), widths[0], dft_passes, conv_passes, int(frames_input))
+    mirror = smem_bytes(spec, frames, max(widths), tier, frames_input)
+    if smem != mirror:
+        raise RuntimeError(
+            f"the kernel's shared memory ({smem} bytes) is not smem_bytes' ({mirror})")
     if out is None:
         out = torch.empty(
             (c, n_evals, spec.net.outputs), dtype=torch.float32, device=xs.device
@@ -1061,35 +1110,22 @@ def _launch(
             return t.data_ptr()
         return t.data_ptr() + lane0 * t.stride(0) * t.element_size()
 
-    ld = xs.stride(0)
     device = xs.device.index if xs.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    net_ptrs = (at(folded.c1), at(folded.mids_flat), at(folded.out_a),
-                at(folded.out_c), at(out, False), int(folded.per_lane))
-    tail = (len(widths), c_widths, c_transfers)
-    if tiered:
-        c_hi, c_lo, w1g_hi, w1g_lo = folded.tiers
-        err = lib.sd_fused_tiers(
-            at(xs, False), int(frames_input), lanes, ld, n, n_evals,
-            folded.c.data_ptr(), c_hi.data_ptr(), c_lo.data_ptr(), at(folded.w1),
-            at(w1g_hi), at(w1g_lo), *net_ptrs,
-            *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), tile,
-            dft_passes, conv_passes, *tail, device, stream,
-        )
-        message = lib.sd_tiers_error_string
-    else:
-        scale = MULAW_INV127 if wire == "mulaw8" else INT16_SCALE
-        err = lib.sd_fused_detector(
-            at(xs, False), WIRE_CODES[wire], lanes, ld, n, n_evals,
-            folded.c_tiled.data_ptr(), at(folded.w1), *net_ptrs,
-            *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), tile,
-            *tail, float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
-            device, stream,
-        )
-        message = lib.sd_error_string
+    scale = MULAW_INV127 if wire == "mulaw8" else INT16_SCALE
+    err = lib.sd_fused_detector(
+        at(xs, False), WIRE_CODES[wire], lanes, xs.stride(0), n, n_evals,
+        cs.data_ptr(), at(folded.w1), at(folded.w1g_bf16) if conv_passes else None,
+        at(folded.c1), at(folded.mids_flat), at(folded.out_a), at(folded.out_c),
+        at(out, False), int(folded.per_lane),
+        *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), frames,
+        dft_passes, conv_passes, int(frames_input),
+        len(widths), c_widths, c_transfers,
+        float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
+        device, torch.cuda.current_stream(xs.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(
             "fused detector kernel launch failed: "
-            f"{message(err).decode()} (cudaError {err})"
+            f"{lib.sd_error_string(err).decode()} (cudaError {err})"
         )
     return out

@@ -545,3 +545,14 @@ class Detector:
         ).copy()
         ich = int(state.get("interleave_channels", 0))
         self._interleave_channels = ich if ich > 0 else None
+
+    def save_state(self, path) -> None:
+        """Write :meth:`get_state` to ``path`` as an ``.npz`` file, the JAX
+        package's ``Detector.save_state`` format."""
+        np.savez(path, **self.get_state())
+
+    def load_state(self, path) -> None:
+        """Restore a state file written by :meth:`save_state` here or by the
+        JAX package's ``Detector.save_state``."""
+        with np.load(path) as data:
+            self.set_state({k: data[k] for k in data.files})

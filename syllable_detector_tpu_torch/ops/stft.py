@@ -27,12 +27,14 @@ __all__ = [
     "normalize_overlap",
     "hop_length",
     "num_frames",
+    "frame_start_indices",
     "slab_parts",
     "frame_signal",
     "band_dft_matrices",
     "spectral_frames",
     "stack_features",
     "frequency_index_range",
+    "frequencies_for_sample_rate",
 ]
 
 
@@ -58,6 +60,15 @@ def num_frames(n_samples: int, window_length: int, window_overlap: int) -> int:
     if n_samples < need:
         return 0
     return 1 + (n_samples - need) // hop
+
+
+def frame_start_indices(
+    n_frames: int, window_length: int, window_overlap: int
+) -> np.ndarray:
+    """Sample index of the first sample inside each window (after the gap)."""
+    gap, _ = normalize_overlap(window_overlap)
+    hop = hop_length(window_length, window_overlap)
+    return gap + hop * np.arange(n_frames, dtype=np.int64)
 
 
 def slab_parts(
@@ -195,3 +206,10 @@ def frequency_index_range(
     if end > half:
         return start, half
     return start, end
+
+
+def frequencies_for_sample_rate(fft_length: int, sample_rate: float) -> np.ndarray:
+    """Center frequency of each retained bin
+    (CircularShortTimeFourierTransform.swift:160-164)."""
+    half = fft_length // 2
+    return np.arange(half, dtype=np.float64) * (float(sample_rate) / fft_length)

@@ -109,6 +109,30 @@ def test_port_state_loads_into_jax(cfg, audio):
     close(feed(jax_det, x), feed(port, x), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("saver", ["port", "jax"])
+def test_state_files_load_across_packages(cfg, audio, tmp_path, saver):
+    """A state file written by one package's ``save_state`` loads into the
+    other's ``load_state`` and into its own; continuing the stream gives the
+    uninterrupted outputs (rtol=1e-4, atol=1e-5 across the packages, the
+    CLI's contract; 1e-5 / 1e-6 within one)."""
+    cut = len(audio) // 3 + 41  # mid-hop, mid-frame
+    make = {"port": lambda: tdet.Detector(cfg, device="cpu"), "jax": lambda: jdet.Detector(cfg)}
+    first = make[saver]()
+    feed(first, audio[:cut], [5000])
+    path = tmp_path / "state.npz"
+    first.save_state(path)
+    rest = audio[cut:]
+    uninterrupted = make[saver]()
+    feed(uninterrupted, audio[:cut], [5000])
+    want = feed(uninterrupted, rest, [5000])
+    for loader, tol in ((saver, (1e-5, 1e-6)), ({"port": "jax", "jax": "port"}[saver], (1e-4, 1e-5))):
+        det = make[loader]()
+        det.load_state(path)
+        assert det._frames_seen == first._frames_seen
+        np.testing.assert_array_equal(det._residual, first._residual)
+        close(feed(det, rest, [5000]), want, *tol)
+
+
 def test_set_state_rejects_foreign_shapes(cfg):
     det = tdet.Detector(cfg, device="cpu")
     state = det.get_state()

@@ -116,6 +116,62 @@ def test_plain_version_too_short():
     assert tfused.fused_offline_outputs(tspec, tparams, torch.from_numpy(x)).shape == (1, 1)
 
 
+@pytest.mark.parametrize("kw", [{}, {"input_mode": "frames"}, {"split": True}])
+@pytest.mark.parametrize("name", ["linear", "gap"])
+def test_n_evals_matches_jax(name, kw):
+    """``n_evals`` shorter than the stream gives the first rows of the whole
+    run (to float32 rounding), as the JAX function (interpret mode) does;
+    more than the samples hold raises there and here."""
+    _, cfg, x, rtol, atol = CASES[name]
+    if kw.get("split"):
+        rtol, atol = 2e-3, 5e-4  # the split tier's bound (fixtures.TIER_CASES)
+    tspec, tparams, jspec, jparams = both(cfg)
+    xt = torch.from_numpy(x)
+    full = tfused.fused_offline_outputs(tspec, tparams, xt, **kw).numpy()
+    for n_evals in (1, 17, len(full) - 1, len(full)):
+        got = tfused.fused_offline_outputs(tspec, tparams, xt, n_evals=n_evals, **kw).numpy()
+        want = np.asarray(jfused.fused_offline_outputs(
+            jspec, jparams, jnp.asarray(x), interpret=True, tile=64, n_evals=n_evals, **kw))
+        assert got.shape == want.shape == (n_evals, 1)
+        # the CPU's matmuls block another shape otherwise: float32 rounding
+        np.testing.assert_allclose(got, full[:n_evals], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    assert tfused.fused_offline_outputs(tspec, tparams, xt, n_evals=0).shape == (0, 1)
+    too_many = f"n_evals={len(full) + 1} needs more than {len(x)} samples"
+    with pytest.raises(ValueError, match=too_many):
+        tfused.fused_offline_outputs(tspec, tparams, xt, n_evals=len(full) + 1, **kw)
+    with pytest.raises(ValueError, match=too_many):
+        jfused.fused_offline_outputs(jspec, jparams, jnp.asarray(x), n_evals=len(full) + 1, **kw)
+
+
+@pytest.mark.parametrize("n_evals", [None, 3])
+def test_unfusable_spec_takes_the_unfused_path(n_evals):
+    """An input chain of ``normalize`` cannot fold: both functions run the
+    unfused path and honour ``n_evals`` there (tests/test_kernels.py's
+    ``test_unfusable_falls_back`` and ``..._honors_n_evals``)."""
+    cfg = dataclasses.replace(
+        fixtures.sample_geometry_config(0), process_inputs=[ProcessingSpec("normalize")]
+    )
+    tspec, tparams, jspec, jparams = both(cfg)
+    assert not tfused.fusable(tspec) and not jfused.fusable(jspec)
+    x = fixtures.chirp_audio(0.2, 3)
+    counts = (tfused.LAUNCHES, dict(tfused.TIER_LAUNCHES), tfused.FRAMES_LAUNCHES)
+    got = tfused.fused_offline_outputs(tspec, tparams, torch.from_numpy(x), n_evals=n_evals).numpy()
+    assert counts == (tfused.LAUNCHES, dict(tfused.TIER_LAUNCHES), tfused.FRAMES_LAUNCHES)
+    want = np.asarray(jfused.fused_offline_outputs(jspec, jparams, jnp.asarray(x), n_evals=n_evals))
+    unfused = tdet.offline_outputs(tspec, tparams, torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and len(got) == (len(unfused) if n_evals is None else n_evals)
+    np.testing.assert_array_equal(got, unfused[: len(got)])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="n_evals"):
+        tfused.fused_offline_outputs(tspec, tparams, torch.from_numpy(x), n_evals=len(unfused) + 1)
+    # a precision tier does not apply to the unfused path
+    tiered = tfused.fused_offline_outputs(tspec, tparams, torch.from_numpy(x), split=True,
+                                        n_evals=n_evals).numpy()
+    np.testing.assert_array_equal(tiered, got)
+
+
 def test_rejects_unfusable_and_other_devices():
     base = fixtures.sample_geometry_config(0)
     cfg = dataclasses.replace(base, process_inputs=[ProcessingSpec("normalize")])
@@ -181,7 +237,7 @@ def test_cta_frames_for_the_paths_launch_shapes(lanes, n_evals, frames):
     assert got == frames
     tile = got - spec.time_range + 1
     assert got % 64 == 0 and tile >= 1
-    assert tfused.fp32_smem_bytes(spec, got, 4) <= tfused.SMEM_LIMIT
+    assert tfused.smem_bytes(spec, got, 4) <= tfused.SMEM_LIMIT
 
     def waves(f):  # two CTAs of 128 frames or three of 64 share an SM
         ctas = lanes * -(-n_evals // (f - spec.time_range + 1))
@@ -192,7 +248,7 @@ def test_cta_frames_for_the_paths_launch_shapes(lanes, n_evals, frames):
 
 def test_cta_frames_and_shared_memory_bounds():
     spec = sample_spec()
-    sizes = [tfused.fp32_smem_bytes(spec, f, 4) for f in tfused.CTA_FRAMES]
+    sizes = [tfused.smem_bytes(spec, f, 4) for f in tfused.CTA_FRAMES]
     assert sizes == sorted(sizes)
     assert 2 * (sizes[-1] + 1024) <= tfused.SM_SMEM  # two CTAs of 128 frames an SM
     assert 3 * (sizes[0] + 1024) <= tfused.SM_SMEM  # three of 64
@@ -206,7 +262,7 @@ def test_cta_frames_and_shared_memory_bounds():
         for lanes, n_evals in ((1, 1), (1, 3330), (3, 998), (160, 657)):
             frames = tfused.cta_frames(s, n_evals, lanes, width)
             assert frames in tfused.CTA_FRAMES
-            assert tfused.fp32_smem_bytes(s, frames, width) <= tfused.SMEM_LIMIT
+            assert tfused.smem_bytes(s, frames, width) <= tfused.SMEM_LIMIT
     # a timeRange above every choice takes the next multiple of 64; one that
     # cannot fit raises
     long = dataclasses.replace(spec, time_range=150)

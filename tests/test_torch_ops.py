@@ -89,6 +89,27 @@ def test_frequency_index_range(fft, f0, f1, rate):
 
 
 @pytest.mark.parametrize("window,overlap", GEOMETRIES)
+def test_frame_start_indices(window, overlap):
+    for n_frames in (0, 1, 7, 333):
+        got = tstft.frame_start_indices(n_frames, window, overlap)
+        want = jstft.frame_start_indices(n_frames, window, overlap)
+        assert got.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fft,rate", [(256, 44100.0), (64, 8000.0), (512, 96000), (128, 22050.5)])
+def test_frequencies_for_sample_rate(fft, rate):
+    from syllable_detector_tpu import ops as jops
+    from syllable_detector_tpu_torch import ops as tops
+
+    got = tops.frequencies_for_sample_rate(fft, rate)
+    want = jops.frequencies_for_sample_rate(fft, rate)
+    assert got.shape == want.shape == (fft // 2,) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert tops.frequencies_for_sample_rate is tstft.frequencies_for_sample_rate
+
+
+@pytest.mark.parametrize("window,overlap", GEOMETRIES)
 def test_frame_signal(window, overlap):
     x = np.random.default_rng(3).standard_normal(3000).astype(np.float32)
     f = tstft.num_frames(len(x), window, overlap)
