@@ -112,6 +112,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
                beside the unsharded scan, in turns, of the time-sharded
                fused path beside the whole stream, and of the two-process
                scan.
+  16. train  — this slice's main path, every count from 0: ``train.main``
+               at the CLI defaults (300 epochs, batch 256, lr 3e-3, 4
+               inits) on a 60 s labeled file (``make_labeled_audio``) with
+               ``--device cuda``: rc 0, features, params and Adam state on
+               the card before and after the epochs (a spy on the epoch
+               loop), the net file loading back to the exported config;
+               the trained net through ``cli --method fused`` (K1a must
+               launch) against ``--method matmul``, CSVs equal, more than
+               80 % of the detections within 0.1 s of a labeled interval;
+               ``features_and_labels`` on the card against the CPU
+               (rtol=1e-5, atol=1e-6, labels equal) and one epoch of
+               ``_make_restart_epoch`` from the same inits (rtol=1e-4,
+               atol=1e-5); a 16-channel ensemble through ``train.main`` (50
+               epochs) whose 16 nets go through ``cli --batched --method
+               fused`` (K1e must launch) against matmul on a 16-channel
+               file; ``train`` on a 4-shard data mesh and ``train_ensemble``
+               on a 4-shard channel mesh against unsharded (2 epochs,
+               rtol=1e-4, atol=1e-5); a run interrupted after 1 epoch and
+               resumed to 2 against 2 uninterrupted, through the CLI (net
+               files byte for byte) and on the data mesh (bit for bit).
+  17. times  — device (CUDA events) and host ms of one optimizer step at
+               the CLI defaults, the 300-epoch run's steps per second, one
+               epoch's wall, the walls of phase 16's CLI runs and the
+               ensemble's, and the device's busy share over 3 epochs
+               (``torch.profiler``, CUDA activity). Then one line of each
+               phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -126,6 +152,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -141,7 +168,8 @@ import numpy as np
 import torch
 
 from syllable_detector_tpu_torch import cli, corpus, fixtures, monitor, sim
-from syllable_detector_tpu_torch.config.model_format import load_config, save_config
+from syllable_detector_tpu_torch import train as train_cli
+from syllable_detector_tpu_torch.config.model_format import dumps_config, load_config, save_config
 from syllable_detector_tpu_torch.kernels import _build
 from syllable_detector_tpu_torch.kernels import framed_gemm as fg
 from syllable_detector_tpu_torch.kernels import fused_detector as fused
@@ -152,9 +180,11 @@ from syllable_detector_tpu_torch.models.detector_bank import (
     _mulaw_lut,
     mulaw_expand_np,
 )
-from syllable_detector_tpu_torch.ops import resample
+from syllable_detector_tpu_torch.ops import processing, resample
 from syllable_detector_tpu_torch.parallel import mesh as pmesh
 from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length, num_frames
+from syllable_detector_tpu_torch.training import trainer
+from syllable_detector_tpu_torch.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
 
 KERNEL_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector.cu"
@@ -198,6 +228,14 @@ NET_RATE = fixtures.RATE
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the training slice: one labeled 60 s file per channel (make_labeled_audio,
+# about 20 k evaluations), the train CLI's defaults (300 epochs, batch 256,
+# lr 3e-3, 4 inits) for one net, a 16-channel ensemble of fewer epochs, and
+# a few epochs for the sharded and resumed runs
+TRAIN_SECONDS = 60.0
+ENSEMBLE_CHANNELS = 16
+ENSEMBLE_EPOCHS = 50
+SHORT_EPOCHS = 2
 
 
 def card() -> str:
@@ -1569,10 +1607,328 @@ def phase_new_times(scan: dict, scan_xs: torch.Tensor, scan_k1e, dist_wall: floa
     return times
 
 
+def labeled_files(tmp: str, name: str, seed: int) -> tuple[np.ndarray, list, str, str]:
+    """A labeled TRAIN_SECONDS WAV and its interval CSV: (audio, intervals,
+    WAV path, CSV path)."""
+    audio, intervals = make_labeled_audio(TRAIN_SECONDS, rate=NET_RATE, seed=seed)
+    wav, csv = os.path.join(tmp, f"{name}.wav"), os.path.join(tmp, f"{name}.csv")
+    write_wav(wav, audio, NET_RATE, dtype="float32")
+    with open(csv, "w") as fh:
+        fh.write("# start,end\n" + "".join(f"{lo},{hi}\n" for lo, hi in intervals))
+    return audio, intervals, wav, csv
+
+
+class TrainSpy:
+    """Inside ``with``: records, for each run of the trainer's epoch loop,
+    the devices of its data, parameters and optimizer state before and after
+    the epochs, the optimizer steps it ran and its wall to the last step's
+    completion; and every config the train CLI exported."""
+
+    def __enter__(self):
+        self.runs, self.exported = [], []
+        self._loop, self._export = trainer._run_training_loop, train_cli.export_trained_config
+
+        def loop(settings, epoch_fn, data, epoch_indices, params, opt_state, *rest):
+            run = {"before": {t.device.type for t in pmesh._leaves((data, params, opt_state))},
+                   "steps": 0}
+
+            def counted(*args):
+                run["steps"] += args[-1].shape[0]
+                return epoch_fn(*args)
+
+            t0 = time.perf_counter()
+            params, opt_state = self._loop(settings, counted, data, epoch_indices, params,
+                                           opt_state, *rest)
+            torch.cuda.synchronize()
+            run["wall"] = time.perf_counter() - t0
+            run["after"] = {t.device.type for t in pmesh._leaves((params, opt_state))}
+            self.runs.append(run)
+            return params, opt_state
+
+        def export(*args):
+            self.exported.append(self._export(*args))
+            return self.exported[-1]
+
+        trainer._run_training_loop, train_cli.export_trained_config = loop, export
+        return self
+
+    def __exit__(self, *exc):
+        trainer._run_training_loop, train_cli.export_trained_config = self._loop, self._export
+
+
+def run_train(argv: list[str]) -> float:
+    """Host seconds of one ``train.main`` run, which must return 0."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"train.main({argv}) returned {rc}: {err.getvalue()[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def hit_rate(lines: list[str], intervals) -> float:
+    """Share of detection lines within 0.1 s of a labeled interval."""
+    rows = [line for line in lines if line.count(",") >= 3]
+    hits = sum(any(lo - 0.1 <= float(r.split(",")[2]) <= hi + 0.1 for lo, hi in intervals)
+               for r in rows)
+    return hits / max(1, len(rows))
+
+
+def held_trees(got, want, rtol: float, atol: float, what: str) -> float:
+    """Every tensor of ``got`` against ``want``'s; returns the largest
+    absolute difference."""
+    worst = 0.0
+    for g, w in zip(pmesh._leaves(got), pmesh._leaves(want), strict=True):
+        g, w = g.detach().cpu().numpy(), w.detach().cpu().numpy()
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
+        worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def bit_equal(got, want, what: str) -> None:
+    for g, w in zip(pmesh._leaves(got), pmesh._leaves(want), strict=True):
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{what}: not bit for bit equal")
+
+
+def phase_train(tmp: str) -> dict:
+    """Phase 16, the training slice's main path; returns what phase 17
+    times."""
+    t_phase = time.perf_counter()
+    audio, intervals, wav, csv = labeled_files(tmp, "train", 31)
+    net = os.path.join(tmp, "trained.txt")
+    # (a) the train CLI at its defaults on the card
+    reset_counts()
+    with TrainSpy() as spy:
+        cli_wall = run_train(["-a", wav, "-l", csv, "-o", net, "--device", "cuda", "--quiet"])
+    run = spy.runs[0]
+    if len(spy.runs) != 1 or run["before"] != {"cuda"} or run["after"] != {"cuda"}:
+        raise AssertionError(f"the trainer's features, params and Adam state were on {spy.runs}")
+    loaded = load_config(net)
+    exported = spy.exported[0]
+    if dumps_config(loaded) != dumps_config(exported) or not all(
+            np.array_equal(a.weights, b.weights) and np.array_equal(a.biases, b.biases)
+            for a, b in zip(loaded.layers, exported.layers, strict=True)):
+        raise AssertionError("the net file does not load back to the exported config")
+    settings = trainer.TrainSettings(epochs=300, batch_size=256, learning_rate=3e-3, seed=0)
+    feats, labels = trainer.features_and_labels(settings, audio, intervals, device="cpu")
+    steps = settings.epochs * (len(feats) // settings.batch_size)
+    if run["steps"] != steps:
+        raise AssertionError(f"{run['steps']} optimizer steps for {steps}")
+    print(
+        f"phase 16 train main path: train.main at the CLI defaults (300 epochs, batch 256, lr "
+        f"3e-3, 4 inits) on a {TRAIN_SECONDS:g} s labeled file ({len(feats)} evaluations, "
+        f"{int(labels.sum())} positive, {feats.nbytes} B of features): rc 0 in {cli_wall:.2f} s, "
+        f"{run['steps']} optimizer steps; features, params and Adam state on "
+        f"{'/'.join(sorted(run['before']))} before and after the epochs; the net file loads "
+        f"back to the exported config (threshold {exported.thresholds[0]:.4f}) ok",
+        flush=True,
+    )
+
+    # (b) the trained net through the fused kernel (K1a) and the matmul path
+    argv = ["-n", net, "-a", wav, "--device", "cuda"]
+    reset_counts()
+    fused_csv = run_cli(argv + ["--method", "fused"])[0]
+    k1a = fused.LAUNCHES
+    matmul_csv = run_cli(argv + ["--method", "matmul"])[0]
+    worst = compare_csv(fused_csv, matmul_csv)
+    hits = hit_rate(fused_csv, intervals)
+    if k1a <= 0 or not fused_csv or hits <= 0.8:
+        raise AssertionError(f"trained net: K1a launches {k1a}, {len(fused_csv)} lines, hits {hits}")
+    print(
+        f"phase 16 train: the trained net through cli --method fused vs matmul: "
+        f"{len(fused_csv)} detection lines, columns 1-3 identical, outputs max diff "
+        f"{worst:.3g}; {hits:.3f} of them within 0.1 s of a labeled interval; fused kernel "
+        f"launches {k1a} ok",
+        flush=True,
+    )
+
+    # (c) features on the card against the CPU
+    dev_feats, dev_labels = trainer.features_and_labels(settings, audio, intervals, device="cuda")
+    np.testing.assert_allclose(dev_feats, feats, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(dev_labels, labels)
+    feat_err = float(np.abs(dev_feats - feats).max())
+
+    # (d) one epoch of K stacked inits from the same draws, card against CPU
+    net_spec = trainer._build_net_spec(settings)
+    in_specs, _ = trainer.fit_input_chain(settings, feats, "cpu")
+    sizes = [settings.n_features, *settings.hidden, 1]
+    n_steps = len(feats) // settings.batch_size
+    idx = np.random.default_rng(settings.seed).permutation(len(feats))[
+        : n_steps * settings.batch_size].reshape(n_steps, settings.batch_size).astype(np.int32)
+    epoch_fn = trainer._make_restart_epoch(net_spec, settings.learning_rate)
+    start, after = {}, {}
+    for device in ("cuda", "cpu"):
+        generator = torch.Generator().manual_seed(settings.seed)
+        params = neural_net.stack_params([
+            {"layers": trainer.init_layer_params(generator, sizes, device=device),
+             "process_inputs": processing.specs_to_chain(in_specs, device)[1],
+             "process_outputs": processing.specs_to_chain([trainer._output_mapminmax()], device)[1]}
+            for _ in range(settings.n_init)])
+        start[device] = (params, trainer._adam_init(params["layers"], (settings.n_init,)),
+                         torch.tensor(feats, device=device), torch.tensor(labels, device=device),
+                         torch.tensor(idx, device=device))
+        after[device] = epoch_fn(*start[device])
+    epoch_err = held_trees(after["cuda"], after["cpu"], 1e-4, 1e-5, "one epoch, card vs CPU")
+    print(
+        f"phase 16 train: features_and_labels on the card vs the CPU: max abs {feat_err:.3g} "
+        f"(rtol=1e-5, atol=1e-6), labels equal; one epoch ({n_steps} steps) of "
+        f"_make_restart_epoch from the same {settings.n_init} inits, card vs CPU: params, Adam "
+        f"state and losses max abs {epoch_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        flush=True,
+    )
+
+    # (e) a 16-channel ensemble through the train CLI, its nets through the
+    # batched fused kernel (K1e) on a 16-channel arrangement of the audio
+    chans = [labeled_files(tmp, f"chan{c}", 100 + c) for c in range(ENSEMBLE_CHANNELS)]
+    template = os.path.join(tmp, "chan_net_{ch}.txt")
+    pairs = [a for _, _, w, l in chans for a in ("-a", w, "-l", l)]
+    with TrainSpy() as ens_spy:
+        ens_wall = run_train(pairs + ["-o", template, "--epochs", str(ENSEMBLE_EPOCHS),
+                                      "--device", "cuda", "--quiet"])
+    ens_run = ens_spy.runs[0]
+    if ens_run["before"] != {"cuda"} or ens_run["after"] != {"cuda"}:
+        raise AssertionError(f"the ensemble's state was on {ens_spy.runs}")
+    wide = os.path.join(tmp, "sixteen.wav")
+    write_wav(wide, np.stack([a for a, *_ in chans], 1), NET_RATE, dtype="float32")
+    nets = [template.replace("{ch}", str(c)) for c in range(ENSEMBLE_CHANNELS)]
+    argv = [a for n in nets for a in ("-n", n)] + ["-a", wide, "--batched", "--device", "cuda"]
+    reset_counts()
+    ens_fused = run_cli(argv + ["--method", "fused"])[0]
+    k1e = fused.BATCH_LAUNCHES
+    ens_matmul = run_cli(argv + ["--method", "matmul"])[0]
+    ens_worst = compare_csv(ens_fused, ens_matmul)
+    rates = [hit_rate([l for l in ens_fused if l.startswith(f"{c},")], chans[c][1])
+             for c in range(ENSEMBLE_CHANNELS)]
+    if k1e <= 0 or min(rates) <= 0.8:
+        raise AssertionError(f"ensemble: K1e launches {k1e}, hit rates {rates}")
+    print(
+        f"phase 16 train: {ENSEMBLE_CHANNELS}-channel ensemble through train.main ({ENSEMBLE_EPOCHS} "
+        f"epochs, {ens_run['steps']} steps, {ens_wall:.2f} s), its {ENSEMBLE_CHANNELS} nets through "
+        f"cli --batched --method fused vs matmul on one {ENSEMBLE_CHANNELS}-channel file: "
+        f"{len(ens_fused)} detection lines, columns 1-3 identical, outputs max diff "
+        f"{ens_worst:.3g}; hits within 0.1 s per channel {min(rates):.3f}-{max(rates):.3f}; "
+        f"batched kernel launches {k1e} ok",
+        flush=True,
+    )
+
+    # (f) sharded against unsharded, on MESH_SHARDS shards of the one card
+    short = dataclasses.replace(settings, epochs=SHORT_EPOCHS)
+    _, whole, t_whole = trainer.train(short, feats, labels, device="cuda")
+    _, sharded, t_sharded = trainer.train(
+        short, feats, labels, mesh=pmesh.make_mesh(MESH_SHARDS, axis="data"))
+    dp_err = held_trees(sharded, whole, 1e-4, 1e-5, "data-parallel vs unsharded")
+    ens_data = [trainer.features_and_labels(settings, a, iv, device="cuda") for a, iv, *_ in chans]
+    ens_f, ens_l = [f for f, _ in ens_data], [l for _, l in ens_data]
+    _, ens_whole, _ = trainer.train_ensemble(short, ens_f, ens_l, device="cuda")
+    _, ens_sharded, _ = trainer.train_ensemble(
+        short, ens_f, ens_l, mesh=pmesh.make_mesh(MESH_SHARDS, axis="channel"))
+    cp_err = held_trees(ens_sharded, ens_whole, 1e-4, 1e-5, "channel-parallel vs unsharded")
+    if not sharded["layers"][0]["w"].is_cuda or not ens_sharded[0]["layers"][0]["w"].is_cuda:
+        raise AssertionError("the sharded results are not on the card")
+    print(
+        f"phase 16 train: train on a {MESH_SHARDS}-shard data mesh vs unsharded ({SHORT_EPOCHS} "
+        f"epochs): params max abs {dp_err:.3g}, thresholds {t_sharded:.6f} / {t_whole:.6f}; "
+        f"train_ensemble ({ENSEMBLE_CHANNELS} channels) on a {MESH_SHARDS}-shard channel mesh vs "
+        f"unsharded: max abs {cp_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        flush=True,
+    )
+
+    # (g) interrupted after SHORT_EPOCHS - 1 epochs and resumed, against
+    # uninterrupted, bit for bit: the CLI (a net file holds every float32
+    # exactly) and the data mesh
+    ckpt = os.path.join(tmp, "ckpt")
+    base = ["-a", wav, "-l", csv, "--device", "cuda", "--quiet"]
+    every = ["--checkpoint-dir", ckpt, "--checkpoint-every", "1"]
+    outs = {name: os.path.join(tmp, f"{name}.txt") for name in ("full", "part", "resumed")}
+    run_train(base + ["-o", outs["full"], "--epochs", str(SHORT_EPOCHS)])
+    run_train(base + ["-o", outs["part"], "--epochs", str(SHORT_EPOCHS - 1)] + every)
+    run_train(base + ["-o", outs["resumed"], "--epochs", str(SHORT_EPOCHS)] + every)
+    with open(outs["full"]) as a, open(outs["resumed"]) as b:
+        if a.read() != b.read():
+            raise AssertionError("the resumed CLI run's net differs from the uninterrupted one's")
+    mesh = pmesh.make_mesh(MESH_SHARDS, axis="data")
+    part = dataclasses.replace(settings, epochs=SHORT_EPOCHS - 1)
+    mesh_ckpt = os.path.join(tmp, "mesh_ckpt")
+    trainer.train(part, feats, labels, mesh=mesh, checkpoint_dir=mesh_ckpt, checkpoint_every=1)
+    _, m_res, mt_res = trainer.train(short, feats, labels, mesh=mesh, checkpoint_dir=mesh_ckpt,
+                                     checkpoint_every=1)
+    bit_equal(m_res, sharded, "the resumed mesh run")
+    if mt_res != t_sharded:
+        raise AssertionError("the resumed mesh run's threshold differs")
+    print(
+        f"phase 16 train: train.main --checkpoint-dir interrupted after {SHORT_EPOCHS - 1} of "
+        f"{SHORT_EPOCHS} epochs and resumed, vs uninterrupted: net files byte for byte equal; the "
+        f"same on the {MESH_SHARDS}-shard data mesh through the API: params and threshold bit "
+        f"for bit equal ok ({time.perf_counter() - t_phase:.1f} s since the phase began)",
+        flush=True,
+    )
+    return {"epoch": (epoch_fn, *start["cuda"]), "cli_wall": cli_wall, "run": run,
+            "ens_wall": ens_wall, "ens_run": ens_run, "n_evals": len(feats)}
+
+
+def phase_train_times(t: dict, card_line: str) -> None:
+    """Phase 17: the optimizer step, the epoch and the CLI runs of phase 16,
+    and the device's busy share over a few epochs."""
+    epoch_fn, params, opt_state, feats, labels, idx = t["epoch"]
+    # 4 steps a sample, so that the host enqueues them inside the ~30 ms the
+    # stream is held and the events time only the device's work
+    step_device, step_host = event_ms(
+        lambda: epoch_fn(params, opt_state, feats, labels, idx[:1]), batch=4)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch_fn(params, opt_state, feats, labels, idx)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # the device's busy share: the union of its kernel and copy intervals
+    # over the wall of 3 epochs, CUDA activity only (no host-side tracing)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            epoch_fn(params, opt_state, feats, labels, idx)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    steps = 3 * idx.shape[0]
+    busy = (f"{100 * busy_us / window_us:.2f} % ({len(spans) / steps:.1f} device intervals and "
+            f"{busy_us / 1e3 / steps:.4f} ms of device activity a step)" if spans
+            else "not measured (the profiler recorded no device activity)")
+    run, ens = t["run"], t["ens_run"]
+    print(
+        f"phase 17 times [{card_line}]: one optimizer step (4 inits, batch 256, 290 features), "
+        f"median of 21 x 4: {step_device:.4f} ms device, {step_host:.4f} ms host enqueue; "
+        f"the 300-epoch run's epoch loop {run['wall']:.3f} s for {run['steps']} steps = "
+        f"{run['steps'] / run['wall']:.1f} steps/s; one epoch ({idx.shape[0]} steps) to "
+        f"completion, median of 3: {statistics.median(walls):.4f} s; train.main on the "
+        f"{TRAIN_SECONDS:g} s file (read, features, fit, 300 epochs, export): "
+        f"{t['cli_wall']:.3f} s; the {ENSEMBLE_CHANNELS}-channel ensemble's train.main "
+        f"{t['ens_wall']:.3f} s, its epoch loop {ens['wall']:.3f} s for {ens['steps']} steps = "
+        f"{ens['steps'] / ens['wall']:.1f} steps/s; device busy over 3 epochs {busy}",
+        flush=True,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    marks = [("start", time.perf_counter())]
+
+    def mark(label: str) -> None:
+        marks.append((label, time.perf_counter()))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card_line = card()
@@ -1600,10 +1956,14 @@ def main() -> int:
             flush=True,
         )
 
+    mark("1-2")
     max_abs_err = phase_kernel()
+    mark("3")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main(tmp)
+        mark("4")
         stream_times = phase_times(tmp, card_line)
+        mark("5")
 
         # the live path's nets: one seeded net per lane, each threshold away
         # from every output on the audio, which lies on the int16 grid so
@@ -1617,20 +1977,41 @@ def main() -> int:
         ]
         pairs = [detector.detector_spec_from_config(c, "cuda") for c in cfgs]
         batch_err = phase_batch(pairs)
+        mark("6")
         live = phase_live(tmp, cfgs, audio, card_line)
+        mark("7")
         times = phase_live_times(cfgs, audio, card_line)
         print(
             f"phase 8 times [{card_line}]: the {LANES}-channel monitor run processed "
             f"{live['audio_per_wall']:.1f} audio seconds per wall second",
             flush=True,
         )
+        mark("8")
         resample_err = phase_resample_kernel()
+        mark("9")
         scan = phase_corpus(tmp)
+        mark("10")
         resample_times, scan_k1e, scan_xs = phase_corpus_times(scan, card_line)
+        mark("11")
         new_err = phase_tiers()
+        mark("12")
         mesh_counts = phase_mesh(tmp, scan, scan_xs, card_line)
+        mark("13")
         dist_wall = phase_dist_scan(tmp, scan)
+        mark("14")
         new_times = phase_new_times(scan, scan_xs, scan_k1e, dist_wall, card_line)
+        mark("15")
+        trained = phase_train(tmp)
+        mark("16")
+        phase_train_times(trained, card_line)
+        mark("17")
+    print(
+        "phase walls (host clock, each to its last line): "
+        + ", ".join(f"{label} {t - prev:.1f} s"
+                    for (_, prev), (label, t) in zip(marks, marks[1:]))
+        + f"; all {marks[-1][1] - marks[0][1]:.1f} s",
+        flush=True,
+    )
 
     def entry(name, source, replaces, launches, err, ms, least, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -225,10 +225,11 @@ def test_runs_with_jax_blocked(files):
     assert proc.stdout.splitlines() == want and len(want) > 20
 
 
-@pytest.mark.parametrize("module", ["cli", "sim", "monitor", "dist_scan"])
+@pytest.mark.parametrize("module", ["cli", "sim", "monitor", "dist_scan", "train", "inspect_net"])
 def test_entry_points_print_help(module):
     """Each entry point of the port starts as ``python -m`` with jax blocked
-    (``--help`` parses nothing else and exits 0)."""
+    (``--help`` parses nothing else and exits 0); every one but
+    ``inspect_net``, which reads shapes on the CPU, takes ``--device``."""
     proc = blocked_run(
         "import runpy\n"
         f"sys.argv = ['{module}', '--help']\n"
@@ -238,7 +239,8 @@ def test_entry_points_print_help(module):
         "    assert e.code == 0, e.code\n"
     )
     assert proc.returncode == 0, proc.stderr
-    assert "usage:" in proc.stdout and "--device" in proc.stdout
+    assert "usage:" in proc.stdout
+    assert ("--device" in proc.stdout) == (module != "inspect_net")
 
 
 def test_source_never_imports_jax():
@@ -257,7 +259,10 @@ def test_source_never_imports_jax():
         assert pattern.search(bad), bad
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
-    for new in ("parallel/__init__.py", "parallel/mesh.py", "dist_scan.py"):
+    for new in ("parallel/__init__.py", "parallel/mesh.py", "dist_scan.py",
+                "training/__init__.py", "training/trainer.py", "training/checkpoint.py",
+                "train.py", "__main__.py", "inspect_net.py", "utils/synth.py",
+                "utils/logging.py"):
         assert PORT / new in sources
     hits = [
         f"{src}: {m.group(0).strip()}"
