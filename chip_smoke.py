@@ -136,8 +136,48 @@ Phases, each printing one line (any failure raises and exits non-zero):
                the CLI defaults, the 300-epoch run's steps per second, one
                epoch's wall, the walls of phase 16's CLI runs and the
                ensemble's, and the device's busy share over 3 epochs
-               (``torch.profiler``, CUDA activity). Then one line of each
-               phase's host wall.
+               (``torch.profiler``, CUDA activity).
+  18. capture — this slice's capture path, every count from 0: ``monitor
+               --list-devices`` rc 0; 256 channels through ``--input alsa
+               --output alsa`` and ``--input pulse --output pulse`` over fake
+               sound libraries (``fixtures.ReplayAlsa`` / ``ReplayPulse``,
+               injected as the modules' library handles) replaying 6 s of
+               phase 7's audio on every channel, batched, int16 wire, ladder
+               128: event logs equal to ``--input sim`` on the same samples
+               (columns 1-3; outputs within rtol=1e-3, atol=2e-4), the same
+               detections per channel, a TTL pulse on every channel that
+               detected and on no other, no capture sample lost (the
+               table's ``lost`` column), K1f launched; a scripted
+               ``--interactive`` session on the card (8 rows, batched int16)
+               against ``monitor.main``'s event log.
+  19. resilient — ``ResilientDetector`` on the card: 16 lanes x 60 s with
+               per-lane nets in 0.5 s chunks, two ``crash_for_test()`` calls
+               mid-stream; outputs against an in-process fused DetectorBank
+               fed the same chunks within 1e-6, sample indices equal; the
+               child holds the card (its device files, and nvidia-smi's
+               compute processes where it lists this container's); each
+               child's own K1e launches (``kernel_launches()``), together
+               equal to the in-process bank's; start, first-drain and
+               recovery times.
+  20. shard bank — ``ShardedDetectorBank`` on the card, 256 lanes, int16
+               wire, per-lane nets, 2 and 4 workers: 10 rounds bit for bit
+               the single-process bank's, K1f counted around the sharded
+               bank's drains alone (one launch a worker a round), no worker
+               holding the card, K1f at a shard's shape (each worker's last
+               round from its arena, its shard's nets) against its plain
+               version and timed, a round worker 0 fails followed by an
+               aligned one; a round's upload from a registered arena beside a
+               copy into pinned staging and a pageable upload; host ms per
+               ``drain()`` round and audio s per wall s at 256 and 512 lanes
+               for one process and 2 and 4 workers.
+  21. tune   — ``python -m syllable_detector_tpu_torch tune --workload all``
+               on a fixture net at the sample geometry (64 lanes x 2048
+               evaluations; one stream of 32768), the cache it wrote (3
+               entries, each candidate's device ms beside the analytic
+               choice); K1a on a 60 s stream and K1e on 64 x 2048 (shared
+               and per-lane nets) under the cached choice and under the
+               other candidate, each against its plain version. Then one
+               line of each phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -153,10 +193,12 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -171,7 +213,6 @@ from syllable_detector_tpu_torch import cli, corpus, fixtures, monitor, sim
 from syllable_detector_tpu_torch import train as train_cli
 from syllable_detector_tpu_torch.config.model_format import dumps_config, load_config, save_config
 from syllable_detector_tpu_torch.kernels import _build
-from syllable_detector_tpu_torch.kernels import framed_gemm as fg
 from syllable_detector_tpu_torch.kernels import fused_detector as fused
 from syllable_detector_tpu_torch.models import detector
 from syllable_detector_tpu_torch.models import neural_net
@@ -184,8 +225,13 @@ from syllable_detector_tpu_torch.ops import processing, resample
 from syllable_detector_tpu_torch.parallel import mesh as pmesh
 from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length, num_frames
 from syllable_detector_tpu_torch.training import trainer
+from syllable_detector_tpu_torch.utils.measure import event_ms
 from syllable_detector_tpu_torch.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
+
+# the kernels package exports the function framed_gemm under its module's
+# name, as the JAX package does, so the module comes from the import system
+fg = importlib.import_module("syllable_detector_tpu_torch.kernels.framed_gemm")
 
 KERNEL_SOURCE = "syllable_detector_tpu_torch/csrc/fused_detector.cu"
 FRAMED_SOURCE = "syllable_detector_tpu_torch/csrc/framed_gemm.cu"
@@ -236,6 +282,26 @@ TRAIN_SECONDS = 60.0
 ENSEMBLE_CHANNELS = 16
 ENSEMBLE_EPOCHS = 50
 SHORT_EPOCHS = 2
+# the capture slice: phase 7's audio captured for 6 s (under the 10 s rings,
+# so nothing overflows) in reads of 2205 frames, which divide 6 s at 44.1 kHz
+# (the PulseAudio simple API reads whole buffers)
+CAPTURE_SECONDS = 6.0
+CAPTURE_FRAMES = 2205
+# the crash-isolated detector: 16 lanes of 60 s in chunks of 0.5 s
+RESILIENT_LANES = 16
+RESILIENT_SECONDS = 60.0
+RESILIENT_CHUNK = 22050
+# the sharded bank: workers, lane counts, and rounds of 128 hops a lane
+SHARD_WORKERS = (2, 4)
+SHARD_LANES = (LANES, 2 * LANES)
+SHARD_WARM = 2
+SHARD_ROUNDS = 10
+# rounds whose drain waits until the workers have taken in the appends
+SHARD_PAUSED = 4
+SHARD_PAUSE = 0.3
+# the tuner's batched workloads: lanes x evaluations per lane
+TUNE_LANES = 64
+TUNE_EVALS = 2048
 
 
 def card() -> str:
@@ -244,31 +310,6 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, samples: int = 21, batch: int = 10) -> tuple[float, float]:
-    """(device ms, host ms) per call: the median over ``samples`` of the
-    mean of ``batch`` calls, after warm-up. Device time comes from CUDA
-    events. The stream is first held busy (``torch.cuda._sleep``) until the
-    host has enqueued the whole batch, so the events time the device's work
-    and not the host's launch rate; the host time is the enqueue time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    device, host = [], []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # ~30 ms at the H100's clock
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(batch):
-            fn()
-        host.append((time.perf_counter() - t0) * 1e3 / batch)
-        end.record()
-        end.synchronize()
-        device.append(start.elapsed_time(end) / batch)
-    return statistics.median(device), statistics.median(host)
 
 
 def bound(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
@@ -1920,6 +1961,556 @@ def phase_train_times(t: dict, card_line: str) -> None:
     )
 
 
+def compute_pids() -> set[int]:
+    """Processes that hold a context on the card, as nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return {int(v) for v in out.split() if v.strip().isdigit()}
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a device file of the card open (a CUDA
+    context opens /dev/nvidia*; importing torch does not)."""
+    fds = f"/proc/{pid}/fd"
+    targets = []
+    for fd in os.listdir(fds):
+        with contextlib.suppress(OSError):
+            targets.append(os.readlink(os.path.join(fds, fd)))
+    return any(t.startswith("/dev/nvidia") for t in targets)
+
+
+def on_card(pids: list[int]) -> tuple[list[int], str]:
+    """Which of ``pids`` hold the card, and nvidia-smi's list. Where
+    nvidia-smi sees this process (it lists this container's processes),
+    its list must agree with the device files."""
+    listed = compute_pids()
+    holding = [p for p in pids if holds_card(p)]
+    if os.getpid() in listed and sorted(p for p in pids if p in listed) != sorted(holding):
+        raise AssertionError(f"nvidia-smi lists {sorted(listed)}; device files open in {holding}")
+    return holding, (f"nvidia-smi lists {sorted(listed)}" if listed
+                     else "nvidia-smi lists no process of this container")
+
+
+def lost_samples(lines: list[str], channels: int) -> int:
+    """Capture samples lost over every channel: the ``lost`` column of the
+    monitor's last table, the ``channels`` rows before its detections line."""
+    end = next(i for i, s in enumerate(lines) if s.startswith("detections per channel:"))
+    return sum(int(s.split()[-1]) for s in lines[end - channels : end])
+
+
+def detections_of(lines: list[str]) -> list[int]:
+    line = [s for s in lines if s.startswith("detections per channel:")]
+    if len(line) != 1:
+        raise AssertionError(f"no detections line in {lines[-5:]}")
+    return json.loads(line[0].split(":", 1)[1])
+
+
+@contextlib.contextmanager
+def injected(module, name: str, lib):
+    """``module.name()`` returns ``lib`` (a fake sound library) inside."""
+    saved = getattr(module, name)
+    setattr(module, name, lambda: lib)
+    try:
+        yield lib
+    finally:
+        setattr(module, name, saved)
+
+
+def phase_capture(tmp: str, audio: np.ndarray, card_line: str) -> dict:
+    """Phase 18, this slice's capture path, every count from 0: the device
+    listing; 256 channels captured through ALSA and through PulseAudio (fake
+    libraries replaying phase 7's audio on every channel, TTL pulses on
+    their playback) against the simulated input on the same samples; a
+    scripted interactive session against the monitor's run."""
+    lines, _ = run_monitor(["--list-devices"])
+    print(f"phase 18 capture: monitor --list-devices rc 0: {' | '.join(lines[:4])}", flush=True)
+    nets = [a for i in range(LANES) for a in ("-n", os.path.join(tmp, f"live{i}.txt"))]
+    wav = os.path.join(tmp, "live.wav")
+    total = int(CAPTURE_SECONDS * NET_RATE)
+    common = nets + ["--channels", str(LANES), "--batched-drain", "--wire-format", "int16",
+                     "--buckets", "128", "--duration", str(CAPTURE_SECONDS), "--frame-size",
+                     str(CAPTURE_FRAMES), "--refresh", str(CAPTURE_SECONDS), "--device", "cuda"]
+    sim_log = os.path.join(tmp, "capture-sim.csv")
+    out, sim_wall = run_monitor(common + ["-a", wav, "--event-log", sim_log])
+    want = detections_of(out)
+    launches = {}
+    for kind, lib, module, name in (
+        ("alsa", fixtures.ReplayAlsa, monitor.alsa, "_load_alsa"),
+        ("pulse", fixtures.ReplayPulse, monitor.pulse, "_load_pulse"),
+    ):
+        log = os.path.join(tmp, f"capture-{kind}.csv")
+        with injected(module, name, lib(audio, LANES, total=total)) as fake:
+            reset_counts()
+            out, wall = run_monitor(common + ["--input", kind, "--output", kind,
+                                              "--event-log", log])
+            launches[kind] = fused.PROGRAM_LAUNCHES["int16"]
+        got = detections_of(out)
+        lost = lost_samples(out, LANES)
+        if lost:
+            raise AssertionError(f"{kind} capture: {lost} samples lost")
+        if launches[kind] <= 0:
+            raise AssertionError(f"{kind} capture: K1f was not launched")
+        if fake.delivered != total:
+            raise AssertionError(f"{kind} capture: {fake.delivered} of {total} frames delivered")
+        if got != want:
+            raise AssertionError(f"{kind} capture: detections {sum(got)} against {sum(want)}")
+        rows, worst = compare_events(log, sim_log, f"{kind} capture")
+        pulses = fake.pulses
+        if ((pulses > 0) != (np.array(got) > 0)).any() or (pulses > np.array(got)).any():
+            raise AssertionError(f"{kind} capture: TTL pulses {pulses.tolist()[:8]} "
+                                 f"against detections {got[:8]}")
+        print(
+            f"phase 18 capture [{card_line}]: --input {kind} --output {kind}, {LANES} channels x "
+            f"{CAPTURE_SECONDS:g} s through a fake library ({CAPTURE_FRAMES} frames a read), "
+            f"--batched-drain int16 --buckets 128: {rows} events equal to --input sim in columns "
+            f"1-3 (outputs max diff {worst:.3g}), {int(pulses.sum())} TTL pulses on "
+            f"{int((pulses > 0).sum())} channels, every channel that detected and no other; "
+            f"K1f int16 launches {launches[kind]}; capture lost samples {lost}; wall {wall:.2f} s "
+            f"for {CAPTURE_SECONDS:g} s of audio (sim {sim_wall:.2f} s) ok",
+            flush=True,
+        )
+
+    eight = [a for i in range(8) for a in ("-n", os.path.join(tmp, f"live{i}.txt"))]
+    opts = ["-a", wav, "--duration", "3", "--batched-drain", "--wire-format", "int16",
+            "--buckets", "128", "--device", "cuda"]
+    ilog, mlog = os.path.join(tmp, "interactive.csv"), os.path.join(tmp, "interactive-main.csv")
+    script = iter([f"load {i} {eight[2 * i + 1]}" for i in range(8)]
+                  + ["start", "table", "stop", "quit"])
+    replies = []
+    reset_counts()
+    rc = monitor.interactive_loop(
+        monitor._build_parser().parse_args(["--interactive", *opts, "--event-log", ilog]),
+        input_fn=lambda _: next(script), out=replies.append)
+    launches["interactive"] = fused.PROGRAM_LAUNCHES["int16"]
+    stopped = [r for r in replies if r.startswith("stopped; detections per channel:")]
+    if rc != 0 or len(stopped) != 1 or launches["interactive"] <= 0:
+        raise AssertionError(f"interactive session: rc {rc}, {replies[-4:]}")
+    out, _ = run_monitor(eight + opts + ["--channels", "8", "--refresh", "600",
+                                         "--event-log", mlog])
+    if json.loads(stopped[0].split(":", 1)[1]) != detections_of(out):
+        raise AssertionError(f"interactive session: {stopped[0]} against {out[-2]}")
+    rows, worst = compare_events(ilog, mlog, "interactive")
+    print(
+        f"phase 18 capture: --interactive (load 8 rows, start, table, stop, quit) on the card, "
+        f"batched int16: {rows} events equal to monitor.main's in columns 1-3 (max diff "
+        f"{worst:.3g}); K1f int16 launches {launches['interactive']} ok",
+        flush=True,
+    )
+    return launches
+
+
+def phase_resilient(cfgs, card_line: str) -> dict:
+    """Phase 19: ResilientDetector on the card, 16 lanes x 60 s with per-lane
+    nets, two child crashes mid-stream, against an in-process fused bank on
+    the same chunks; the child's pid among the card's compute processes.
+    Each child reports its own K1e launches, read just before it is crashed
+    and before the last one closes: every child launched, and all of them
+    together as often as the in-process bank (counted around its drains
+    alone)."""
+    from syllable_detector_tpu_torch.runtime.resilient import ResilientDetector
+
+    lanes = cfgs[:RESILIENT_LANES]
+    streams = [fixtures.chirp_audio(RESILIENT_SECONDS, 300 + i) for i in range(len(lanes))]
+    n_chunks = len(streams[0]) // RESILIENT_CHUNK
+    crashes = (n_chunks // 3, 2 * n_chunks // 3)
+    oracle = DetectorBank(lanes, device="cuda")
+    child, listed = None, ""
+    got, want = [[] for _ in lanes], [[] for _ in lanes]
+    reset_counts()
+    t0 = time.perf_counter()
+    r = ResilientDetector(lanes, device="cuda", timeout=600.0)
+    start_s = time.perf_counter() - t0
+    drains, recover, children = [], [], []
+    oracle_k1e = 0
+    try:
+        for k in range(n_chunks):
+            for lane, s in enumerate(streams):
+                chunk = s[k * RESILIENT_CHUNK : (k + 1) * RESILIENT_CHUNK]
+                r.append_audio_data(chunk, lane=lane)
+                oracle.append_audio_data(lane, chunk)
+            if k in crashes:
+                children.append(r.kernel_launches()["batch"])
+                r.crash_for_test()
+            t = time.perf_counter()
+            out = r.drain()
+            (recover if k in crashes else drains).append(time.perf_counter() - t)
+            if k == 0:
+                child = r.child_pid
+                holding, listed = on_card([child, os.getpid()])
+                if child not in holding:
+                    raise AssertionError(f"the child {child} does not hold the card ({listed})")
+            before = fused.BATCH_LAUNCHES
+            o = oracle.drain()
+            oracle_k1e += fused.BATCH_LAUNCHES - before
+            for lane in range(len(lanes)):
+                got[lane].append(out[lane, : r.last_counts[lane]])
+                want[lane].append(o[lane, : oracle.last_counts[lane]])
+                if not np.array_equal(r.last_sample_indices[lane], oracle.last_sample_indices[lane]):
+                    raise AssertionError(f"resilient round {k} lane {lane}: sample indices differ")
+        restarts = r.restarts
+        children.append(r.kernel_launches()["batch"])
+    finally:
+        r.close()
+    k1e = sum(children)
+    worst = 0.0
+    for lane in range(len(lanes)):
+        g, w = np.concatenate(got[lane]), np.concatenate(want[lane])
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=f"resilient lane {lane}")
+        worst = max(worst, float(np.nanmax(np.abs(g - w))) if len(g) else 0.0)
+    if restarts != len(crashes) or min(children) <= 0 or k1e != oracle_k1e:
+        raise AssertionError(f"resilient: {restarts} restarts, the children's K1e launches "
+                             f"{children}, the in-process bank's {oracle_k1e}")
+    print(
+        f"phase 19 resilient [{card_line}]: {len(lanes)} lanes x {RESILIENT_SECONDS:g} s, per-lane "
+        f"nets, {n_chunks} chunks of {RESILIENT_CHUNK}, {restarts} child crashes recovered: outputs "
+        f"against the in-process fused bank max_abs {worst:.3g} (atol 1e-6), indices equal; the "
+        f"child (pid {child}) holds the card ({listed}); start "
+        f"{start_s:.3f} s, first drain {drains[0]:.3f} s (loads the kernel library), drain median "
+        f"{statistics.median(drains[1:]) * 1e3:.2f} ms, recovery (respawn, restore, replay, drain) "
+        f"{', '.join(f'{v:.3f}' for v in recover)} s; K1e launches in the children "
+        f"{' + '.join(map(str, children))} = {k1e}, in the in-process bank {oracle_k1e} ok",
+        flush=True,
+    )
+    return {"recover": recover, "first": drains[0], "err": worst, "k1e": k1e}
+
+
+def feed(bank, rolled, start: int, n: int, gap: bool = False) -> None:
+    """Append ``n`` samples from ``start`` of each lane's stream to ``bank``
+    (with ``gap``, every 4th lane first loses 1000 samples)."""
+    for lane, x in enumerate(rolled):
+        if gap and lane % 4 == 0:
+            bank.note_gap(lane, 1000)
+        bank.append_audio_data(lane, x[start : start + n])
+
+
+def same_round(bank, got, oracle, want, lanes=None) -> bool:
+    """Whether a drain of ``bank`` gave ``oracle``'s counts, sample indices
+    and valid outputs, bit for bit, on ``lanes`` (default: all, and the
+    same padded shape)."""
+    if lanes is None:
+        lanes = range(bank.n_lanes)
+        if got.shape != want.shape:
+            return False
+    for i in lanes:
+        c = int(oracle.last_counts[i])
+        if not (int(bank.last_counts[i]) == c
+                and np.array_equal(got[i, :c], want[i, :c], equal_nan=True)
+                and np.array_equal(bank.last_sample_indices[i], oracle.last_sample_indices[i])):
+            return False
+    return True
+
+
+def host_median_ms(fn, samples: int = 21) -> float:
+    times = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def shard_rate(bank, rolled, start: int, hop_block: int, paused: bool) -> tuple:
+    """Host times of ``bank`` (fed from ``start`` of each lane's stream,
+    wrapping): the median ms of a ``drain()`` round and the audio seconds
+    per wall second of rounds of appends and a drain, over SHARD_ROUNDS
+    rounds after SHARD_WARM; with ``paused``, also the median ms of a drain
+    issued SHARD_PAUSE s after its appends, once the workers have taken
+    them in (staging, the round trips and the evaluation alone)."""
+    n = len(rolled[0]) - hop_block
+    drain_s, wall, alone = [], 0.0, []
+    rounds = SHARD_WARM + SHARD_ROUNDS
+    for r in range(rounds + (SHARD_PAUSED if paused else 0)):
+        t0 = time.perf_counter()
+        feed(bank, rolled, (start + r * hop_block) % n, hop_block)
+        if r >= rounds:
+            time.sleep(SHARD_PAUSE)
+        t1 = time.perf_counter()
+        bank.drain()
+        t2 = time.perf_counter()
+        if r >= rounds:
+            alone.append(t2 - t1)
+        elif r >= SHARD_WARM:
+            drain_s.append(t2 - t1)
+            wall += t2 - t0
+    lanes = len(rolled)
+    return (statistics.median(drain_s) * 1e3,
+            lanes * SHARD_ROUNDS * hop_block / NET_RATE / wall,
+            statistics.median(alone) * 1e3 if alone else None)
+
+
+def phase_shard(cfgs, audio: np.ndarray, card_line: str) -> dict:
+    """Phase 20: ShardedDetectorBank on the card, 256 lanes, int16 wire,
+    ladder (128,), per-lane nets, with 2 and 4 workers: every round bit for
+    bit the single-process bank's, K1f counted in this process around the
+    sharded bank's drains alone (one launch a worker a round), no worker
+    holding the card, K1f at a shard's shape against its plain version and
+    timed, and a round a worker fails followed by an aligned one; then host
+    ms per drain() round and audio s per wall s at 256 and 512 lanes, for
+    the single-process bank and 2 and 4 workers."""
+    from syllable_detector_tpu_torch.runtime.shard_bank import ShardedDetectorBank
+
+    spec = detector.detector_spec_from_config(cfgs[0], "cpu")[0]
+    hop_block = 128 * spec.hop
+    first = bucket_samples(spec, 128) - hop_block
+    kw = dict(transfer_dtype="int16", buckets=(128,), device="cuda")
+    rolled = [np.roll(audio, 97 * lane) for lane in range(SHARD_LANES[-1])]
+    # the rate rounds start where the checks' rounds end
+    later = first + (SHARD_ROUNDS + 2) * hop_block
+    result, rates = {}, {}
+    for workers in SHARD_WORKERS:
+        oracle = DetectorBank(cfgs, **kw)
+        bank = ShardedDetectorBank(cfgs, n_workers=workers, **kw)
+        try:
+            warm = bank.warm_up()
+            for b in (bank, oracle):
+                feed(b, rolled[:LANES], 0, first)
+            k1f = 0
+            for r in range(SHARD_ROUNDS):
+                start = first + r * hop_block
+                for b in (bank, oracle):
+                    feed(b, rolled[:LANES], start, hop_block, gap=r == 3)
+                reset_counts()
+                got = bank.drain()
+                launched = fused.PROGRAM_LAUNCHES["int16"]
+                want = oracle.drain()
+                if launched != workers:
+                    raise AssertionError(f"{workers} workers: round {r} launched K1f {launched} "
+                                         f"times in the sharded bank's drain")
+                k1f += launched
+                if not same_round(bank, got, oracle, want) or int(bank.last_counts.max()) <= 0:
+                    raise AssertionError(f"{workers} workers: round {r} differs from one process")
+            holding, listed = on_card([*bank.worker_pids, os.getpid()])
+            if holding != [os.getpid()]:
+                raise AssertionError(f"holding the card {holding} of workers {bank.worker_pids} "
+                                     f"({listed})")
+            result[workers, "kernel"] = shard_kernel(bank, spec, card_line)
+            # worker 0 fails one drain (its bank rejects a command); every
+            # reply of that round is read, so the next round is aligned
+            bank._cmd_qs[0].put(("append", 10**6, np.zeros(4, np.float32)))
+            start = first + SHARD_ROUNDS * hop_block
+            for b in (bank, oracle):
+                feed(b, rolled[:LANES], start, hop_block)
+            try:
+                bank.drain()
+                raise AssertionError("the injected worker failure did not raise")
+            except RuntimeError as e:
+                if "worker 0 drain failed" not in str(e):
+                    raise
+            skipped, s_counts = oracle.drain(), oracle.last_counts.copy()
+            s_idx = [a.copy() for a in oracle.last_sample_indices]
+            for b in (bank, oracle):
+                feed(b, rolled[:LANES], start + hop_block, hop_block)
+            got, want = bank.drain(), oracle.drain()
+            w0 = int(bank._offsets[1])
+            if not same_round(bank, got, oracle, want, range(w0, LANES)):
+                raise AssertionError(f"{workers} workers: the round after a failure is not aligned")
+            for lane in range(w0):
+                c0, c1 = int(s_counts[lane]), int(oracle.last_counts[lane])
+                both = np.concatenate([skipped[lane, :c0], want[lane, :c1]])
+                if not (int(bank.last_counts[lane]) == c0 + c1
+                        and np.array_equal(got[lane, : c0 + c1], both, equal_nan=True)
+                        and np.array_equal(bank.last_sample_indices[lane],
+                                           np.concatenate([s_idx[lane],
+                                                           oracle.last_sample_indices[lane]]))):
+                    raise AssertionError(f"{workers} workers: worker 0 lane {lane} after its failure")
+            if workers == SHARD_WORKERS[0]:
+                result["upload"] = arena_uploads(bank, spec)
+                rates[LANES, 1] = shard_rate(oracle, rolled[:LANES], later, hop_block, False)
+            rates[LANES, workers] = shard_rate(bank, rolled[:LANES], later, hop_block, True)
+        finally:
+            bank.close()
+        print(
+            f"phase 20 shard bank [{card_line}]: {LANES} lanes, int16, ladder (128,), per-lane "
+            f"nets, {workers} workers (pids {bank.worker_pids}, none holds the card; {listed}): "
+            f"warm-up {warm} rounds, {SHARD_ROUNDS} rounds (a gap on every 4th "
+            f"lane) bit for bit the single-process bank's; K1f int16 launches in the sharded "
+            f"bank's drains {k1f} ({workers} a round); a round worker 0 failed raised after every "
+            f"reply, and the next round was aligned (worker 0's lanes delivered both rounds) ok",
+            flush=True,
+        )
+        result[workers] = k1f
+
+    lanes = SHARD_LANES[-1]
+    nets = list(cfgs) + [fixtures.sample_geometry_config(2000 + i) for i in range(lanes - len(cfgs))]
+    for workers in (1, *SHARD_WORKERS):
+        bank = (DetectorBank(nets, **kw) if workers == 1
+                else ShardedDetectorBank(nets, n_workers=workers, **kw))
+        try:
+            bank.warm_up()
+            feed(bank, rolled, 0, first)
+            rates[lanes, workers] = shard_rate(bank, rolled, first, hop_block, workers > 1)
+        finally:
+            if workers > 1:
+                bank.close()
+    for lanes in SHARD_LANES:
+        print(
+            f"phase 20 shard times [{card_line}]: {lanes} lanes, int16, bucket 128, median of "
+            f"{SHARD_ROUNDS} rounds after {SHARD_WARM}, host clock: "
+            + "; ".join(
+                f"{'1 process' if w == 1 else f'{w} workers'} {rates[lanes, w][0]:.3f} ms a "
+                f"drain() round right after its appends"
+                + (f" ({rates[lanes, w][2]:.3f} ms {SHARD_PAUSE:g} s after them, median of "
+                   f"{SHARD_PAUSED})" if w > 1 else "")
+                + f", {rates[lanes, w][1]:.1f} audio s per wall s (appends included)"
+                for w in (1, *SHARD_WORKERS)),
+            flush=True,
+        )
+    result["rates"] = rates
+    return result
+
+
+def shard_kernel(bank, spec, card_line: str) -> tuple:
+    """K1f at the shape the sharded bank launches it: each worker's last
+    staged round, read from its request arena, through the eval bank's
+    drain program of that shard (its own nets) against the plain version
+    (rtol=1e-3, atol=2e-4, phase 6's bound); worker 0's round timed.
+    Returns (max_abs_err, (kernel ms, plain ms), bound)."""
+    srv = bank._server
+    need = bucket_samples(spec, 128)
+    worst = 0.0
+    for w, ev in enumerate(srv.banks):
+        prog = ev._program(need)
+        xd = prog.upload(srv.request(w, need))
+        got = prog.launch(xd)
+        plain = fused.fused_batch_outputs_reference(spec, prog.folded, xd, "int16", prog.n_evals)
+        worst = max(worst, held(got, plain, 1e-3, 2e-4, f"shard {w} of {len(srv.banks)}"))
+        if w == 0:
+            kernel = event_ms(lambda: prog.launch(xd))
+            plain_ms = event_ms(lambda: fused.fused_batch_outputs_reference(
+                spec, prog.folded, xd, "int16", prog.n_evals))
+            lanes = xd.shape[0]
+            least = fused_bound(spec, lanes, need, 2, lanes)
+    print(
+        f"phase 20 shard kernel [{card_line}]: K1f int16 at a shard's shape [{lanes}, {need}] "
+        f"({len(srv.banks)} workers), each worker's last round from its arena with its "
+        f"shard's nets: vs plain max_abs {worst:.3g} (rtol=1e-3, atol=2e-4); worker 0's round, "
+        f"median of 21 x 10 calls: kernel {kernel[0]:.4f} ms device ({kernel[1]:.4f} ms host "
+        f"enqueue), plain {plain_ms[0]:.4f} ms device; bound {least[0]:.4f} ms ({least[1]}); "
+        f"tile: {tile_of(spec, lanes, need)}",
+        flush=True,
+    )
+    return worst, (kernel[0], plain_ms[0]), least
+
+
+def arena_uploads(bank, spec) -> dict:
+    """Host ms of a round's upload from a worker's registered request arena,
+    beside a copy into the eval bank's pinned staging then its upload, and an
+    upload from pageable memory."""
+    srv = bank._server
+    need = bucket_samples(spec, 128)
+    xs = srv.request(0, need)
+    ev = srv.banks[0]
+    prog, pinned = ev._program(need), ev._staging(need)[1]
+    pageable = xs.clone()
+
+    def copied():
+        pinned.copy_(xs)
+        prog.upload(pinned)
+
+    times = {"registered arena": host_median_ms(lambda: prog.upload(xs)),
+             "copy to pinned, upload": host_median_ms(copied),
+             "pageable": host_median_ms(lambda: prog.upload(pageable))}
+    print(
+        f"phase 20 shard upload: one worker's [{xs.shape[0]}, {need}] int16 round "
+        f"({xs.numel() * 2} bytes), host ms to completion, median of 21: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; the arena reads as pinned: {xs.is_pinned()}",
+        flush=True,
+    )
+    return times
+
+
+def phase_tune(tmp: str, card_line: str) -> dict:
+    """Phase 21: ``python -m syllable_detector_tpu_torch tune`` for every
+    workload at the sample geometry, the cache it writes, and K1a and K1e
+    under the cached choice, and under the other candidate, against their
+    plain versions."""
+    from syllable_detector_tpu_torch import tuning
+
+    net = os.path.join(tmp, "live0.txt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "syllable_detector_tpu_torch", "tune", "-n", net, "--workload",
+         "all", "--channels", str(TUNE_LANES), "--n-evals", str(TUNE_EVALS)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"tune returned {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(tuning.tune_cache_path()) as fh:
+        cache = json.load(fh)
+    kind = tuning.device_kind("cuda")
+    if len(cache) != 3 or not all(k.startswith(kind + "/") for k in cache):
+        raise AssertionError(f"the tune cache holds {list(cache)}")
+    tuning.reset_tune_cache()
+    for key, entry in sorted(cache.items()):
+        workload, lanes, evals = key.split("/")[-3:]
+        print(
+            f"phase 21 tune [{card_line}]: {workload} {lanes} {evals}: "
+            + ", ".join(f"frames {f} {ms:.4f} ms" for f, ms in sorted(entry["trials"]))
+            + f"; chosen {entry['frames']}, analytic {entry['analytic']}",
+            flush=True,
+        )
+
+    spec, params = detector.detector_spec_from_config(load_config(net), "cuda")
+    width = max(w for _, w in spec.net.layer_sizes)
+    stream = torch.from_numpy(fixtures.chirp_audio(60.0, 5)).cuda()
+    n = bucket_samples(spec, TUNE_EVALS)
+    xs = torch.stack([torch.roll(stream[:n], 97 * lane) for lane in range(TUNE_LANES)])
+    nets = [perturbed(params, lane) for lane in range(TUNE_LANES)]
+    shared = fused.fold_constants(spec, params, "cuda")
+    folded = {"single": shared, "batched": shared,
+              "distinct": fused.fold_constants_stacked(spec, nets, "cuda")}
+    runs = {
+        "single": (lambda: fused.fused_offline_outputs(spec, params, stream, folded=folded["single"]),
+                   lambda: fused.fused_offline_outputs_reference(spec, folded["single"], stream),
+                   1, stream.shape[0], lambda: fused.LAUNCHES),
+        "batched": (lambda: fused.fused_flat_batch_offline_outputs(spec, params, xs,
+                                                                   folded=shared),
+                    lambda: fused.fused_batch_outputs_reference(spec, shared, xs),
+                    TUNE_LANES, n, lambda: fused.BATCH_LAUNCHES),
+        "distinct": (lambda: fused.fused_flat_batch_offline_outputs(spec, nets, xs,
+                                                                    folded=folded["distinct"]),
+                     lambda: fused.fused_batch_outputs_reference(spec, folded["distinct"], xs),
+                     TUNE_LANES, n, lambda: fused.BATCH_LAUNCHES),
+    }
+    out = {}
+    for workload, (kernel, plain, lanes, samples, count) in runs.items():
+        evals = num_frames(samples, spec.window_length, spec.window_overlap) - spec.time_range + 1
+        analytic = fused.cta_frames(spec, evals, lanes, width)
+        tuned = fused.cta_frames(spec, evals, lanes, width, workload=workload, device_kind=kind)
+        want = plain()
+        for frames in (tuned, *(f for f in fused.CTA_FRAMES if f != tuned)):
+            tuning._save_entry(tuning.tune_key(kind, spec, workload, lanes, evals),
+                               {"frames": frames})
+            if fused.cta_frames(spec, evals, lanes, width, workload=workload,
+                                device_kind=kind) != frames:
+                raise AssertionError(f"{workload}: the cached choice {frames} was not taken")
+            reset_counts()
+            got = kernel()
+            launched = count()
+            err = held(got, want, 1e-3, 2e-4, f"{workload} at frames {frames}")
+            if launched != 1:
+                raise AssertionError(f"{workload} at frames {frames}: {launched} launches")
+            ms = event_ms(kernel)[0]
+            if frames == tuned:
+                out[workload] = (launched, err, ms, event_ms(plain)[0],
+                                 fused_bound(spec, lanes, samples, 4,
+                                             lanes if workload == "distinct" else 1))
+            print(
+                f"phase 21 tune [{card_line}]: {'K1a' if lanes == 1 else 'K1e'} {workload} "
+                f"({lanes} x {evals} evals) at {frames} frames a CTA "
+                f"({'the tuned choice' if frames == tuned else 'the other candidate'}; analytic "
+                f"{analytic}): vs plain max_abs {err:.3g} (rtol=1e-3, atol=2e-4), {ms:.4f} ms, "
+                f"launches {launched} ok",
+                flush=True,
+            )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1931,6 +2522,17 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the tuner's cache of this run only: every phase before 21 takes the
+    # kernels' analytic launch shapes
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["SD_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
+    try:
+        return run_phases(marks, mark)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run_phases(marks, mark) -> int:
     card_line = card()
     print(card_line, flush=True)
     print(
@@ -2005,6 +2607,14 @@ def main() -> int:
         mark("16")
         phase_train_times(trained, card_line)
         mark("17")
+        capture = phase_capture(tmp, audio[: int(CAPTURE_SECONDS * NET_RATE)], card_line)
+        mark("18")
+        resilient = phase_resilient(cfgs, card_line)
+        mark("19")
+        shard = phase_shard(cfgs, audio, card_line)
+        mark("20")
+        tuned = phase_tune(tmp, card_line)
+        mark("21")
     print(
         "phase walls (host clock, each to its last line): "
         + ", ".join(f"{label} {t - prev:.1f} s"
@@ -2040,6 +2650,17 @@ def main() -> int:
           for tier in fused.TIERS),
         entry("fused_detector_grid corpus", KERNEL_SOURCE, REPLACES_SLABBED, mesh_counts["grid"],
               new_err["grid"], new_times["grid"], new_times["grid"][2]),
+        # the capture path launches K1f at phase 6's and 8's shape: [256,
+        # bucket_samples(128)] int16 with the same per-lane nets
+        entry("fused_batch_program int16 capture", KERNEL_SOURCE, REPLACES_PROGRAM,
+              capture["alsa"], batch_err["int16"], times["int16"], times["int16"][2]),
+        *(entry(f"fused_batch_program int16 sharded {w} workers", KERNEL_SOURCE,
+                REPLACES_PROGRAM, shard[w], *shard[w, "kernel"])
+          for w in SHARD_WORKERS),
+        *(entry(f"{'fused_detector' if w == 'single' else 'fused_detector_batch'} tuned {w}",
+                KERNEL_SOURCE, REPLACES if w == "single" else REPLACES_FLAT, t[0], t[1],
+                (t[2], t[3]), t[4])
+          for w, t in tuned.items()),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,3 +27,12 @@ into ``build/native/``.
 """
 
 __version__ = "0.1.0"
+
+from syllable_detector_tpu_torch.config import SyllableDetectorConfig, load_config, save_config
+
+__all__ = [
+    "SyllableDetectorConfig",
+    "load_config",
+    "save_config",
+    "__version__",
+]

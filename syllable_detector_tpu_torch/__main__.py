@@ -6,9 +6,7 @@
   python -m syllable_detector_tpu_torch monitor   ...   (monitor.py)
   python -m syllable_detector_tpu_torch inspect   ...   (inspect_net.py)
   python -m syllable_detector_tpu_torch dist-scan ...   (dist_scan.py)
-
-The JAX package's ``tune`` command has no counterpart until its module is
-ported.
+  python -m syllable_detector_tpu_torch tune      ...   (tuning.py)
 """
 
 import sys
@@ -22,6 +20,10 @@ COMMANDS = {
     "dist-scan": (
         "syllable_detector_tpu_torch.dist_scan",
         "multi-process corpus scan (torch.distributed, sharded file list)",
+    ),
+    "tune": (
+        "syllable_detector_tpu_torch.tuning",
+        "time the fused kernel's launch shapes on this card and cache the winners",
     ),
 }
 

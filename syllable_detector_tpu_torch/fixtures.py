@@ -9,11 +9,18 @@ chain l2normalize -> mapminmax, output mapminmax) and :func:`gap_config`
 stretch of digital silence, and :func:`pick_thresholds` places each
 threshold well away from every output on given audio, so that no decision
 can flip between two implementations that agree within tolerance.
+:class:`ReplayAlsa` and :class:`ReplayPulse` stand in for libasound and
+libpulse-simple: they capture given audio on every channel and record the
+TTL waveform played back, so the live capture path runs without a sound
+card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -34,6 +41,8 @@ __all__ = [
     "FRAMED_GEMM_GEOMETRIES",
     "RESAMPLE_PAIRS",
     "TIER_CASES",
+    "ReplayAlsa",
+    "ReplayPulse",
 ]
 
 RATE = 44100
@@ -205,3 +214,102 @@ def pick_thresholds(
         mids = (v[gaps] + v[gaps + 1]) / 2
         thresholds.append(float(mids[np.argmin(abs(mids - np.quantile(v, quantile)))]))
     return dataclasses.replace(cfg, thresholds=thresholds)
+
+
+class _Replay:
+    """What both fake sound libraries share: capture replays ``audio`` (one
+    channel, the same on every captured channel) until ``total`` frames
+    are delivered, then has nothing more; playback counts each channel's
+    TTL pulses (rising edges of the rendered waveform), paced at
+    ``rate``."""
+
+    def __init__(self, audio: np.ndarray, channels: int, total: int | None = None,
+                 rate: float = RATE):
+        self.audio = np.asarray(audio, np.float32)
+        self.channels = channels
+        self.total = len(self.audio) if total is None else int(total)
+        self.rate = rate
+        self.delivered = 0
+        self.pulses = np.zeros(channels, np.int64)
+        self._last = np.zeros(channels, np.float32)
+        self._lock = threading.Lock()
+
+    def _capture(self, ptr, frames: int) -> int:
+        """Copy up to ``frames`` interleaved frames to ``ptr``; 0 when done."""
+        with self._lock:
+            k = min(frames, self.total - self.delivered)
+            chunk = self.audio[self.delivered : self.delivered + k]
+            self.delivered += k
+        if k <= 0:
+            time.sleep(0.005)
+            return 0
+        block = np.ascontiguousarray(np.repeat(chunk, self.channels))
+        ctypes.memmove(ptr, block.ctypes.data, block.nbytes)
+        return k
+
+    def _playback(self, ptr, frames: int) -> None:
+        wave = np.frombuffer(
+            ctypes.string_at(ptr, frames * self.channels * 4), np.float32
+        ).reshape(frames, self.channels)
+        with self._lock:
+            prev = np.concatenate([self._last[None], wave])
+            self.pulses += ((prev[1:] > 0) & (prev[:-1] == 0)).sum(axis=0)
+            self._last = wave[-1].copy()
+        time.sleep(frames / self.rate)
+
+
+class ReplayAlsa(_Replay):
+    """A libasound handle for ``runtime.alsa`` (inject it as the module's
+    ``_load_alsa`` result): capture PCMs replay the audio, playback PCMs
+    count TTL pulses. Device enumeration finds nothing."""
+
+    def snd_pcm_open(self, handle_ref, name, stream, mode):
+        return 0
+
+    def snd_pcm_set_params(self, h, fmt, access, channels, rate, resample, latency):
+        return 0 if channels == self.channels else -22
+
+    def snd_pcm_readi(self, h, ptr, frames):
+        return self._capture(ptr, int(frames))
+
+    def snd_pcm_writei(self, h, ptr, frames):
+        self._playback(ptr, int(frames))
+        return int(frames)
+
+    def snd_pcm_recover(self, h, err, silent):
+        return 0
+
+    def snd_pcm_close(self, h):
+        return 0
+
+    def snd_device_name_hint(self, card, iface, hints_ref):
+        return -1
+
+
+class ReplayPulse(_Replay):
+    """A libpulse-simple handle for ``runtime.pulse`` (inject it as the
+    module's ``_load_pulse`` result). The simple API's reads fill the whole
+    buffer, so ``total`` should be a multiple of the reader's frames; once
+    the audio is spent a read fails, which the reader counts and retries."""
+
+    def pa_simple_new(self, server, name, direction, dev, stream_name, spec_ref,
+                      chmap, attr_ref, err_ref):
+        return int(direction)
+
+    def pa_simple_read(self, h, ptr, nbytes, err_ref):
+        frames = int(nbytes) // (4 * self.channels)
+        if self.total - self.delivered < frames:
+            time.sleep(0.005)
+            return -1
+        self._capture(ptr, frames)
+        return 0
+
+    def pa_simple_write(self, h, ptr, nbytes, err_ref):
+        self._playback(ptr, int(nbytes) // (4 * self.channels))
+        return 0
+
+    def pa_simple_free(self, h):
+        pass
+
+    def pa_strerror(self, err):
+        return b"replay"

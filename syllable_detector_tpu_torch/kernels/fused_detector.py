@@ -938,7 +938,8 @@ def smem_bytes(spec: DetectorSpec, frames: int, max_width: int,
 
 def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
                n_sm: int = H100_SMS, tier: str | None = None,
-               frames_input: bool = False) -> int:
+               frames_input: bool = False, workload: str | None = None,
+               device_kind: str | None = None) -> int:
     """Frames one CTA of the kernel transforms for a launch of ``lanes`` x
     ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
     input form as :func:`smem_bytes` takes them. A CTA of ``f`` frames
@@ -950,8 +951,24 @@ def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
     frames in all, then the larger ``f``: 64 frames for a live bucket on 256
     lanes, 128 for one 60 s stream and for long lanes. A ``timeRange`` above
     every choice takes the next multiple of 64. Raises when no choice fits
-    in shared memory."""
+    in shared memory.
+
+    With a ``workload`` (``single``, ``batched`` or ``distinct``) and a
+    ``device_kind`` (``tuning.device_kind``), a full-fp32 launch from
+    samples first takes the winner that ``tuning`` measured and cached for
+    that card, geometry, workload and launch size, when it fits."""
     halo = spec.time_range - 1
+    if workload is not None and device_kind is not None and tier is None and not frames_input:
+        from syllable_detector_tpu_torch.tuning import tuned_cta_frames
+
+        tuned = tuned_cta_frames(device_kind, spec, workload, lanes, n_evals)
+        if (
+            tuned is not None
+            and tuned > halo
+            and tuned % 64 == 0
+            and smem_bytes(spec, tuned, max_width) <= SMEM_LIMIT
+        ):
+            return tuned
     choices = [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
     best = None
     for frames in choices:
@@ -976,6 +993,14 @@ def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+@functools.lru_cache(maxsize=None)
+def _device_kind(device: torch.device) -> str:
+    from syllable_detector_tpu_torch.tuning import device_kind
+
+    return device_kind(device)
 
 
 STAGES = ("staging", "C wait", "band DFT", "|X|", "first layer", "rest")
@@ -1036,13 +1061,15 @@ def _launch(
     lane0: int = 0,
     lanes: int | None = None,
     out: torch.Tensor | None = None,
+    frames: int | None = None,
 ) -> torch.Tensor:
     """One launch over lanes ``[lane0, lane0 + lanes)`` of ``xs`` (on the
     card: ``[C, n]`` samples of the wire's type or, with ``frames_input``,
     ``[C, F, window]`` float32 frames) into the same lanes of ``out``
     ``[C, n_evals, outputs]`` float32 (allocated when None), which it
     returns, under ``tier`` (a :data:`TIERS` key, None for full fp32). The
-    lanes' slice of every operand is a pointer offset."""
+    lanes' slice of every operand is a pointer offset. ``frames`` per CTA
+    defaults to :func:`cta_frames`' choice (the tuner times others)."""
     c, n = xs.shape[:2]
     lanes = c - lane0 if lanes is None else lanes
     want = (3, spec.window_length) if frames_input else (2, n)
@@ -1079,8 +1106,10 @@ def _launch(
         if one_net is None or one_net.numel() * 2 != 4 * floats:
             raise ValueError("the fused kernel takes the conv filter bank of "
                              "tile_conv_bank_bf16 under this tier")
-    frames = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device), tier,
-                        frames_input)
+    if frames is None:
+        workload = "distinct" if folded.per_lane else "single" if lanes == 1 else "batched"
+        frames = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device), tier,
+                            frames_input, workload, _device_kind(xs.device))
     smem = lib.sd_fused_detector_smem_bytes(
         *geometry, frames, max(widths), widths[0], dft_passes, conv_passes, int(frames_input))
     mirror = smem_bytes(spec, frames, max(widths), tier, frames_input)

@@ -26,7 +26,6 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from syllable_detector_tpu_torch.kernels.framed_gemm import framed_gemm
 
 __all__ = [
     "LinearResamplerState",
@@ -332,5 +331,9 @@ def polyphase_resample(
     )
     if g is None:
         return xin
+    # imported here: the kernels package imports the detector, which
+    # imports this package
+    from syllable_detector_tpu_torch.kernels.framed_gemm import framed_gemm
+
     y = framed_gemm(xin, g, w_len, overlap, blocks)
     return y.reshape(-1)[:n_out]

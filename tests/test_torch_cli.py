@@ -225,7 +225,8 @@ def test_runs_with_jax_blocked(files):
     assert proc.stdout.splitlines() == want and len(want) > 20
 
 
-@pytest.mark.parametrize("module", ["cli", "sim", "monitor", "dist_scan", "train", "inspect_net"])
+@pytest.mark.parametrize("module", ["cli", "sim", "monitor", "dist_scan", "train", "inspect_net",
+                                    "tuning"])
 def test_entry_points_print_help(module):
     """Each entry point of the port starts as ``python -m`` with jax blocked
     (``--help`` parses nothing else and exits 0); every one but
@@ -262,7 +263,9 @@ def test_source_never_imports_jax():
     for new in ("parallel/__init__.py", "parallel/mesh.py", "dist_scan.py",
                 "training/__init__.py", "training/trainer.py", "training/checkpoint.py",
                 "train.py", "__main__.py", "inspect_net.py", "utils/synth.py",
-                "utils/logging.py"):
+                "utils/logging.py", "runtime/alsa.py", "runtime/pulse.py",
+                "runtime/resilient.py", "runtime/shard_bank.py", "tuning.py",
+                "utils/measure.py"):
         assert PORT / new in sources
     hits = [
         f"{src}: {m.group(0).strip()}"

@@ -45,18 +45,26 @@ def run(main, argv):
 @pytest.mark.parametrize("argv,code", [([], 2), (["-h"], 0), (["--help"], 0), (["tune"], 2),
                                        (["frobnicate"], 2)])
 def test_dispatcher_usage_matches_jax(argv, code):
-    """The JAX dispatcher's usage text and return codes, with every command
-    but ``tune`` (its module is not ported), which the port rejects."""
+    """The JAX dispatcher's usage text and return codes, every command
+    included; ``tune`` without its required network exits as argparse does
+    in both."""
+    if argv == ["tune"]:
+        for dispatch in (pdispatch, jdispatch):
+            with pytest.raises(SystemExit) as e, contextlib.redirect_stderr(io.StringIO()):
+                dispatch.main(argv)
+            assert e.value.code == code
+        argv = []
     rc, out, _ = run(pdispatch.main, argv)
-    jrc, jout, _ = run(jdispatch.main, argv if argv != ["tune"] else ["frobnicate"])
-    assert rc == jrc == code
+    jrc, jout, _ = run(jdispatch.main, argv)
+    assert rc == jrc == (code if argv else 2)
     want = [l.replace("syllable_detector_tpu ", "syllable_detector_tpu_torch ")
-            for l in jout.splitlines() if not l.startswith("  tune")]
+            for l in jout.splitlines()]
     got = out.splitlines()
     assert [l.split()[0] for l in got[3:]] == [l.split()[0] for l in want[3:]]
-    assert [l for l in got if not l.startswith("  dist-scan")] == [
-        l for l in want if not l.startswith("  dist-scan")]
-    assert set(pdispatch.COMMANDS) == set(jdispatch.COMMANDS) - {"tune"}
+    # the descriptions of the commands whose backend differs are the port's own
+    own = ("  dist-scan", "  tune")
+    assert [l for l in got if not l.startswith(own)] == [l for l in want if not l.startswith(own)]
+    assert set(pdispatch.COMMANDS) == set(jdispatch.COMMANDS)
     for name, (module, _) in pdispatch.COMMANDS.items():
         assert module == jdispatch.COMMANDS[name][0].replace(
             "syllable_detector_tpu.", "syllable_detector_tpu_torch.")
@@ -84,6 +92,26 @@ def test_inspect_matches_jax(nets, net):
     want = run(jinspect.main, ["-n", nets[net]])
     assert got == want
     assert got[0] == (0 if net in ("sample", "gap") else 1)
+
+
+def test_dispatch_reaches_tune(nets, tmp_path, monkeypatch):
+    """``python -m syllable_detector_tpu_torch tune`` is ``tuning.main``: with
+    its timer replaced it caches the fastest candidate; without a card it
+    raises under the default ``--device cuda``."""
+    from syllable_detector_tpu_torch import tuning
+
+    monkeypatch.setenv("SD_TUNE_CACHE", str(tmp_path / "tune.json"))
+    tuning.reset_tune_cache()
+    monkeypatch.setattr(tuning, "_measure", lambda *a: {64: 2.0, 128: 1.0}[a[5]])
+    rc, out, _ = run(pdispatch.main, ["tune", "-n", nets["sample"], "--workload", "single",
+                                      "--device", "cpu"])
+    assert rc == 0 and out.startswith("single: frames 128 ")
+    spec = detector_spec_from_config(fixtures.sample_geometry_config(0), "cpu")[0]
+    assert tuning.tuned_cta_frames("cpu", spec, "single", 1, tuning.SINGLE_EVALS) == 128
+    tuning.reset_tune_cache()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pdispatch.main(["tune", "-n", nets["sample"]])
 
 
 def test_dispatch_reaches_inspect(nets):

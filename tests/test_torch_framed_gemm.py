@@ -9,6 +9,8 @@ must be the JAX plan exactly. Interpret mode is slow, so inputs stay at or
 under 9000 samples.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +21,12 @@ from syllable_detector_tpu.kernels.framed_gemm import pallas_polyphase_resample
 from syllable_detector_tpu.ops import resample as jresample
 from syllable_detector_tpu.ops.stft import frame_signal as jframe_signal
 from syllable_detector_tpu_torch import fixtures
-from syllable_detector_tpu_torch.kernels import framed_gemm as tfg
 from syllable_detector_tpu_torch.ops import resample as tresample
 from syllable_detector_tpu_torch.ops.stft import num_frames
+
+# the kernels package exports the function framed_gemm under its module's
+# name, as the JAX package does, so the module comes from the import system
+tfg = importlib.import_module("syllable_detector_tpu_torch.kernels.framed_gemm")
 
 torch.set_num_threads(1)
 
