@@ -6,8 +6,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
   2. build   — build every kernel from csrc/ with nvcc, one nvcc per
                source, all started together; ptxas' registers and spill
                bytes of every kernel (the fused detector's instantiations
-               named by wire, arithmetic and input form): any spill fails,
-               and so do fp32 instantiations outside 106-108 registers.
+               named by wire, arithmetic, input form and layout): any spill
+               fails, and so do resident fp32 instantiations from samples
+               outside 104-108 registers.
   3. kernel  — the kernel against its plain PyTorch version and the
                unfused path, on the card, for every configuration of
                fixtures.fused_cases (10 s streams, a short one, log and dB
@@ -176,14 +177,33 @@ Phases, each printing one line (any failure raises and exits non-zero):
                entries, each candidate's device ms beside the analytic
                choice); K1a on a 60 s stream and K1e on 64 x 2048 (shared
                and per-lane nets) under the cached choice and under the
-               other candidate, each against its plain version. Then one
-               line of each phase's host wall.
+               other candidate, each against its plain version.
+  22. geometry sweep — counts from 0: every K1 entry (K1a raw, K1b
+               frames, K1c under each tier, K1d one slab, K1e shared and
+               per-lane nets on 4 lanes, K1f int16 and mu-law) on 2 s of
+               seeded audio (a stretch of silence gives NaN) at each of the
+               JAX fuzz generator's seeds 1000-1099 and
+               ``fixtures.wide_geometry_configs()``, against its plain
+               version (phase 3's, 6's and 12's bounds, NaN in the same
+               places) and bit for bit against the same launch in another
+               shared-memory layout (resident against streamed, or another
+               chunk group); K2 on every ordered pair of
+               ``fixtures.RESAMPLE_RATES`` at the resampler's ratio and the
+               exact one (1e-4/1e-4); the CLI (one file, and
+               ``--batched``) fused against matmul on two wide nets. One
+               line counts the geometries per layout with each entry's
+               worst error; one line per wide
+               geometry gives each entry's device time on a 60 s stream or
+               256 lanes x 128 evaluations beside its plain version, its
+               bound and the layout it took; one K2's at the exact 192k ->
+               11.025k. Then one line of each phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 peak rate of their type, float32 at 67 TFLOP/s and, for the tiers' bf16
 products, 989 TFLOP/s, the H100 SXM's published peaks; the fp32 kernel's
-band DFT counts as the float32 work it replaces, whatever unit runs it); the last line is
+band DFT counts as the float32 work it replaces, whatever unit runs it;
+its launches and worst error include phase 22's); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -302,6 +322,13 @@ SHARD_PAUSE = 0.3
 # the tuner's batched workloads: lanes x evaluations per lane
 TUNE_LANES = 64
 TUNE_EVALS = 2048
+# the geometry sweep: fuzz seeds (the JAX fuzz generator's), seconds of
+# audio a geometry, lanes of the batched entries, and (samples, batch) of
+# each timing
+GEOMETRY_SEEDS = range(1000, 1100)
+GEOMETRY_SECONDS = 2.0
+GEOMETRY_LANES = 4
+GEOMETRY_TIMES = (3, 5)
 
 
 def card() -> str:
@@ -393,7 +420,8 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes) of every kernel in an nvcc build log
     with ``-Xptxas -v``. A fused detector instantiation is named by its
     template arguments: the wire, the DFT and first-layer arithmetic (fp32
-    or the tier's bf16 passes) and the input form."""
+    or the tier's bf16 passes), the input form and, for the streamed
+    layout, "streamed"."""
     wires = {"f": "float32", "s": "int16", "a": "mulaw8"}
     tiers = {(p[0], p[1]): t for t, p in fused.TIERS.items()}
     out, name = [], None
@@ -401,11 +429,12 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            m = re.search(r"fused_detector_kernelI([fsa])Li(\d)ELi(\d)ELb([01])E", name)
+            m = re.search(r"fused_detector_kernelI([fsa])Li(\d)ELi(\d)ELb([01])ELb([01])E", name)
             if m:
                 tier = tiers.get((int(m.group(2)), int(m.group(3))), "fp32")
                 form = "frames" if m.group(4) == "1" else "samples"
-                name = f"fused_detector {wires[m.group(1)]} {tier} {form}"
+                layout = " streamed" if m.group(5) == "1" else ""
+                name = f"fused_detector {wires[m.group(1)]} {tier} {form}{layout}"
             out.append([name, -1, -1])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and out:
@@ -579,6 +608,7 @@ def reset_counts() -> None:
     fused.TIER_LAUNCHES = {tier: 0 for tier in fused.TIER_LAUNCHES}
     fused.FRAMES_LAUNCHES = 0
     fused.GRID_LAUNCHES = 0
+    fused.LAYOUT_LAUNCHES = {layout: 0 for layout in fused.LAYOUT_LAUNCHES}
     fg.FRAMED_GEMM_LAUNCHES = 0
 
 
@@ -2511,6 +2541,272 @@ def phase_tune(tmp: str, card_line: str) -> dict:
     return out
 
 
+def geometry_audio(rate: float, seed: int) -> np.ndarray:
+    """GEOMETRY_SECONDS of seeded audio at ``rate``, as the JAX fuzz test
+    makes it (noise with an offset and a floor tone), with a tenth of a
+    second of digital silence: NaN under l2normalize."""
+    rng = np.random.default_rng(seed)
+    n = int(GEOMETRY_SECONDS * rate)
+    x = (rng.standard_normal(n) * 0.3 + 0.05).astype(np.float32)
+    x += 0.05 * np.sin(2 * np.pi * 0.1 * np.arange(n)).astype(np.float32)
+    x[n // 3 : n // 3 + int(0.1 * rate)] = 0.0
+    return x
+
+
+def repeated_fold(folded, lanes: int):
+    """``folded`` (one net) as ``lanes`` per-lane copies of it."""
+    def rep(t):
+        return t[None].expand(lanes, *t.shape).contiguous()
+
+    return folded._replace(
+        w1=rep(folded.w1), c1=rep(folded.c1),
+        mids=tuple((rep(w), rep(b)) for w, b in folded.mids),
+        out_a=rep(folded.out_a), out_c=rep(folded.out_c), mids_flat=rep(folded.mids_flat),
+        w1g_bf16=rep(folded.w1g_bf16), per_lane=True,
+    )
+
+
+def streamed_other(spec, width: int, chosen, tier, frames_input: bool):
+    """A streamed (frames, col_group) other than ``chosen`` (a
+    ``fused.CtaChoice``) that fits, for a bit-for-bit comparison: the most
+    chunks a pass where ``chosen`` is resident, else one chunk a pass, else
+    every chunk."""
+    chunks = fused._dft_chunks(spec)
+
+    def fits(frames, group):
+        return fused.smem_bytes(spec, frames, width, tier, frames_input, group) <= fused.SMEM_LIMIT
+
+    options = ([(chosen.frames, g) for g in range(chunks, 0, -1)] + [(64, 1)]
+               if not chosen.col_group else [(chosen.frames, 1), (chosen.frames, chunks)])
+    return next(((f, g) for f, g in options
+                 if f > spec.time_range - 1 and (f, g) != tuple(chosen) and fits(f, g)), None)
+
+
+def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> None:
+    """Every K1 entry on one geometry against its plain version, and each
+    against the same launch in another shared-memory layout bit for bit."""
+    spec, params = detector.detector_spec_from_config(cfg, "cuda")
+    x = geometry_audio(cfg.sampling_rate, seed)
+    xd = torch.from_numpy(x).cuda()
+    folded = fused.fold_constants(spec, params, "cuda")
+    width = max(w for _, w in spec.net.layer_sizes)
+    n_evals = num_frames(len(x), spec.window_length, spec.window_overlap) - spec.time_range + 1
+    tol = (2e-3, 5e-4) if spec.scaling != "linear" else (1e-3, 2e-4)
+    nets = [perturbed(params, lane) for lane in range(GEOMETRY_LANES)]
+    stacked = fused.fold_constants_stacked(spec, nets, "cuda")
+    xs = torch.stack([torch.roll(xd, 97 * lane) for lane in range(GEOMETRY_LANES)])
+    frames = frame_signal(xd, n_evals + spec.time_range - 1, spec.window_length,
+                          spec.window_overlap).contiguous()
+    layouts[fused.cta_choice(spec, n_evals, 1, width).layout] += 1
+
+    def hold(entry, got, plain, rtol, atol):
+        worst[entry] = max(worst[entry], held(got, plain, rtol, atol, f"{name} {entry}"))
+
+    def other_layout(entry, got, xs_, lanes, tier=None, wire="float32", frames_input=False,
+                     folded_=folded):
+        chosen = fused.cta_choice(spec, n_evals, lanes, width, tier=tier,
+                                  frames_input=frames_input)
+        other = streamed_other(spec, width, chosen, tier, frames_input)
+        if other is not None:
+            again = fused._launch(spec, folded_, xs_, n_evals, wire=wire, tier=tier,
+                                  frames_input=frames_input, frames=other[0], col_group=other[1])
+            held(again.reshape(got.shape), got, 0.0, 0.0,
+                 f"{name} {entry} at {tuple(chosen)} and at {other}")
+            layouts["bit equal"] += 1
+
+    got = fused.fused_offline_outputs(spec, params, xd, folded=folded)
+    hold("K1a", got, fused.fused_offline_outputs_reference(spec, folded, xd), *tol)
+    other_layout("K1a", got, xd[None], 1)
+    got = fused.fused_offline_outputs(spec, params, xd, folded=folded, input_mode="frames")
+    hold("K1b", got, fused.fused_frames_outputs_reference(spec, folded, frames), *tol)
+    other_layout("K1b", got, frames[None], 1, frames_input=True)
+    for tier, kw in TIER_KW.items():
+        got = fused.fused_offline_outputs(spec, params, xd, folded=folded, **kw)
+        hold(f"K1c {tier}", got, fused.fused_tier_outputs_reference(spec, folded, xd[None], tier)[0],
+             *TIER_TOL[tier])
+        other_layout(f"K1c {tier}", got, xd[None], 1, tier=tier)
+    got = fused.fused_batch_offline_outputs(spec, nets, xs, layout="grid", folded=stacked)
+    hold("K1d", got, fused.fused_batch_outputs_reference(spec, stacked, xs), *tol)
+    for net_form, p, f in (("shared", params, folded), ("per-lane", nets, stacked)):
+        got = fused.fused_flat_batch_offline_outputs(spec, p, xs, folded=f)
+        hold(f"K1e {net_form}", got, fused.fused_batch_outputs_reference(spec, f, xs), *tol)
+    other_layout("K1e", got, xs, GEOMETRY_LANES, folded_=stacked)
+    for wire in ("int16", "mulaw8"):
+        xw = torch.from_numpy(to_wire(xs.cpu().numpy(), wire)).cuda()
+        prog = fused.BatchProgram(spec, stacked, GEOMETRY_LANES, len(x), n_evals, wire, "cuda")
+        got = prog.launch(xw)
+        hold(f"K1f {wire}", got,
+             fused.fused_batch_outputs_reference(spec, stacked, xw, wire, n_evals), *tol)
+        other_layout(f"K1f {wire}", got, xw, GEOMETRY_LANES, wire=wire, folded_=stacked)
+
+
+def time_geometry(name: str, cfg, card_line: str) -> dict:
+    """Each K1 entry's device time on one geometry (the 60 s stream, or
+    256 lanes x 128 evaluations) beside its plain version and its bound,
+    with the layout it took."""
+    spec, params = detector.detector_spec_from_config(cfg, "cuda")
+    folded = fused.fold_constants(spec, params, "cuda")
+    width = max(w for _, w in spec.net.layer_sizes)
+    x = torch.from_numpy(fixtures.chirp_audio(60.0, 23, rate=int(cfg.sampling_rate))).cuda()
+    n = x.numel()
+    evals = num_frames(n, spec.window_length, spec.window_overlap) - spec.time_range + 1
+    frames = frame_signal(x, evals + spec.time_range - 1, spec.window_length, spec.window_overlap)
+    n_live = bucket_samples(spec, 128)
+    rng = np.random.default_rng(8)
+    live = torch.from_numpy(rng.uniform(-0.7, 0.7, (LANES, n_live)).astype(np.float32)).cuda()
+    live16 = torch.from_numpy(to_wire(live.cpu().numpy(), "int16")).cuda()
+    per_lane = repeated_fold(folded, LANES)
+    prog = fused.BatchProgram(spec, per_lane, LANES, n_live, 128, "int16", "cuda")
+    cases = [
+        ("K1a", None, False, 1, n, 4,
+         lambda: fused.fused_offline_outputs(spec, params, x, folded=folded),
+         lambda: fused.fused_offline_outputs_reference(spec, folded, x)),
+        ("K1b", None, True, 1, n, 4,
+         lambda: fused.fused_offline_outputs(spec, params, x, folded=folded, input_mode="frames"),
+         lambda: fused.fused_frames_outputs_reference(spec, folded, frames)),
+        *((f"K1c {tier}", tier, False, 1, n, 4,
+           lambda kw=kw: fused.fused_offline_outputs(spec, params, x, folded=folded, **kw),
+           lambda tier=tier: fused.fused_tier_outputs_reference(spec, folded, x[None], tier))
+          for tier, kw in TIER_KW.items()),
+        ("K1d", None, False, LANES, n_live, 4,
+         lambda: fused.fused_batch_offline_outputs(spec, params, live, layout="grid", folded=folded),
+         lambda: fused.fused_batch_outputs_reference(spec, folded, live)),
+        ("K1e", None, False, LANES, n_live, 4,
+         lambda: fused.fused_flat_batch_offline_outputs(spec, params, live, folded=folded),
+         lambda: fused.fused_batch_outputs_reference(spec, folded, live)),
+        ("K1f int16", None, False, LANES, n_live, 2,
+         lambda: prog.launch(live16),
+         lambda: fused.fused_batch_outputs_reference(spec, per_lane, live16, "int16", 128)),
+    ]
+    times = {}
+    parts = []
+    for entry, tier, frames_input, lanes, samples, itemsize, kernel, plain in cases:
+        e = num_frames(samples, spec.window_length, spec.window_overlap) - spec.time_range + 1
+        choice = fused.cta_choice(spec, e, lanes, width, tier=tier, frames_input=frames_input)
+        k = event_ms(kernel, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0]
+        p = event_ms(plain, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0]
+        least = fused_bound(spec, lanes, samples, itemsize, LANES if entry == "K1f int16" else 1,
+                            tier, frames_input)
+        times[entry] = (k, p, least, choice)
+        parts.append(f"{entry} {k:.4f} ms (plain {p:.4f}, bound {least[0]:.4f} {least[1]}, "
+                     f"{choice.frames} frames {choice.layout}"
+                     f"{f' over {choice.col_group} chunks' if choice.col_group else ''})")
+    print(
+        f"phase 22 times [{card_line}]: {name} (fft {spec.fourier_length}, window "
+        f"{spec.window_length}, hop {spec.hop}, {spec.n_bins} bins, timeRange {spec.time_range}, "
+        f"widths {[w for _, w in spec.net.layer_sizes]}); the 60 s stream ({n} samples) for "
+        f"K1a-K1c, {LANES} x 128 evaluations for K1d-K1f; device ms, median of "
+        f"{GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls: " + "; ".join(parts),
+        flush=True,
+    )
+    return times
+
+
+def phase_geometry(card_line: str) -> dict:
+    """Phase 22: the geometry sweep. Every K1 entry on fuzz seeds
+    GEOMETRY_SEEDS and fixtures.wide_geometry_configs() against its plain
+    version, and bit for bit against the same launch in another layout; K2
+    on every rate pair of fixtures.RESAMPLE_RATES (the resampler's ratio
+    and the exact one) against its plain version; the wide geometries'
+    times. Returns the worst errors, counts and times."""
+    t0 = time.perf_counter()
+    entries = ("K1a", "K1b", *(f"K1c {t}" for t in fused.TIERS), "K1d", "K1e shared",
+               "K1e per-lane", "K1f int16", "K1f mulaw8")
+    worst = {entry: 0.0 for entry in entries}
+    layouts = {"resident": 0, "streamed": 0, "bit equal": 0}
+    geometries = [(f"fuzz{seed}", fixtures.random_config(np.random.default_rng(seed)), seed)
+                  for seed in GEOMETRY_SEEDS]
+    geometries += [(name, cfg, 77) for name, cfg in fixtures.wide_geometry_configs()]
+    swept = 0
+    for name, cfg, seed in geometries:
+        spec, _ = detector.detector_spec_from_config(cfg, "cpu")
+        if fused.fusable(spec):
+            sweep_geometry(name, cfg, seed, worst, layouts)
+            swept += 1
+    torch.cuda.synchronize()
+    # K2 on every rate pair, at the resampler's ratio and at the exact one
+    k2_worst, narrow, pairs = 0.0, [], 0
+    for in_rate in fixtures.RESAMPLE_RATES:
+        x = geometry_audio(in_rate, 5)
+        for out_rate in fixtures.RESAMPLE_RATES:
+            for denominator in (1000, 10**6):
+                if out_rate == in_rate:
+                    continue
+                xin, g, w_len, overlap, blocks, _ = resample.polyphase_framing(
+                    x, in_rate, out_rate, max_denominator=denominator, device="cuda")
+                got = fg.framed_gemm(xin, g, w_len, overlap, blocks)
+                plain = fg.framed_gemm_reference(xin, g, w_len, overlap, blocks)
+                k2_worst = max(k2_worst, held(got, plain, 1e-4, 1e-4,
+                                              f"K2 {rate_name(in_rate, out_rate)}"))
+                pairs += 1
+                cut = fg.tiling(w_len, g.shape[1], hop_length(w_len, overlap))
+                if cut.fpt != fg.FRAMES_PER_THREAD:
+                    narrow.append(f"{rate_name(in_rate, out_rate)} (window {w_len}, hop "
+                                  f"{hop_length(w_len, overlap)}, {cut.fpt} frames a thread)")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    # the CLI on two wide nets, one file at a time and as a batched scan:
+    # fused against matmul, as phase 4 holds it
+    cli_parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fft1024 overlap900", "96k fft1024"):
+            cfg = dict(fixtures.wide_geometry_configs())[name]
+            rate = int(cfg.sampling_rate)
+            audio = np.stack([fixtures.chirp_audio(4.0, 61, rate=rate),
+                              fixtures.chirp_audio(4.0, 62, rate=rate)], 1)
+            cfg = fixtures.pick_thresholds(cfg, audio, margin=2e-4, device="cuda")
+            net, wav = os.path.join(tmp, "wide.txt"), os.path.join(tmp, "wide.wav")
+            save_config(cfg, net)
+            write_wav(wav, audio, rate, dtype="float32")
+            for mode in ([], ["--batched"]):
+                argv = ["-n", net, "-a", wav, "--device", "cuda", *mode]
+                fused_csv = run_cli(argv + ["--method", "fused"])[0]
+                worst_csv = compare_csv(fused_csv, run_cli(argv + ["--method", "matmul"])[0])
+                if not fused_csv:
+                    raise AssertionError(f"{name} {mode}: no detection")
+                cli_parts.append(f"{name}{' --batched' if mode else ''} {len(fused_csv)} lines, "
+                                 f"max diff {worst_csv:.3g}")
+    print(
+        f"phase 22 geometry sweep: {swept} fusable geometries of {len(geometries)} (fuzz seeds "
+        f"{GEOMETRY_SEEDS.start}-{GEOMETRY_SEEDS.stop - 1} and {len(geometries) - len(GEOMETRY_SEEDS)} "
+        f"wide ones, {GEOMETRY_SECONDS:g} s of audio each), K1a by layout: "
+        f"{layouts['resident']} resident, {layouts['streamed']} streamed; "
+        f"{layouts['bit equal']} launches equal bit for bit in another layout; launches by "
+        f"layout {fused.LAYOUT_LAUNCHES}; worst vs plain max_abs: "
+        + ", ".join(f"{entry} {err:.3g}" for entry, err in worst.items())
+        + f" (1e-3/2e-4, log and dB 2e-3/5e-4, tiers as phase 12; NaN in the same places); "
+        f"K2 on {pairs} rate pairs of {len(fixtures.RESAMPLE_RATES)} rates vs plain max_abs "
+        f"{k2_worst:.3g} (1e-4/1e-4), narrow tiling on {', '.join(narrow) or 'none'}; "
+        f"{sweep_s:.1f} s ok",
+        flush=True,
+    )
+    print(f"phase 22 entry points: cli --method fused vs matmul on 2 x 4 s: "
+          f"{'; '.join(cli_parts)}; columns 1-3 identical ok", flush=True)
+    times = {name: time_geometry(name, cfg, card_line)
+             for name, cfg in fixtures.wide_geometry_configs()}
+    # K2 where a thread takes fewer frames: one 60 s channel at 192k -> 11.025k
+    x = fixtures.chirp_audio(60.0, 92, rate=192000)
+    xin, g, w_len, overlap, blocks, _ = resample.polyphase_framing(
+        x, 192000, 11025, max_denominator=10**6, device="cuda")
+    hop = hop_length(w_len, overlap)
+    need = (blocks - 1) * hop + w_len
+    xpad = torch.cat([xin, xin.new_zeros(max(0, need - xin.numel()))])[:need]
+    k2 = [event_ms(fn, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0] for fn in (
+        lambda: fg.framed_gemm(xin, g, w_len, overlap, blocks),
+        lambda: fg.framed_gemm_reference(xin, g, w_len, overlap, blocks),
+        lambda: xpad.unfold(0, w_len, hop) @ g)]
+    k2_least = framed_bound(xin, g, blocks)
+    print(
+        f"phase 22 times [{card_line}]: K2 192k->11.025k at the exact ratio, one 60 s channel "
+        f"([{xin.numel()}] x [{w_len}, {g.shape[1]}] -> [{blocks}, {g.shape[1]}], hop {hop}), "
+        f"median of {GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls: kernel {k2[0]:.4f} ms, "
+        f"plain {k2[1]:.4f} ms, library unfold @ g {k2[2]:.4f} ms, bound {k2_least[0]:.4f} ms "
+        f"({k2_least[1]}); {tiling_of(g, w_len, hop)}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    return {"worst": worst, "k2": k2_worst, "times": times, "k2_times": (k2, k2_least)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2549,8 +2845,8 @@ def run_phases(marks, mark) -> int:
         if not kernels or any(spill != 0 for _, _, spill in kernels):
             raise AssertionError(f"{name}.cu: ptxas reports spills or nothing: {log[-2000:]}")
         fp32 = [regs for kernel, regs, _ in kernels if kernel.endswith("fp32 samples")]
-        if name == "fused_detector" and (len(fp32) != 3 or not all(106 <= r <= 108 for r in fp32)):
-            raise AssertionError(f"the fp32 instantiations use {fp32} registers, not 106-108")
+        if name == "fused_detector" and (len(fp32) != 3 or not all(104 <= r <= 108 for r in fp32)):
+            raise AssertionError(f"the fp32 instantiations use {fp32} registers, not 104-108")
         print(
             f"phase 2 build: {name}.cu in {seconds:.2f} s; registers: "
             f"{'; '.join(f'{kernel} {regs}' for kernel, regs, _ in kernels)}; spill bytes 0 "
@@ -2615,6 +2911,18 @@ def run_phases(marks, mark) -> int:
         mark("20")
         tuned = phase_tune(tmp, card_line)
         mark("21")
+    reset_counts()
+    geometry = phase_geometry(card_line)
+    sweep = {
+        "K1a": fused.LAUNCHES, "K1e": fused.BATCH_LAUNCHES, "K2": fg.FRAMED_GEMM_LAUNCHES,
+        "K1b": fused.FRAMES_LAUNCHES, "K1d": fused.GRID_LAUNCHES,
+        **{f"K1f {wire}": count for wire, count in fused.PROGRAM_LAUNCHES.items()},
+        **{f"K1c {tier}": count for tier, count in fused.TIER_LAUNCHES.items()},
+    }
+    if not all(sweep.values()):
+        raise AssertionError(f"phase 22 launched an entry no time: {sweep}")
+    print(f"phase 22 launches: {sweep}; by layout {fused.LAYOUT_LAUNCHES} ok", flush=True)
+    mark("22")
     print(
         "phase walls (host clock, each to its last line): "
         + ", ".join(f"{label} {t - prev:.1f} s"
@@ -2630,26 +2938,31 @@ def run_phases(marks, mark) -> int:
 
     n = live["launches"]
     kernel, plain, library, least = resample_times[48000]
+    worst = geometry["worst"]
     print(json.dumps({"kernels": [
-        entry("fused_detector", KERNEL_SOURCE, REPLACES, launches, max_abs_err, stream_times,
-              stream_times[2]),
-        entry("fused_detector_batch", KERNEL_SOURCE, REPLACES_FLAT, n["float32"],
-              batch_err["float32"], times["float32"], times["float32"][2]),
+        entry("fused_detector", KERNEL_SOURCE, REPLACES, launches + sweep["K1a"],
+              max(max_abs_err, worst["K1a"]), stream_times, stream_times[2]),
+        entry("fused_detector_batch", KERNEL_SOURCE, REPLACES_FLAT, n["float32"] + sweep["K1e"],
+              max(batch_err["float32"], worst["K1e shared"], worst["K1e per-lane"]),
+              times["float32"], times["float32"][2]),
         entry("fused_detector_batch corpus", KERNEL_SOURCE, REPLACES_FLAT, scan["k1e"],
               scan_k1e[3], scan_k1e[:2], scan_k1e[2]),
-        entry("fused_batch_program int16", KERNEL_SOURCE, REPLACES_PROGRAM, n["int16"],
-              batch_err["int16"], times["int16"], times["int16"][2]),
-        entry("fused_batch_program mulaw8", KERNEL_SOURCE, REPLACES_PROGRAM, n["mulaw8"],
-              batch_err["mulaw8"], times["mulaw8"], times["mulaw8"][2]),
-        entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"], resample_err,
-              (kernel[0], plain[0]), least, library[0]),
-        entry("fused_detector_frames", KERNEL_SOURCE, REPLACES_FRAMES, mesh_counts["frames"],
-              new_err["frames"], new_times["frames"], new_times["frames"][2]),
+        *(entry(f"fused_batch_program {wire}", KERNEL_SOURCE, REPLACES_PROGRAM,
+                n[wire] + sweep[f"K1f {wire}"], max(batch_err[wire], worst[f"K1f {wire}"]),
+                times[wire], times[wire][2])
+          for wire in ("int16", "mulaw8")),
+        entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"] + sweep["K2"],
+              max(resample_err, geometry["k2"]), (kernel[0], plain[0]), least, library[0]),
+        entry("fused_detector_frames", KERNEL_SOURCE, REPLACES_FRAMES,
+              mesh_counts["frames"] + sweep["K1b"], max(new_err["frames"], worst["K1b"]),
+              new_times["frames"], new_times["frames"][2]),
         *(entry(f"fused_detector_tiers {tier}", KERNEL_SOURCE, REPLACES_TIERS,
-                mesh_counts["tiers"][tier], new_err[tier], new_times[tier], new_times[tier][2])
+                mesh_counts["tiers"][tier] + sweep[f"K1c {tier}"],
+                max(new_err[tier], worst[f"K1c {tier}"]), new_times[tier], new_times[tier][2])
           for tier in fused.TIERS),
-        entry("fused_detector_grid corpus", KERNEL_SOURCE, REPLACES_SLABBED, mesh_counts["grid"],
-              new_err["grid"], new_times["grid"], new_times["grid"][2]),
+        entry("fused_detector_grid corpus", KERNEL_SOURCE, REPLACES_SLABBED,
+              mesh_counts["grid"] + sweep["K1d"], max(new_err["grid"], worst["K1d"]),
+              new_times["grid"], new_times["grid"][2]),
         # the capture path launches K1f at phase 6's and 8's shape: [256,
         # bucket_samples(128)] int16 with the same per-lane nets
         entry("fused_batch_program int16 capture", KERNEL_SOURCE, REPLACES_PROGRAM,

@@ -33,12 +33,15 @@
 //     loads of a row are one 128-byte line that stays in L1 (the bands of
 //     all tiles are 37 KB at 48k), and the warp's stores of a row of the
 //     result are contiguous.
-//   * A thread keeps an 8 frames x 4 columns register tile: per row of G 1
-//     load of G and 8 of samples feed 32 FMAs; where hop and lo are multiples of 4 the samples are
-//     read as float4 along k (4 rows: 12 16-byte loads for 128 FMAs). A
-//     warp is 32 / cg threads across frames (frame fg + r * 32/cg, so
-//     neighbouring threads read neighbouring hops) by cg across columns:
-//     one unit of 8 * 32/cg frames x cw columns. The warps of a CTA take
+//   * A thread keeps a kF frames x 4 columns register tile (kF = 8): per
+//     row of G 1 load of G and 8 of samples feed 32 FMAs; where hop and lo
+//     are multiples of 4 the samples are read as float4 along k (4 rows: 12
+//     16-byte loads for 128 FMAs). A warp is 32 / cg threads across frames
+//     (frame fg + r * 32/cg, so neighbouring threads read neighbouring hops)
+//     by cg across columns: one unit of kF * 32/cg frames x cw columns.
+//     Where one unit's span would not fit in shared memory (a long hop: 2560
+//     at 192k -> 11.025k), a thread takes kF = 4 frames, half the span, at
+//     half the FMAs per load of G. The warps of a CTA take
 //     the units of its `frames` frames in turn. CTAs are small (one unit of
 //     frames, 4 warps at the resampler's shapes), so that several share an
 //     SM and one's staging hides behind another's sums. Where a launch has
@@ -69,7 +72,8 @@ namespace {
 
 constexpr int kMaxWarps = 8;
 constexpr int kMaxDevices = 64;
-constexpr int kFramesPerThread = 8;
+constexpr int kWideFrames = 8;  // kF of every shape whose span fits
+constexpr int kNarrowFrames = 4;
 constexpr int kColsPerThread = 4;
 constexpr long long kSmemLimit = 232448;  // bytes one block may opt in to
 constexpr long long kSmemDefault = 48 * 1024;
@@ -81,7 +85,8 @@ struct Shape {
   int gap;
   int cg;          // threads of a warp across columns: 1, 2, 4 or 8
   int n_tiles;     // column tiles of 4 * cg columns
-  int frames;      // frames per CTA, a multiple of 8 * 32 / cg
+  int frames;      // frames per CTA, a multiple of fpt * 32 / cg
+  int fpt;         // frames a thread takes: kWideFrames or kNarrowFrames
   int ksplit;      // warps that share a unit, each summing a part of the rows
   int band_rows;   // rows of each tile's band in `band`
   int span;        // floats staged per CTA (a multiple of 4)
@@ -93,7 +98,8 @@ __device__ __forceinline__ bool non_finite(float v) {
 
 // kSplit: `ksplit` warps share a unit (else s.ksplit is 1 and the code for it
 // is compiled out: the registers it costs lose the resampler a CTA per SM).
-template <bool kVec, bool kSplit>
+// kF: frames a thread takes (s.fpt).
+template <bool kVec, bool kSplit, int kF>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     framed_gemm_kernel(const float* __restrict__ x, long long n,
                        const float* __restrict__ g,       // [window, m]
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int fgw = 32 / s.cg;                 // threads across frames
   const int fg = lane / s.cg;
   const int ci = lane - fg * s.cg;
-  const int unit_frames = kFramesPerThread * fgw;
+  const int unit_frames = kF * fgw;
   const int frame_blocks = s.frames / unit_frames;
   const int cw = kColsPerThread * s.cg;
 
@@ -144,9 +150,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int fb = u - tile * frame_blocks;
     const int fl = fb * unit_frames + fg;  // this thread's frames: fl + r*fgw
     const int c0 = tile * cw + ci;         // its columns: c0 + j*cg
-    float acc[kFramesPerThread][kColsPerThread];
+    float acc[kF][kColsPerThread];
 #pragma unroll
-    for (int r = 0; r < kFramesPerThread; ++r) {
+    for (int r = 0; r < kF; ++r) {
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.0f;
     }
@@ -164,7 +170,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           gv[j] = __ldg(g + (long long)k * s.m + gcol[j]);
         }
 #pragma unroll
-        for (int r = 0; r < kFramesPerThread; ++r) {
+        for (int r = 0; r < kF; ++r) {
           const float xv = xs[(fl + r * fgw) * s.hop + k];
 #pragma unroll
           for (int j = 0; j < kColsPerThread; ++j) {
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
         for (int q = 0; q < 4; ++q) gv[q] = __ldg(bt + (k + q) * s.cg);
 #pragma unroll
-        for (int r = 0; r < kFramesPerThread; ++r) {
+        for (int r = 0; r < kF; ++r) {
           float xv[4];
           if (kVec) {
             const float4 v = *reinterpret_cast<const float4*>(xb + r * xstep + k);
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       // the parts' sums meet in shared memory and are added in the order of
       // the rows by the warp of part 0
       float* red = xs + s.span;  // [warps][8 frames x 4 columns][32 lanes]
-      constexpr int kTile = kFramesPerThread * kColsPerThread;
+      constexpr int kTile = kF * kColsPerThread;
       if (part > 0) {
 #pragma unroll
         for (int q = 0; q < kTile; ++q) {
@@ -226,7 +232,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       }
     }
 #pragma unroll
-    for (int r = 0; r < kFramesPerThread; ++r) {
+    for (int r = 0; r < kF; ++r) {
       const long long f = f0 + fl + r * fgw;
       if (f >= n_frames) continue;
 #pragma unroll
@@ -241,13 +247,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 // The span, and with a row split one register tile per thread.
 size_t smem_bytes(const Shape& s, int threads) {
   const size_t red = s.ksplit > 1
-      ? static_cast<size_t>(threads) * kFramesPerThread * kColsPerThread : 0;
+      ? static_cast<size_t>(threads) * s.fpt * kColsPerThread : 0;
   return (static_cast<size_t>(s.span) + red) * sizeof(float);
 }
 
 // A span above 48 KB has to opt in; the opt-in is a maximum, raised once
 // per kernel instantiation, device and size.
-template <bool kVec, bool kSplit>
+template <bool kVec, bool kSplit, int kF>
 cudaError_t opt_in(int device, size_t smem) {
   static std::mutex mutex;
   static size_t granted[kMaxDevices] = {};
@@ -257,7 +263,7 @@ cudaError_t opt_in(int device, size_t smem) {
     return cudaSuccess;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      framed_gemm_kernel<kVec, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      framed_gemm_kernel<kVec, kSplit, kF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
     granted[device] = smem;
@@ -265,15 +271,15 @@ cudaError_t opt_in(int device, size_t smem) {
   return err;
 }
 
-template <bool kVec, bool kSplit>
+template <bool kVec, bool kSplit, int kF>
 int launch(const float* x, long long n, const float* g, const float* band,
            const int* ranges, long long n_frames, float* out, const Shape& s,
            int threads, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(s, threads);
-  const cudaError_t err = opt_in<kVec, kSplit>(device, smem);
+  const cudaError_t err = opt_in<kVec, kSplit, kF>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long gx = (n_frames + s.frames - 1) / s.frames;
-  framed_gemm_kernel<kVec, kSplit><<<static_cast<unsigned>(gx), threads, smem, stream>>>(
+  framed_gemm_kernel<kVec, kSplit, kF><<<static_cast<unsigned>(gx), threads, smem, stream>>>(
       x, n, g, band, ranges, n_frames, out, s);
   return static_cast<int>(cudaGetLastError());
 }
@@ -292,7 +298,9 @@ const char* sd_framed_gemm_error_string(int err) {
 // wrapper's: `cg` threads of a warp across columns (1, 2, 4 or 8; a column
 // tile is 4 * cg columns), `ksplit` warps per unit (each sums a part of the
 // rows; above 1 the CTA must have exactly one warp per part of each unit),
-// `frames` frames per CTA (a multiple of 8 * 32 / cg), `threads` per CTA (whole warps, at most 256); `band`
+// `fpt` frames a thread (8, or 4 where a unit's span of 8 would not fit),
+// `frames` frames per CTA (a multiple of fpt * 32 / cg), `threads` per CTA
+// (whole warps, at most 256); `band`
 // [tiles, band_rows, 4 * cg] and `ranges` [tiles, 2] (first row, row count;
 // counts are multiples of 4 and first rows too when `vec` is set) are the
 // tiles' bands of g as the note at the head of this file lays them out,
@@ -303,13 +311,14 @@ const char* sd_framed_gemm_error_string(int err) {
 int sd_framed_gemm(const float* x, long long n, const float* g, int window,
                    int m, int hop, int gap, long long n_frames, float* out,
                    const float* band, const int* ranges, int band_rows, int cg,
-                   int ksplit, int frames, int threads, int vec, int device,
-                   void* stream) {
+                   int ksplit, int fpt, int frames, int threads, int vec,
+                   int device, void* stream) {
   if (window < 1 || m < 1 || hop < 1 || gap < 0 || n < 0 || n_frames < 1 ||
       (cg != 1 && cg != 2 && cg != 4 && cg != 8) || band_rows < 0 ||
       band_rows % 4 != 0 || threads < 32 || threads > kMaxWarps * 32 ||
       threads % 32 != 0 || frames < 1 || ksplit < 1 ||
-      frames % (kFramesPerThread * 32 / cg) != 0 || (vec && hop % 4 != 0)) {
+      (fpt != kWideFrames && fpt != kNarrowFrames) || frames % (fpt * 32 / cg) != 0 ||
+      (vec && hop % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape s;
@@ -320,11 +329,12 @@ int sd_framed_gemm(const float* x, long long n, const float* g, int window,
   s.cg = cg;
   s.n_tiles = (m + kColsPerThread * cg - 1) / (kColsPerThread * cg);
   s.frames = frames;
+  s.fpt = fpt;
   s.ksplit = ksplit;
   s.band_rows = band_rows;
   // a row split needs one warp for each part of each unit
   if (ksplit > 1 &&
-      s.n_tiles * (frames / (kFramesPerThread * 32 / cg)) * ksplit != threads / 32) {
+      s.n_tiles * (frames / (fpt * 32 / cg)) * ksplit != threads / 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the last frame's rows run to lo + rows <= window + 6 (both rounded to 4)
@@ -339,10 +349,13 @@ int sd_framed_gemm(const float* x, long long n, const float* g, int window,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SD_LAUNCH(V, S) \
-  launch<V, S>(x, n, g, band, ranges, n_frames, out, s, threads, device, st)
-  if (ksplit > 1) return vec ? SD_LAUNCH(true, true) : SD_LAUNCH(false, true);
-  return vec ? SD_LAUNCH(true, false) : SD_LAUNCH(false, false);
+#define SD_LAUNCH(V, S, F) \
+  launch<V, S, F>(x, n, g, band, ranges, n_frames, out, s, threads, device, st)
+#define SD_LAUNCH_VS(F)                                                             \
+  (ksplit > 1 ? (vec ? SD_LAUNCH(true, true, F) : SD_LAUNCH(false, true, F))       \
+              : (vec ? SD_LAUNCH(true, false, F) : SD_LAUNCH(false, false, F)))
+  return fpt == kWideFrames ? SD_LAUNCH_VS(kWideFrames) : SD_LAUNCH_VS(kNarrowFrames);
+#undef SD_LAUNCH_VS
 #undef SD_LAUNCH
 }
 

@@ -97,9 +97,32 @@
 // layer the weights are copied into the freed stages of C; a thread takes a
 // stretch of the dot product for 4 evaluations x 4 hidden units, and the
 // stretches are summed by shuffles. Geometry, layer widths and transfer
-// codes are runtime values, so one build serves every net the fused path
+// codes are runtime values (the widths and codes a device table, so a net
+// may have any depth), so one build serves every net the fused path
 // accepts; the arithmetic, the wire and the input form are template
 // arguments, so the full-fp32 forms carry no code of the tiers.
+//
+// Two shared-memory layouts, the template argument kStream, chosen per
+// launch by the wrapper (cta_choice in kernels/fused_detector.py). The
+// resident layout, above, holds a CTA's whole working set: the sample span
+// ((frames - 1) * hop + gap + window), every column chunk of C in each
+// stage and, under a bf16 first layer, its whole product [frames, T*h1]
+// and filter bank. These grow with the hop and window, the bins and T*h1;
+// at fft 512-1024 or a wide first layer they pass the 227 KB a CTA may
+// take. The streamed layout (see ring_floats) bounds each of them:
+//   * A by k-block: a pass over k stages only rows kb*kRows .. +kRows of
+//     the CTA's frames, in two buffers taken in turn, every thread loading
+//     the next block while the tensor cores work on this one;
+//   * C by column-chunk group: a pass covers col_group chunks (the most
+//     that fit), and passes repeat until every chunk is done;
+//   * a bf16 first layer by chunk: one 64-column chunk of its product at a
+//     time, that chunk's bank one k-step at a time, its T shifted adds
+//     summed into the first activation buffer in t order;
+//   * the activation buffers over the A blocks and the spectrogram, which
+//     are dead by then.
+// Both layouts issue the same products in the same order and sum in the
+// same order, so they agree bit for bit; the streamed one pays a barrier
+// and a staging of A per k-block and pass.
 //
 // Built without --use_fast_math on purpose: tanhf, expf, expm1f, logf,
 // sqrtf and the division keep their IEEE behaviour, including the NaN on
@@ -119,7 +142,6 @@ namespace {
 
 constexpr int kMaxWarps = 8;
 constexpr int kMaxGroups = kMaxWarps / 4;  // warpgroups of a CTA
-constexpr int kMaxLayers = 8;
 constexpr int kMaxDevices = 64;
 // Rows of C per shared-memory stage (TF32; bf16 has twice the rows in the
 // same bytes), the k-steps they hold, and stages in flight.
@@ -139,6 +161,13 @@ constexpr int kGroupBins = 8;
 constexpr int kStepFloats = 8 * kUnitCols;
 // Rows of the bf16 conv filter bank per k-step.
 constexpr int kBf16StepRows = 16;
+// The streamed layout: floats past a k-block's rows between two staged
+// frames (a row stride of 4 times an odd number puts a fragment's 32
+// addresses on 32 banks), the mu-law table, and the row stride of one
+// 64-column chunk of the bf16 conv product.
+constexpr int kRowPad = 4;
+constexpr int kLutFloats = 256;
+constexpr int kProdLd = kUnitCols + 8;
 // Stretches the first layer's dot product is cut into (a power of two, at
 // most 32: they are summed across neighbouring lanes).
 constexpr int kSplits = 8;
@@ -163,12 +192,11 @@ struct Geometry {
   int dft_passes;    // 0: TF32x3; 1, 3 or 4 bf16 products (the kernel's kDftPasses)
   int conv_passes;   // 0: fp32 first layer; else its bf16 products (kConvPasses)
   int frames_input;  // 0: samples; 1: a [n, window] frames matrix (kFramesIn)
-};
-
-struct NetMeta {
-  int n_layers;              // layers of the MLP, the first one included
-  int widths[kMaxLayers];    // output width of each layer
-  int transfers[kMaxLayers]; // Transfer code of each layer
+  int col_group;     // 0: the resident layout; else the streamed layout
+                     // (kStream), whose passes over k cover this many chunks
+  int n_layers;      // layers of the MLP, the first one included
+  int n_out;         // width of the last layer
+  int transfer0;     // Transfer code of the first layer
 };
 
 // Elements between one lane's net operands and the next: 0 for a shared
@@ -272,8 +300,54 @@ __host__ __device__ inline long long stage_region_floats(const Geometry& g) {
   return v;
 }
 
+// The streamed layout (g.col_group > 0) bounds every region that grows with
+// the geometry in the resident one; its regions, in order:
+//   ring    kStages stages of C's row blocks, each over col_group chunks;
+//           under a bf16 first layer also one k-step of one chunk of its
+//           filter bank (both halves) and that chunk's product [frames,
+//           kProdLd], one after the other
+//   act_a   the first activation buffer [tile, max_width]; during the band
+//           DFT two staged k-blocks of A [frames, rows + kRowPad] and the
+//           mu-law table
+//   spec    the spectrogram [frames, bins]; after the first layer the
+//           second activation buffer [tile, max_width]
+//   sums    the row sums of squares [frames] and the norms [tile]
+// Each is a whole number of 16-byte chunks.
+__host__ __device__ inline long long round4(long long v) { return (v + 3) / 4 * 4; }
+__host__ __device__ inline int a_stride(const Geometry& g) {
+  return (g.dft_passes ? kBf16BlockRows : kBlockRows) + kRowPad;
+}
+__host__ __device__ inline int stream_stage_floats(const Geometry& g) {
+  return 2 * kStepsPerBlock * g.col_group * kStepFloats;
+}
+__host__ __device__ inline long long ring_floats(const Geometry& g) {
+  long long v = (long long)kStages * stream_stage_floats(g);
+  if (g.conv_passes) {
+    const long long conv = 2 * kStepFloats + (long long)g.frames * kProdLd;
+    v = conv > v ? conv : v;
+  }
+  return v;
+}
+__host__ __device__ inline long long acts_floats(const Geometry& g) {
+  return round4((long long)(g.frames - g.time_range + 1) * g.max_width);
+}
+__host__ __device__ inline long long act_region_floats(const Geometry& g) {
+  const long long a = 2LL * g.frames * a_stride(g) + kLutFloats;
+  const long long acts = acts_floats(g);
+  return acts > a ? acts : a;
+}
+__host__ __device__ inline long long spec_region_floats(const Geometry& g) {
+  const long long spec = (long long)g.frames * g.bins;
+  const long long acts = acts_floats(g);
+  return acts > spec ? acts : spec;
+}
+
 __host__ __device__ inline long long smem_floats(const Geometry& g) {
   const long long tile = g.frames - g.time_range + 1;
+  if (g.col_group) {
+    return ring_floats(g) + act_region_floats(g) + spec_region_floats(g) +
+           round4(g.frames + tile);
+  }
   return staged_floats(g) + stage_region_floats(g) +
          (long long)g.frames * g.bins + g.frames + 2 * tile * g.max_width;
 }
@@ -422,8 +496,9 @@ __device__ __forceinline__ void stamp(unsigned long long* prof, int slot,
 
 // Sample: the wire's type. kDftPasses: 0 for the TF32x3 band DFT, else its
 // bf16 products; kConvPasses: 0 for the fp32 first layer, else the bf16
-// products of its conv GEMM; kFramesIn: x holds [n, window] frames.
-template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn>
+// products of its conv GEMM; kFramesIn: x holds [n, window] frames;
+// kStream: the streamed layout (see ring_floats), else the resident one.
+template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn, bool kStream>
 __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     const Sample* __restrict__ x,         // [lanes, ld]: lane samples on the wire
     long long ld, long long n, long long n_evals,
@@ -434,7 +509,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     const float* __restrict__ mids,  // per net, per hidden layer: W [in, out], b [out]
     const float* __restrict__ out_a, const float* __restrict__ out_c,
     float* __restrict__ out,         // [lanes, n_evals, outputs]
-    Geometry g, NetMeta net, LaneStrides ls, Dequant dq,
+    const int* __restrict__ layers,  // [2, n_layers]: widths, then Transfer codes
+    Geometry g, LaneStrides ls, Dequant dq,
     unsigned long long* prof) {
   extern __shared__ __align__(16) float smem[];
   const long long lane = blockIdx.y;
@@ -445,7 +521,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   mids += lane * ls.mids;
   out_a += lane * ls.out;
   out_c += lane * ls.out;
-  out += lane * n_evals * net.widths[net.n_layers - 1];
+  out += lane * n_evals * g.n_out;
   const int b = g.bins;
   const int T = g.time_range;
   const int tile = g.frames - T + 1;
@@ -459,12 +535,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   // A's rows: the span at stride hop from the gap, or the staged frame rows
   const int rs = kFramesIn ? frame_stride(g) : g.hop;
   const int r0 = kFramesIn ? 0 : g.gap;
-  float* samples = smem;
-  float* stages = samples + staged_floats(g);  // [kStages][block]
-  float* spec = stages + stage_region_floats(g);  // [frames, bins]
-  float* rowsq = spec + g.frames * b;                        // [frames]
-  float* act_a = rowsq + g.frames;                           // [tile, max_width]
-  float* act_b = act_a + tile * mw;                          // [tile, max_width]
+  float* samples = smem;  // the resident layout's first region
+  float* stages;           // [kStages][block], or the streamed ring
+  float* spec;             // [frames, bins]
+  float* rowsq;            // [frames]
+  float* act_a;            // [tile, max_width]
+  float* act_b;            // [tile, max_width]
+  float* norms;            // [tile]
+  if constexpr (kStream) {
+    stages = smem;
+    act_a = stages + ring_floats(g);
+    spec = act_a + act_region_floats(g);
+    act_b = spec;
+    rowsq = spec + spec_region_floats(g);
+    norms = rowsq + g.frames;
+  } else {
+    stages = samples + staged_floats(g);
+    spec = stages + stage_region_floats(g);
+    rowsq = spec + g.frames * b;
+    act_a = rowsq + g.frames;
+    act_b = act_a + tile * mw;
+    // the sliding norms are kept in the second activation buffer until the
+    // hidden layers need it
+    norms = act_b;
+  }
 
   const long long e0 = (long long)blockIdx.x * tile;
   const long long start = e0 * g.hop;
@@ -491,15 +585,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
       cp_async_commit();
     }
   };
+  if constexpr (!kStream) {
 #pragma unroll
-  for (int kb = 0; kb < kStages - 1; ++kb) prefetch_or_skip(kb);
+    for (int kb = 0; kb < kStages - 1; ++kb) prefetch_or_skip(kb);
+  }
 
   // 1. this tile's sample span, dequantised; reads past the stream are
   //    zero. Where the lane's samples are 16-byte aligned they are read 16
   //    bytes at a time, kStageUnroll loads in flight per thread. Frames
   //    input: rows e0 .. e0 + frames - 1 of the frames matrix, each at
-  //    frame_stride, rows past the matrix zero.
-  if constexpr (kFramesIn) {
+  //    frame_stride, rows past the matrix zero. The streamed layout stages
+  //    A one k-block at a time in the band DFT (stage_a below); here only
+  //    the mu-law table, beside those blocks.
+  float* lut_s = act_a + 2 * g.frames * a_stride(g);  // the streamed layout's table
+  if constexpr (kStream) {
+    if (sizeof(Sample) == 1) {
+      for (int i = threadIdx.x; i < kLutFloats; i += blockDim.x) {
+        lut_s[i] = dequant(static_cast<Sample>(static_cast<int8_t>(i)), dq);
+      }
+      __syncthreads();
+    }
+  } else if constexpr (kFramesIn) {
     const int stride = frame_stride(g);
     const float* xs = reinterpret_cast<const float*>(x) + e0 * g.window;
     const long long left = n - e0;  // rows of the matrix from e0
@@ -591,142 +697,300 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   const int group = threadIdx.x >> 7;           // this thread's warpgroup
   const int groups_n = blockDim.x >> 7;
   const int wrow = ((threadIdx.x >> 5) & 3) * 16;  // this warp's rows of the tile
-  const int units = n_units(g);
-  for (int u0 = 0; u0 < units; u0 += groups_n) {
-    const int u = u0 + group;
-    const bool active = u < units;
-    const int mg = u / chunks;        // which 64 frames
-    const int ch = u - mg * chunks;   // which 64 columns
-    // rows gid and gid + 8 of this warp's 16 frames, at column tig
-    const float* arow0 = samples + (long long)(mg * kUnitFrames + wrow + gid) * rs + r0 + tig;
-    const float* arow1 = arow0 + 8 * rs;
-    float acc[32];
+  constexpr int kSteps = kStepsPerBlock;
+  // |X| and scaling of one unit's accumulators into the spectrogram: column
+  // tile 2j holds re and tile 2j + 1 im of bin group 4*ch + j; this thread
+  // has columns 2*tig, 2*tig + 1 of rows gid and gid + 8
+  auto magnitudes = [&](const float (&acc)[32], int mg, int ch) {
 #pragma unroll
-    for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
-    // The A fragments of one row block, split into halves. TF32: for each
-    // k-step of 8, (gid, tig), (gid + 8, tig), (gid, tig + 4), (gid + 8, tig
-    // + 4); bf16: for each k-step of 16 the same columns and those 8 further
-    // (pack_bf16_step). Zero past the window.
-    constexpr int kSteps = kStepsPerBlock;
-    auto load_a = [&](int kb, uint32_t (&hi)[kSteps][4], uint32_t (&lo)[kSteps][4]) {
-      if constexpr (kBf16Dft) {
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          float v[2][4];
+      for (int q = 0; q < 4; ++q) {
+        const int k = (4 * ch + j) * kGroupBins + 2 * tig + (q & 1);
+        const int f = mg * kUnitFrames + wrow + gid + (q >> 1) * 8;
+        const float re = acc[8 * j + q];
+        const float im = acc[8 * j + 4 + q];
+        float s = sqrtf(re * re + im * im);
+        if (g.scaling == kLog) {
+          s = logf(s);
+        } else if (g.scaling == kDb) {
+          s = kDbPerNeper * logf(s);
+        }
+        if (k < b) spec[f * b + k] = s;
+      }
+    }
+  };
+  if constexpr (kStream) {
+    // The streamed layout: C's chunks in groups of col_group, each group a
+    // full pass over k with its units in rounds as below; A one k-block at
+    // a time, staged by every thread into one of two buffers while the
+    // tensor cores work on the other, so shared memory does not grow with
+    // the window, the hop or the bins. The products, and so the
+    // spectrogram, are the resident layout's bit for bit.
+    const int ast = a_stride(g);
+    const int sfl = stream_stage_floats(g);
+    const int a_buf = g.frames * ast;
+    auto expand_s = [&](Sample v) {
+      return sizeof(Sample) == 1 ? lut_s[static_cast<uint8_t>(v)] : dequant(v, dq);
+    };
+    // rows kb * kRows .. + kRows - 1 of every frame of this CTA, dequantised,
+    // zero past the window, the stream or the frames matrix; kStageUnroll
+    // loads in flight per thread
+    auto stage_a = [&](int kb, float* buf) {
+      const int total = g.frames * kRows;
+      for (int i0 = threadIdx.x; i0 < total; i0 += blockDim.x * kStageUnroll) {
+        float v[kStageUnroll];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int k0 = kb * kRows + ks * 16 + h * 8;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int k = k0 + (q >> 1) * 4;
-              v[h][q] = k + tig < g.window ? ((q & 1) ? arow1 : arow0)[k] : 0.0f;
+        for (int q = 0; q < kStageUnroll; ++q) {
+          const int i = i0 + q * blockDim.x;
+          const int f = i / kRows;
+          const int k = kb * kRows + i - f * kRows;
+          v[q] = 0.0f;
+          if (i < total && k < g.window) {
+            if constexpr (kFramesIn) {
+              if (e0 + f < n) v[q] = reinterpret_cast<const float*>(x)[(e0 + f) * g.window + k];
+            } else {
+              const long long at = start + g.gap + (long long)f * g.hop + k;
+              if (at < n) v[q] = expand_s(x[at]);
             }
           }
-          pack_bf16_step<(kDftPasses > 1)>(v, hi[ks], lo[ks]);
         }
-      } else {
 #pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          const int k0 = kb * kBlockRows + ks * 8;
-          const bool in0 = k0 + tig < g.window;
-          const bool in1 = k0 + tig + 4 < g.window;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const bool in = q < 2 ? in0 : in1;
-            const float v = in ? ((q & 1) ? arow1 : arow0)[k0 + (q >> 1) * 4] : 0.0f;
-            hi[ks][q] = to_tf32(v);
-            lo[ks][q] = to_tf32(v - __uint_as_float(hi[ks][q]));
-          }
+        for (int q = 0; q < kStageUnroll; ++q) {
+          const int i = i0 + q * blockDim.x;
+          const int f = i / kRows;
+          if (i < total) buf[f * ast + i - f * kRows] = v[q];
         }
       }
     };
-    if (u0 > 0) {
-#pragma unroll
-      for (int kb = 0; kb < kStages - 1; ++kb) prefetch_or_skip(kb);
-    } else {
-      __syncthreads();  // the span is staged
-    }
-    uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
-    if (active) load_a(0, a_hi, a_lo);
-    for (int kb = 0; kb < n_blocks; ++kb) {
-      cp_async_wait<kStages - 2>();
-      // block kb has landed, and every warp is done with block kb - 1, whose
-      // stage the next prefetch overwrites
-      __syncthreads();
-      prefetch_or_skip(kb + kStages - 1);
-      stamp(prof, 4, t_prof);
-      if (active) {
-        const float* cb = stages + (kb % kStages) * block;
-        // the products of each k-step, small terms first, into one
-        // accumulator
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          const float* step = cb + (ks * chunks + ch) * kStepFloats;
-          const uint64_t b_hi = b_descriptor(step);
-          if constexpr (kBf16Dft) {
-            if constexpr (kDftPasses > 1) {
-              const uint64_t b_lo = b_descriptor(step + block / 2);
-              if constexpr (kDftPasses == 4) wgmma_bf16(acc, a_lo[ks], b_lo);
-              wgmma_bf16(acc, a_lo[ks], b_hi);
-              wgmma_bf16(acc, a_hi[ks], b_lo);
-            }
-            wgmma_bf16(acc, a_hi[ks], b_hi);
-          } else {
-            const uint64_t b_lo = b_descriptor(step + block / 2);
-            wgmma_tf32(acc, a_lo[ks], b_hi);
-            wgmma_tf32(acc, a_hi[ks], b_lo);
-            wgmma_tf32(acc, a_hi[ks], b_hi);
+    for (int c0 = 0; c0 < chunks; c0 += g.col_group) {
+      const int gcur = min(g.col_group, chunks - c0);
+      const int units = g.frames / kUnitFrames * gcur;
+      // one (half, k-step) piece of a stage: the group's chunks, contiguous
+      // in `cs` for each half and k-step of a row block
+      const int piece = gcur * kStepFloats;
+      auto prefetch_s = [&](int kb) {
+        if (kb < n_blocks) {
+          float* dst = stages + (kb % kStages) * sfl;
+          const float* src = cs + (long long)kb * block + c0 * kStepFloats;
+          constexpr int kPieces = (kDftPasses == 1 ? 1 : 2) * kSteps;
+          for (int i = 4 * threadIdx.x; i < kPieces * piece; i += 4 * blockDim.x) {
+            const int p = i / piece;
+            const int o = i - p * piece;
+            cp_async16(dst + p * piece + o, src + (long long)p * chunks * kStepFloats + o);
           }
         }
-        wgmma_commit();
-        // the next block's fragments are loaded while the tensor cores run;
-        // these ones are read by them until the wait, so they stay where
-        // they are until then
-        uint32_t n_hi[kSteps][4], n_lo[kSteps][4];
-        const bool more = kb + 1 < n_blocks;
-        if (more) load_a(kb + 1, n_hi, n_lo);
-        wgmma_wait();
+        cp_async_commit();
+      };
+      for (int u0 = 0; u0 < units; u0 += groups_n) {
+        const int u = u0 + group;
+        const bool active = u < units;
+        const int mg = u / gcur;           // which 64 frames
+        const int cl = u - mg * gcur;      // which chunk of the group
+        const int arow = (mg * kUnitFrames + wrow + gid) * ast + tig;
+        float acc[32];
 #pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
+        for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if constexpr (kDftPasses == 1) {
-              asm volatile("" ::"r"(a_hi[ks][q]));
-              if (more) a_hi[ks][q] = n_hi[ks][q];
+        for (int kb = 0; kb < kStages - 1; ++kb) prefetch_s(kb);
+        stage_a(0, act_a);
+        for (int kb = 0; kb < n_blocks; ++kb) {
+          cp_async_wait<kStages - 2>();
+          // C's block kb and A's have landed, and every warp is done with
+          // block kb - 1, whose stage and A buffer are written next
+          __syncthreads();
+          prefetch_s(kb + kStages - 1);
+          stamp(prof, 4, t_prof);
+          uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
+          if (active) {
+            const float* a0 = act_a + (kb & 1) * a_buf + arow;
+            const float* a1 = a0 + 8 * ast;
+            // the fragments as the resident layout loads them, from the
+            // block's rows (zero past the window already)
+#pragma unroll
+            for (int ks = 0; ks < kSteps; ++ks) {
+              if constexpr (kBf16Dft) {
+                float v[2][4];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) {
+                    const int k = ks * 16 + h * 8 + (q >> 1) * 4;
+                    v[h][q] = ((q & 1) ? a1 : a0)[k];
+                  }
+                }
+                pack_bf16_step<(kDftPasses > 1)>(v, a_hi[ks], a_lo[ks]);
+              } else {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const float v = ((q & 1) ? a1 : a0)[ks * 8 + (q >> 1) * 4];
+                  a_hi[ks][q] = to_tf32(v);
+                  a_lo[ks][q] = to_tf32(v - __uint_as_float(a_hi[ks][q]));
+                }
+              }
+            }
+            const float* cb = stages + (kb % kStages) * sfl;
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < kSteps; ++ks) {
+              const float* step = cb + (ks * gcur + cl) * kStepFloats;
+              const uint64_t b_hi = b_descriptor(step);
+              if constexpr (kBf16Dft) {
+                if constexpr (kDftPasses > 1) {
+                  const uint64_t b_lo = b_descriptor(step + kSteps * piece);
+                  if constexpr (kDftPasses == 4) wgmma_bf16(acc, a_lo[ks], b_lo);
+                  wgmma_bf16(acc, a_lo[ks], b_hi);
+                  wgmma_bf16(acc, a_hi[ks], b_lo);
+                }
+                wgmma_bf16(acc, a_hi[ks], b_hi);
+              } else {
+                const uint64_t b_lo = b_descriptor(step + kSteps * piece);
+                wgmma_tf32(acc, a_lo[ks], b_hi);
+                wgmma_tf32(acc, a_hi[ks], b_lo);
+                wgmma_tf32(acc, a_hi[ks], b_hi);
+              }
+            }
+            wgmma_commit();
+          }
+          if (kb + 1 < n_blocks) stage_a(kb + 1, act_a + ((kb + 1) & 1) * a_buf);
+          if (active) {
+            wgmma_wait();
+            // the fragments are read by the tensor cores until the wait
+#pragma unroll
+            for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                if constexpr (kDftPasses == 1) {
+                  asm volatile("" ::"r"(a_hi[ks][q]));
+                } else {
+                  asm volatile("" ::"r"(a_hi[ks][q]), "r"(a_lo[ks][q]));
+                }
+              }
+            }
+          }
+          stamp(prof, 5, t_prof);
+        }
+        __syncthreads();  // before the next round's staging overwrites a stage
+        if (active) magnitudes(acc, mg, c0 + cl);
+      }
+    }
+  } else {
+    const int units = n_units(g);
+    for (int u0 = 0; u0 < units; u0 += groups_n) {
+      const int u = u0 + group;
+      const bool active = u < units;
+      const int mg = u / chunks;        // which 64 frames
+      const int ch = u - mg * chunks;   // which 64 columns
+      // rows gid and gid + 8 of this warp's 16 frames, at column tig
+      const float* arow0 = samples + (long long)(mg * kUnitFrames + wrow + gid) * rs + r0 + tig;
+      const float* arow1 = arow0 + 8 * rs;
+      float acc[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
+      // The A fragments of one row block, split into halves. TF32: for each
+      // k-step of 8, (gid, tig), (gid + 8, tig), (gid, tig + 4), (gid + 8, tig
+      // + 4); bf16: for each k-step of 16 the same columns and those 8 further
+      // (pack_bf16_step). Zero past the window.
+      auto load_a = [&](int kb, uint32_t (&hi)[kSteps][4], uint32_t (&lo)[kSteps][4]) {
+        if constexpr (kBf16Dft) {
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            float v[2][4];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k0 = kb * kRows + ks * 16 + h * 8;
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int k = k0 + (q >> 1) * 4;
+                v[h][q] = k + tig < g.window ? ((q & 1) ? arow1 : arow0)[k] : 0.0f;
+              }
+            }
+            pack_bf16_step<(kDftPasses > 1)>(v, hi[ks], lo[ks]);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            const int k0 = kb * kBlockRows + ks * 8;
+            const bool in0 = k0 + tig < g.window;
+            const bool in1 = k0 + tig + 4 < g.window;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const bool in = q < 2 ? in0 : in1;
+              const float v = in ? ((q & 1) ? arow1 : arow0)[k0 + (q >> 1) * 4] : 0.0f;
+              hi[ks][q] = to_tf32(v);
+              lo[ks][q] = to_tf32(v - __uint_as_float(hi[ks][q]));
+            }
+          }
+        }
+      };
+      if (u0 > 0) {
+#pragma unroll
+        for (int kb = 0; kb < kStages - 1; ++kb) prefetch_or_skip(kb);
+      } else {
+        __syncthreads();  // the span is staged
+      }
+      uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
+      if (active) load_a(0, a_hi, a_lo);
+      for (int kb = 0; kb < n_blocks; ++kb) {
+        cp_async_wait<kStages - 2>();
+        // block kb has landed, and every warp is done with block kb - 1, whose
+        // stage the next prefetch overwrites
+        __syncthreads();
+        prefetch_or_skip(kb + kStages - 1);
+        stamp(prof, 4, t_prof);
+        if (active) {
+          const float* cb = stages + (kb % kStages) * block;
+          // the products of each k-step, small terms first, into one
+          // accumulator
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            const float* step = cb + (ks * chunks + ch) * kStepFloats;
+            const uint64_t b_hi = b_descriptor(step);
+            if constexpr (kBf16Dft) {
+              if constexpr (kDftPasses > 1) {
+                const uint64_t b_lo = b_descriptor(step + block / 2);
+                if constexpr (kDftPasses == 4) wgmma_bf16(acc, a_lo[ks], b_lo);
+                wgmma_bf16(acc, a_lo[ks], b_hi);
+                wgmma_bf16(acc, a_hi[ks], b_lo);
+              }
+              wgmma_bf16(acc, a_hi[ks], b_hi);
             } else {
-              asm volatile("" ::"r"(a_hi[ks][q]), "r"(a_lo[ks][q]));
-              if (more) {
-                a_hi[ks][q] = n_hi[ks][q];
-                a_lo[ks][q] = n_lo[ks][q];
+              const uint64_t b_lo = b_descriptor(step + block / 2);
+              wgmma_tf32(acc, a_lo[ks], b_hi);
+              wgmma_tf32(acc, a_hi[ks], b_lo);
+              wgmma_tf32(acc, a_hi[ks], b_hi);
+            }
+          }
+          wgmma_commit();
+          // the next block's fragments are loaded while the tensor cores run;
+          // these ones are read by them until the wait, so they stay where
+          // they are until then
+          uint32_t n_hi[kSteps][4], n_lo[kSteps][4];
+          const bool more = kb + 1 < n_blocks;
+          if (more) load_a(kb + 1, n_hi, n_lo);
+          wgmma_wait();
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if constexpr (kDftPasses == 1) {
+                asm volatile("" ::"r"(a_hi[ks][q]));
+                if (more) a_hi[ks][q] = n_hi[ks][q];
+              } else {
+                asm volatile("" ::"r"(a_hi[ks][q]), "r"(a_lo[ks][q]));
+                if (more) {
+                  a_hi[ks][q] = n_hi[ks][q];
+                  a_lo[ks][q] = n_lo[ks][q];
+                }
               }
             }
           }
         }
+        stamp(prof, 5, t_prof);
       }
-      stamp(prof, 5, t_prof);
-    }
-    __syncthreads();  // before the next round's prefetch overwrites a stage
-    if (active) {
-      // column tile 2j holds re and tile 2j + 1 im of bin group 4*ch + j;
-      // this thread has columns 2*tig, 2*tig + 1 of rows gid and gid + 8
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int k = (4 * ch + j) * kGroupBins + 2 * tig + (q & 1);
-          const int f = mg * kUnitFrames + wrow + gid + (q >> 1) * 8;
-          const float re = acc[8 * j + q];
-          const float im = acc[8 * j + 4 + q];
-          float s = sqrtf(re * re + im * im);
-          if (g.scaling == kLog) {
-            s = logf(s);
-          } else if (g.scaling == kDb) {
-            s = kDbPerNeper * logf(s);
-          }
-          if (k < b) spec[f * b + k] = s;
-        }
-      }
+      __syncthreads();  // before the next round's prefetch overwrites a stage
+      if (active) magnitudes(acc, mg, ch);
     }
   }
   // The stages of C are free now: the first layer's weights go there, when
@@ -734,11 +998,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   // shared memory, and the sample loads stream through it). Under a bf16
   // first layer its tiled filter bank goes there (the layout makes room):
   // both halves, or the hi half alone for one pass.
-  const int h1 = net.widths[0];
+  const int h1 = g.h1;
   const int n_feat = T * b;
   const bool w1_vec = (h1 & 3) == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
-  const bool w1_staged = kConvPasses == 0 && w1_vec && n_feat * h1 <= kStages * block;
-  if constexpr (kConvPasses > 0) {
+  const long long free_floats = kStream ? ring_floats(g) : (long long)kStages * block;
+  const bool w1_staged = kConvPasses == 0 && w1_vec && n_feat * h1 <= free_floats;
+  if constexpr (kConvPasses > 0 && !kStream) {
     const long long bank = (kConvPasses == 1 ? 1 : 2) * conv_half_floats(g);
     for (long long i = 4 * threadIdx.x; i < bank; i += 4 * blockDim.x) {
       cp_async16(stages + i, w1g + i);
@@ -765,9 +1030,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     }
   }
   __syncthreads();
-  // the sliding norm of each evaluation, kept in the second activation
-  // buffer until the hidden layers need it
-  float* norms = act_b;
+  // the sliding norm of each evaluation
   if (g.has_l2) {
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       float norm = 0.0f;
@@ -851,87 +1114,154 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
         const int j = j0 + (idx & 3);
         if (valid && e < tile && j < h1) {
           if (g.has_l2) acc = acc / norms[e];
-          act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), net.transfers[0]);
+          act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), g.transfer0);
         }
       }
     }
   } else {
     // 4. first layer under a tier: the conv filter-bank GEMM [frames, bins]
     //    @ [bins, T*h1] on the tensor cores, A from the fp32 spectrogram
-    //    split as loaded (the DFT's column order within a k-step), its
-    //    product written over the span; evaluation e then sums its T
-    //    diagonal blocks conv[e+t, t*h1 : (t+1)*h1] in t order.
-    float* conv = samples;  // [frames, conv_ld]
-    const int ldc = conv_ld(g);
+    //    split as loaded (the DFT's column order within a k-step); evaluation
+    //    e then sums its T diagonal blocks conv[e+t, t*h1 : (t+1)*h1] in t
+    //    order.
     const int cchunks = conv_chunks(g);
     const int ksteps = conv_steps(g);
     const long long half = conv_half_floats(g);
-    const int units_c = g.frames / kUnitFrames * cchunks;
-    for (int u0 = 0; u0 < units_c; u0 += groups_n) {
-      const int u = u0 + group;
-      if (u < units_c) {  // the same for a whole warpgroup
-        const int mg = u / cchunks;
-        const int ch = u - mg * cchunks;
-        const float* srow0 = spec + (mg * kUnitFrames + wrow + gid) * b + tig;
-        const float* srow1 = srow0 + 8 * b;
-        float acc[32];
+    // k-step s for this warpgroup's 64 frames from 64 * mg: B's hi half at
+    // `bank`, its lo half `lo` floats further
+    auto conv_step = [&](float (&acc)[32], int mg, int s, const float* bank, long long lo) {
+      const float* srow0 = spec + (mg * kUnitFrames + wrow + gid) * b + tig;
+      const float* srow1 = srow0 + 8 * b;
+      float v[2][4];
 #pragma unroll
-        for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
-        for (int s = 0; s < ksteps; ++s) {
-          float v[2][4];
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int k = s * kBf16StepRows + h * 8 + (q >> 1) * 4;
-              v[h][q] = k + tig < b ? ((q & 1) ? srow1 : srow0)[k] : 0.0f;
-            }
-          }
-          uint32_t a_hi[4], a_lo[4];
-          pack_bf16_step<(kConvPasses > 1)>(v, a_hi, a_lo);
-          const float* step = stages + (s * cchunks + ch) * kStepFloats;
-          const uint64_t b_hi = b_descriptor(step);
-          wgmma_fence();
-          if constexpr (kConvPasses > 1) {
-            const uint64_t b_lo = b_descriptor(step + half);
-            if constexpr (kConvPasses == 4) wgmma_bf16(acc, a_lo, b_lo);
-            wgmma_bf16(acc, a_lo, b_hi);
-            wgmma_bf16(acc, a_hi, b_lo);
-          }
-          wgmma_bf16(acc, a_hi, b_hi);
-          wgmma_commit();
-          wgmma_wait();
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if constexpr (kConvPasses > 1) {
-              asm volatile("" ::"r"(a_hi[q]), "r"(a_lo[q]));
-            } else {
-              asm volatile("" ::"r"(a_hi[q]));
-            }
-          }
-        }
-        // column tile j holds columns 8j .. 8j+7 of this chunk; this thread
-        // has 2*tig, 2*tig + 1 of rows gid and gid + 8
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int f = mg * kUnitFrames + wrow + gid + r * 8;
-            const int col = ch * kUnitCols + 8 * j + 2 * tig;
-            *reinterpret_cast<float2*>(conv + f * ldc + col) =
-                make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-          }
+        for (int q = 0; q < 4; ++q) {
+          const int k = s * kBf16StepRows + h * 8 + (q >> 1) * 4;
+          v[h][q] = k + tig < b ? ((q & 1) ? srow1 : srow0)[k] : 0.0f;
         }
       }
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < tile * h1; p += blockDim.x) {
-      const int e = p / h1;
-      const int j = p - e * h1;
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += conv[(e + t) * ldc + t * h1 + j];
-      if (g.has_l2) acc = acc / norms[e];
-      act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), net.transfers[0]);
+      uint32_t a_hi[4], a_lo[4];
+      pack_bf16_step<(kConvPasses > 1)>(v, a_hi, a_lo);
+      const uint64_t b_hi = b_descriptor(bank);
+      wgmma_fence();
+      if constexpr (kConvPasses > 1) {
+        const uint64_t b_lo = b_descriptor(bank + lo);
+        if constexpr (kConvPasses == 4) wgmma_bf16(acc, a_lo, b_lo);
+        wgmma_bf16(acc, a_lo, b_hi);
+        wgmma_bf16(acc, a_hi, b_lo);
+      }
+      wgmma_bf16(acc, a_hi, b_hi);
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (kConvPasses > 1) {
+          asm volatile("" ::"r"(a_hi[q]), "r"(a_lo[q]));
+        } else {
+          asm volatile("" ::"r"(a_hi[q]));
+        }
+      }
+    };
+    // a unit's product into rows 64 * mg .. of `dst` (row stride `ld`) from
+    // column `col`: column tile j holds columns 8j .. 8j+7 of the chunk; this
+    // thread has 2*tig, 2*tig + 1 of rows gid and gid + 8
+    auto store_conv = [&](const float (&acc)[32], int mg, float* dst, int ld, int col) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int f = mg * kUnitFrames + wrow + gid + r * 8;
+          *reinterpret_cast<float2*>(dst + f * ld + col + 8 * j + 2 * tig) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+      }
+    };
+    if constexpr (!kStream) {
+      // the whole product over the span, the bank in the stages
+      float* conv = samples;  // [frames, conv_ld]
+      const int ldc = conv_ld(g);
+      const int units_c = g.frames / kUnitFrames * cchunks;
+      for (int u0 = 0; u0 < units_c; u0 += groups_n) {
+        const int u = u0 + group;
+        if (u < units_c) {  // the same for a whole warpgroup
+          const int mg = u / cchunks;
+          const int ch = u - mg * cchunks;
+          float acc[32];
+#pragma unroll
+          for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
+          for (int s = 0; s < ksteps; ++s) {
+            conv_step(acc, mg, s, stages + (s * cchunks + ch) * kStepFloats, half);
+          }
+          store_conv(acc, mg, conv, ldc, ch * kUnitCols);
+        }
+      }
+      __syncthreads();
+      for (int p = threadIdx.x; p < tile * h1; p += blockDim.x) {
+        const int e = p / h1;
+        const int j = p - e * h1;
+        float acc = 0.0f;
+        for (int t = 0; t < T; ++t) acc += conv[(e + t) * ldc + t * h1 + j];
+        if (g.has_l2) acc = acc / norms[e];
+        act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), g.transfer0);
+      }
+    } else {
+      // The streamed layout: one 64-column chunk of the product at a time,
+      // its bank one k-step at a time through the ring, then the chunk's
+      // columns added into act_a: each sum takes its T terms in t order, as
+      // the resident layout takes them, so the two agree bit for bit.
+      float* bank_s = stages;                  // [2][kStepFloats]
+      float* prod = stages + 2 * kStepFloats;  // [frames, kProdLd]
+      const int units_c = g.frames / kUnitFrames;
+      constexpr int kBankFloats = (kConvPasses == 1 ? 1 : 2) * kStepFloats;
+      const int jw = min(h1, kUnitCols);  // columns of a chunk with distinct j
+      for (int p = threadIdx.x; p < tile * h1; p += blockDim.x) {
+        act_a[(p / h1) * mw + p % h1] = 0.0f;
+      }
+      for (int cc = 0; cc < cchunks; ++cc) {
+        for (int u0 = 0; u0 < units_c; u0 += groups_n) {
+          const int u = u0 + group;
+          float acc[32];
+#pragma unroll
+          for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
+          for (int s = 0; s < ksteps; ++s) {
+            for (int i = 4 * threadIdx.x; i < kBankFloats; i += 4 * blockDim.x) {
+              const int h = i / kStepFloats;
+              cp_async16(bank_s + i, w1g + h * half + ((long long)s * cchunks + cc) * kStepFloats +
+                                         (i - h * kStepFloats));
+            }
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+            if (u < units_c) conv_step(acc, u, s, bank_s, kStepFloats);
+            __syncthreads();  // before the next k-step overwrites the bank
+          }
+          if (u < units_c) store_conv(acc, u, prod, kProdLd, 0);
+        }
+        __syncthreads();
+        // column col0 + c is tap t = (col0 + c) / h1 of hidden unit j; the
+        // chunk's other columns of the same j follow h1 further
+        const int col0 = cc * kUnitCols;
+        for (int p = threadIdx.x; p < tile * jw; p += blockDim.x) {
+          const int e = p / jw;
+          const int c = p - e * jw;
+          const int j = (col0 + c) % h1;
+          float a = act_a[e * mw + j];
+          for (int t = (col0 + c) / h1, col = col0 + c; t < T && col < col0 + kUnitCols;
+               ++t, col += h1) {
+            a += prod[(e + t) * kProdLd + col - col0];
+          }
+          act_a[e * mw + j] = a;
+        }
+        __syncthreads();  // before the next chunk's product overwrites this one
+      }
+      for (int p = threadIdx.x; p < tile * h1; p += blockDim.x) {
+        const int e = p / h1;
+        const int j = p - e * h1;
+        float acc = act_a[e * mw + j];
+        if (g.has_l2) acc = acc / norms[e];
+        act_a[e * mw + j] = apply_transfer(acc + __ldg(c1 + j), g.transfer0);
+      }
     }
   }
   __syncthreads();
@@ -941,9 +1271,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   float* a_in = act_a;
   float* a_out = act_b;
   const float* wl = mids;
-  for (int l = 1; l < net.n_layers; ++l) {
-    const int in_w = net.widths[l - 1];
-    const int out_w = net.widths[l];
+  for (int l = 1; l < g.n_layers; ++l) {
+    const int in_w = __ldg(layers + l - 1);
+    const int out_w = __ldg(layers + l);
+    const int transfer = __ldg(layers + g.n_layers + l);
     const float* bl = wl + in_w * out_w;
     for (int p = threadIdx.x; p < tile * out_w; p += blockDim.x) {
       const int e = p / out_w;
@@ -952,7 +1283,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
       for (int i = 0; i < in_w; ++i) {
         z = fmaf(a_in[e * mw + i], __ldg(wl + i * out_w + o), z);
       }
-      a_out[e * mw + o] = apply_transfer(z + __ldg(bl + o), net.transfers[l]);
+      a_out[e * mw + o] = apply_transfer(z + __ldg(bl + o), transfer);
     }
     __syncthreads();
     float* tmp = a_in;
@@ -962,7 +1293,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
   }
 
   // 6. folded output affine; evaluations past the stream are not stored
-  const int n_out = net.widths[net.n_layers - 1];
+  const int n_out = g.n_out;
   for (int p = threadIdx.x; p < tile * n_out; p += blockDim.x) {
     const int e = p / n_out;
     const int o = p - e * n_out;
@@ -990,12 +1321,13 @@ struct Args {
   const float* out_a;
   const float* out_c;
   float* out;
+  const int* layers;
 };
 
 // Above 48 KB of dynamic shared memory a launch is refused unless the
 // kernel opts in first. The opt-in is a maximum, so it is raised once per
 // kernel instantiation, device and size, not on every launch.
-template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn>
+template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn, bool kStream>
 cudaError_t opt_in(int device, size_t smem) {
   static std::mutex mutex;
   static size_t granted[kMaxDevices] = {};
@@ -1005,7 +1337,7 @@ cudaError_t opt_in(int device, size_t smem) {
     return cudaSuccess;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn>,
+      fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn, kStream>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
     granted[device] = smem;
@@ -1013,40 +1345,52 @@ cudaError_t opt_in(int device, size_t smem) {
   return err;
 }
 
-template <typename Sample, int kDftPasses = 0, int kConvPasses = 0, bool kFramesIn = false>
-int launch(const Args& a, const Geometry& g, const NetMeta& net, const LaneStrides& ls,
-           const Dequant& dq, size_t smem, int device, cudaStream_t stream) {
+template <typename Sample, int kDftPasses, int kConvPasses, bool kFramesIn, bool kStream>
+int launch_layout(const Args& a, const Geometry& g, const LaneStrides& ls, const Dequant& dq,
+                  size_t smem, int device, cudaStream_t stream) {
   const cudaError_t err =
-      opt_in<Sample, kDftPasses, kConvPasses, kFramesIn>(device, smem);
+      opt_in<Sample, kDftPasses, kConvPasses, kFramesIn, kStream>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile = g.frames - g.time_range + 1;
   const dim3 grid(static_cast<unsigned>((a.n_evals + tile - 1) / tile),
                   static_cast<unsigned>(a.lanes));
-  fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn>
+  fused_detector_kernel<Sample, kDftPasses, kConvPasses, kFramesIn, kStream>
       <<<grid, 128 * n_groups(g), smem, stream>>>(
           static_cast<const Sample*>(a.x), a.ld, a.n, a.n_evals, a.cs, a.w1, a.w1g,
-          a.c1, a.mids, a.out_a, a.out_c, a.out, g, net, ls, dq, g_profile);
+          a.c1, a.mids, a.out_a, a.out_c, a.out, a.layers, g, ls, dq, g_profile);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layout is chosen by the wrapper (cta_frames in
+// kernels/fused_detector.py): resident wherever it fits, else streamed.
+template <typename Sample, int kDftPasses = 0, int kConvPasses = 0, bool kFramesIn = false>
+int launch(const Args& a, const Geometry& g, const LaneStrides& ls, const Dequant& dq,
+           size_t smem, int device, cudaStream_t stream) {
+  if (g.col_group) {
+    return launch_layout<Sample, kDftPasses, kConvPasses, kFramesIn, true>(
+        a, g, ls, dq, smem, device, stream);
+  }
+  return launch_layout<Sample, kDftPasses, kConvPasses, kFramesIn, false>(
+      a, g, ls, dq, smem, device, stream);
 }
 
 // The float32 instantiations: the full-fp32 kernel or a precision tier
 // (TIERS in kernels/fused_detector.py), from samples or from frames.
 template <bool kFramesIn>
-int launch_float(const Args& a, const Geometry& g, const NetMeta& net,
-                 const LaneStrides& ls, const Dequant& dq, size_t smem, int device,
-                 cudaStream_t stream) {
+int launch_float(const Args& a, const Geometry& g, const LaneStrides& ls, const Dequant& dq,
+                 size_t smem, int device, cudaStream_t stream) {
   const int tier = g.dft_passes * 10 + g.conv_passes;
   switch (tier) {
     case 0:
-      return launch<float, 0, 0, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+      return launch<float, 0, 0, kFramesIn>(a, g, ls, dq, smem, device, stream);
     case 11:  // fast
-      return launch<float, 1, 1, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+      return launch<float, 1, 1, kFramesIn>(a, g, ls, dq, smem, device, stream);
     case 33:  // split
-      return launch<float, 3, 3, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+      return launch<float, 3, 3, kFramesIn>(a, g, ls, dq, smem, device, stream);
     case 3:  // conv
-      return launch<float, 0, 3, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+      return launch<float, 0, 3, kFramesIn>(a, g, ls, dq, smem, device, stream);
     case 44:  // split4
-      return launch<float, 4, 4, kFramesIn>(a, g, net, ls, dq, smem, device, stream);
+      return launch<float, 4, 4, kFramesIn>(a, g, ls, dq, smem, device, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1054,8 +1398,8 @@ int launch_float(const Args& a, const Geometry& g, const NetMeta& net,
 
 Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
                        int scaling, int has_l2, int frames, int max_width, int h1,
-                       int dft_passes, int conv_passes, int frames_input) {
-  Geometry g;
+                       int dft_passes, int conv_passes, int frames_input, int col_group) {
+  Geometry g = {};
   g.window = window;
   g.hop = hop;
   g.gap = gap;
@@ -1069,6 +1413,7 @@ Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
   g.dft_passes = dft_passes;
   g.conv_passes = conv_passes;
   g.frames_input = frames_input;
+  g.col_group = col_group;
   return g;
 }
 
@@ -1077,18 +1422,18 @@ Geometry make_geometry(int window, int hop, int gap, int bins, int time_range,
 extern "C" {
 
 // Dynamic shared memory, in bytes, that one CTA of the kernel needs when it
-// transforms `frames` frames with the given arithmetic and input form.
+// transforms `frames` frames with the given arithmetic and input form, in
+// the resident layout (col_group 0) or the streamed one over col_group
+// chunks of C a pass.
 long long sd_fused_detector_smem_bytes(int window, int hop, int gap, int bins,
                                        int time_range, int frames, int max_width,
                                        int h1, int dft_passes, int conv_passes,
-                                       int frames_input) {
+                                       int frames_input, int col_group) {
   const Geometry g = make_geometry(window, hop, gap, bins, time_range, 0, 0, frames,
-                                   max_width, h1, dft_passes, conv_passes, frames_input);
+                                   max_width, h1, dft_passes, conv_passes, frames_input,
+                                   col_group);
   return smem_floats(g) * (long long)sizeof(float);
 }
-
-int sd_max_layers() { return kMaxLayers; }
-
 
 // Shape of the split C the kernel reads. TF32 (dft_passes 0): [blocks, 2,
 // steps, chunks, 8, 2, 8, 4] floats = blocks of kBlockRows rows x (hi, lo) x
@@ -1110,7 +1455,7 @@ int sd_fused_detector_c_chunks(int bins) {
 // halves: [2, steps, chunks, 8, 2, 8, 8] bf16 over ceil(bins / 16) k-steps
 // and ceil(time_range * h1 / 64) chunks (tile_conv_bank_bf16).
 long long sd_fused_detector_conv_bank_floats(int bins, int time_range, int h1) {
-  Geometry g = make_geometry(0, 1, 0, bins, time_range, 0, 0, 0, 0, h1, 0, 1, 0);
+  Geometry g = make_geometry(0, 1, 0, bins, time_range, 0, 0, 0, 0, h1, 0, 1, 0, 0);
   return 2 * conv_half_floats(g);
 }
 
@@ -1131,7 +1476,8 @@ void sd_fused_detector_set_profile(void* counters) {
 // `n` samples each, lane l at x + l * ld, as wire type `wire` (a Wire
 // code); with `frames_input` 1 a lane is instead a row-major [n, window]
 // float32 matrix of frames. All pointers are device pointers except
-// `widths` and `transfers`, host arrays of n_layers ints. `cs` is C padded
+// `widths` and `transfers`, host arrays of n_layers ints; `layers` is the
+// same two arrays on the device, [2, n_layers] int32 (any depth). `cs` is C padded
 // with zeros, its columns in tiles of 8 (re of bins 8j..8j+7, then their
 // im), split into TF32 halves (dft_passes 0) or bf16 halves (1, 3 or 4
 // products) and laid out as sd_fused_detector_c_blocks / _c_chunks
@@ -1139,7 +1485,9 @@ void sd_fused_detector_set_profile(void* counters) {
 // (sd_fused_detector_conv_bank_floats per net) when conv_passes is 1, 3 or
 // 4, else unused. The tiers take the float32 wire only. `frames` is the
 // number of frames one CTA transforms, a multiple of 64 above time_range -
-// 1; it serves frames - time_range + 1 evaluations. `per_lane_nets` is 0
+// 1; it serves frames - time_range + 1 evaluations. `col_group` 0 takes the
+// resident layout, 1 .. c_chunks the streamed one with that many chunks of
+// C a pass over k. `per_lane_nets` is 0
 // when every lane shares one net and 1 when the net operands hold one net
 // per lane, stacked. Returns cudaGetLastError() after the launch: 0 when
 // the launch was taken.
@@ -1150,14 +1498,15 @@ int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
                       float* out, int per_lane_nets, int window, int hop, int gap,
                       int bins, int time_range, int scaling, int has_l2,
                       int frames, int dft_passes, int conv_passes,
-                      int frames_input, int n_layers, const int* widths,
-                      const int* transfers, float dq_scale, float dq_ln1mu,
-                      float dq_inv_mu, int device, void* stream) {
+                      int frames_input, int col_group, int n_layers, const int* widths,
+                      const int* transfers, const int* layers, float dq_scale,
+                      float dq_ln1mu, float dq_inv_mu, int device, void* stream) {
   const bool plain = dft_passes == 0 && conv_passes == 0 && !frames_input;
-  if (n_layers < 1 || n_layers > kMaxLayers || n_evals < 1 || lanes < 1 ||
+  if (n_layers < 1 || layers == nullptr || n_evals < 1 || lanes < 1 ||
       lanes > 65535 || n < 0 || ld < (frames_input ? n * window : n) ||
       window < 1 || hop < 1 || gap < 0 || bins < 1 || time_range < 1 ||
       frames < kUnitFrames || frames % kUnitFrames != 0 || frames < time_range ||
+      col_group < 0 || col_group > sd_fused_detector_c_chunks(bins) ||
       (!plain && wire != kFloat32) || (conv_passes && w1g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1165,45 +1514,43 @@ int sd_fused_detector(const void* x, int wire, int lanes, long long ld,
   if ((n_evals + tile - 1) / tile > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  NetMeta net;
-  net.n_layers = n_layers;
   int max_width = 0;
-  for (int l = 0; l < kMaxLayers; ++l) {
-    net.widths[l] = l < n_layers ? widths[l] : 0;
-    net.transfers[l] = l < n_layers ? transfers[l] : 0;
-    if (net.widths[l] > max_width) max_width = net.widths[l];
+  for (int l = 0; l < n_layers; ++l) {
+    if (widths[l] > max_width) max_width = widths[l];
   }
-  const Geometry g = make_geometry(window, hop, gap, bins, time_range, scaling, has_l2,
-                                   frames, max_width, net.widths[0], dft_passes,
-                                   conv_passes, frames_input);
+  Geometry g = make_geometry(window, hop, gap, bins, time_range, scaling, has_l2, frames,
+                             max_width, widths[0], dft_passes, conv_passes, frames_input,
+                             col_group);
+  g.n_layers = n_layers;
+  g.n_out = widths[n_layers - 1];
+  g.transfer0 = transfers[0];
   const size_t smem = static_cast<size_t>(smem_floats(g)) * sizeof(float);
 
   LaneStrides s = {0, 0, 0, 0, 0};
   if (per_lane_nets) {
-    s.w1 = static_cast<long long>(time_range) * bins * net.widths[0];
-    s.c1 = net.widths[0];
+    s.w1 = static_cast<long long>(time_range) * bins * widths[0];
+    s.c1 = widths[0];
     for (int l = 1; l < n_layers; ++l) {
-      s.mids += static_cast<long long>(net.widths[l - 1]) * net.widths[l] +
-                net.widths[l];
+      s.mids += static_cast<long long>(widths[l - 1]) * widths[l] + widths[l];
     }
-    s.out = net.widths[n_layers - 1];
+    s.out = widths[n_layers - 1];
     s.w1g = conv_passes ? 2 * conv_half_floats(g) : 0;
   }
   const Dequant dq = {dq_scale, dq_ln1mu, dq_inv_mu};
   const Args a = {x, lanes, ld, n, n_evals, static_cast<const float*>(cs), w1,
-                  static_cast<const float*>(w1g), c1, mids, out_a, out_c, out};
+                  static_cast<const float*>(w1g), c1, mids, out_a, out_c, out, layers};
 
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (frames_input) return launch_float<true>(a, g, net, s, dq, smem, device, st);
+  if (frames_input) return launch_float<true>(a, g, s, dq, smem, device, st);
   switch (wire) {
     case kFloat32:
-      return launch_float<false>(a, g, net, s, dq, smem, device, st);
+      return launch_float<false>(a, g, s, dq, smem, device, st);
     case kInt16:
-      return launch<int16_t>(a, g, net, s, dq, smem, device, st);
+      return launch<int16_t>(a, g, s, dq, smem, device, st);
     case kMulaw8:
-      return launch<int8_t>(a, g, net, s, dq, smem, device, st);
+      return launch<int8_t>(a, g, s, dq, smem, device, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,8 +4,13 @@ The reference's own net file is not part of the repository, so the tests
 build nets of its geometry with seeded random weights:
 :func:`sample_geometry_config` (44.1 kHz, fft/window 256, overlap 124 so
 hop 132, band 2-7 kHz = bins [12, 41), timeRange 10, 290 inputs, input
-chain l2normalize -> mapminmax, output mapminmax) and :func:`gap_config`
-(a negative overlap). :func:`chirp_audio` is a band-sweeping chirp with a
+chain l2normalize -> mapminmax, output mapminmax), :func:`geometry_config`
+(the same at any rate, fft, window, overlap, band, timeRange and widths, as
+the train CLI's flags make them) and :func:`gap_config` (a negative
+overlap). :func:`random_config` is the JAX package's fuzz generator
+(``tests/test_fuzz.py``) on the port's config types, and
+:func:`wide_geometry_configs` lists the geometries whose CTA does not fit
+the fused kernel's resident layout. :func:`chirp_audio` is a band-sweeping chirp with a
 stretch of digital silence, and :func:`pick_thresholds` places each
 threshold well away from every output on given audio, so that no decision
 can flip between two implementations that agree within tolerance.
@@ -31,10 +36,15 @@ from syllable_detector_tpu_torch.config.model_format import (
     SyllableDetectorConfig,
     loads_config,
 )
+from syllable_detector_tpu_torch.ops.stft import frequency_index_range
 
 __all__ = [
     "sample_geometry_config",
+    "geometry_config",
     "gap_config",
+    "random_config",
+    "wide_geometry_configs",
+    "RESAMPLE_RATES",
     "chirp_audio",
     "fused_cases",
     "pick_thresholds",
@@ -52,6 +62,10 @@ RATE = 44100
 # frames them: the sample net's (hop 132), no overlap, a gap, tiny frames, a
 # window over two hops, and a long overlap.
 FRAMED_GEMM_GEOMETRIES = ((256, 124), (256, 0), (200, -56), (64, 32), (300, 236), (330, 300))
+# Common recording rates: every ordered pair of two of them is a rate pair
+# the polyphase resampler serves.
+RESAMPLE_RATES = (8000, 11025, 16000, 22050, 24000, 32000, 44100, 48000, 88200, 96000,
+                  176400, 192000)
 # (in_rate, out_rate) pairs of the polyphase resampler: 147/160, 160/147,
 # 147/320, 441/320 and 2/1 (hop 1).
 RESAMPLE_PAIRS = (
@@ -82,10 +96,33 @@ def sample_geometry_config(
     scaling: str = "linear",
 ) -> SyllableDetectorConfig:
     """A net of the reference sample's geometry with seeded weights."""
+    return geometry_config(seed, hidden=hidden, transfers=transfers, scaling=scaling)
+
+
+def geometry_config(
+    seed: int = 0,
+    rate: float = RATE,
+    fft: int = 256,
+    window: int | None = None,
+    overlap: int = 124,
+    freq: tuple[float, float] = (2000.0, 7000.0),
+    time_range: int = 10,
+    hidden: tuple[int, ...] = (4,),
+    transfers: tuple[str, ...] | None = None,
+    scaling: str = "linear",
+) -> SyllableDetectorConfig:
+    """A net of the given geometry with seeded weights, its arguments named
+    as the train CLI's flags (``window`` defaults to ``fft``, transfers to
+    TanSig hidden layers and a PureLin output) and its input and output
+    chains the sample's: l2normalize -> mapminmax in, mapminmax out."""
+    if transfers is None:
+        transfers = ("TanSig",) * len(hidden) + ("PureLin",)
     if len(transfers) != len(hidden) + 1:
         raise ValueError("give one transfer per hidden layer plus the output's")
+    window = fft if window is None else window
+    lo, hi = frequency_index_range(fft, freq[0], freq[1], rate)
     rng = np.random.default_rng(seed)
-    n_in = 29 * 10
+    n_in = (hi - lo) * time_range
     widths = (n_in, *hidden, 1)
     layers = [
         LayerSpec(
@@ -98,12 +135,12 @@ def sample_geometry_config(
         for i, o, t in zip(widths[:-1], widths[1:], transfers)
     ]
     cfg = SyllableDetectorConfig(
-        sampling_rate=float(RATE),
-        fourier_length=256,
-        window_length=256,
-        window_overlap=124,
-        freq_range=(2000.0, 7000.0),
-        time_range=10,
+        sampling_rate=float(rate),
+        fourier_length=fft,
+        window_length=window,
+        window_overlap=overlap,
+        freq_range=(float(freq[0]), float(freq[1])),
+        time_range=time_range,
         thresholds=[0.5],
         scaling=scaling,
         layers=layers,
@@ -122,6 +159,110 @@ def sample_geometry_config(
     )
     cfg.validate()
     return cfg
+
+
+def random_config(rng: np.random.Generator) -> SyllableDetectorConfig:
+    """A random fusable or unfusable geometry and net, drawn from ``rng``
+    exactly as the JAX package's fuzz test draws it (``tests/test_fuzz.py``
+    ``random_config``): fft 64-512, a window of fft, fft/2 or fft-24, an
+    overlap, no overlap or a gap, a random band at 8, 22.05 or 44.1 kHz,
+    timeRange 1-7, any scaling, 1-5 hidden units and 1-2 outputs."""
+    fft = int(rng.choice([64, 128, 256, 512]))
+    window = int(rng.choice([fft, fft, fft // 2, max(16, fft - 24)]))
+    window = min(window, fft)
+    kind = rng.choice(["overlap", "zero", "gap"])
+    if kind == "overlap":
+        overlap = int(rng.integers(1, window))
+    elif kind == "zero":
+        overlap = 0
+    else:
+        overlap = -int(rng.integers(1, window))
+    rate = float(rng.choice([8000.0, 22050.0, 44100.0]))
+    f_hi_max = rate / 2 * 0.9
+    f0 = float(rng.uniform(0, f_hi_max / 2))
+    f1 = float(rng.uniform(f0 + f_hi_max / 8, f_hi_max))
+    bins = frequency_index_range(fft, f0, f1, rate)
+    if bins is None or bins[1] - bins[0] < 1:
+        f0, f1 = 0.0, f_hi_max
+        bins = frequency_index_range(fft, f0, f1, rate)
+    t_range = int(rng.integers(1, 8))
+    n_bins = bins[1] - bins[0]
+    d = n_bins * t_range
+    scaling = str(rng.choice(["linear", "linear", "db", "log"]))
+
+    hidden = int(rng.integers(1, 6))
+    outputs = int(rng.integers(1, 3))
+    layers = [
+        LayerSpec(
+            inputs=d,
+            outputs=hidden,
+            weights=rng.standard_normal((hidden, d)).astype(np.float32) * 0.3,
+            biases=rng.standard_normal(hidden).astype(np.float32) * 0.1,
+            transfer=str(rng.choice(["TanSig", "LogSig", "SatLin"])),
+        ),
+        LayerSpec(
+            inputs=hidden,
+            outputs=outputs,
+            weights=rng.standard_normal((outputs, hidden)).astype(np.float32),
+            biases=rng.standard_normal(outputs).astype(np.float32) * 0.1,
+            transfer=str(rng.choice(["PureLin", "TanSig"])),
+        ),
+    ]
+    process_inputs = [ProcessingSpec("l2normalize")]
+    if rng.random() < 0.7:
+        process_inputs.append(
+            ProcessingSpec(
+                "mapminmax",
+                x_offsets=rng.random(d).astype(np.float32) * 1e-3,
+                gains=(rng.random(d) + 0.5).astype(np.float32) * 4,
+                y_offset=-1.0,
+            )
+        )
+    process_outputs = []
+    if rng.random() < 0.7:
+        process_outputs.append(
+            ProcessingSpec(
+                "mapminmax",
+                x_offsets=np.zeros(outputs, np.float32),
+                gains=np.full(outputs, 2.0, np.float32),
+                y_offset=-1.0,
+            )
+        )
+    return SyllableDetectorConfig(
+        sampling_rate=rate,
+        fourier_length=fft,
+        window_length=window,
+        window_overlap=overlap,
+        freq_range=(f0, f1),
+        time_range=t_range,
+        thresholds=[0.5] * outputs,
+        scaling=scaling,
+        layers=layers,
+        process_inputs=process_inputs,
+        process_outputs=process_outputs,
+    )
+
+
+def wide_geometry_configs() -> list[tuple[str, SyllableDetectorConfig]]:
+    """(name, config) of geometries whose CTA does not fit the fused
+    kernel's resident layout in shared memory: nets the train CLI makes
+    from its own flags (44.1 kHz unless named), three of the fuzz
+    generator's seeds at fft 512, and a 12-layer net at the sample
+    geometry."""
+    return [
+        ("fft512 hidden16", geometry_config(1, fft=512, overlap=256, freq=(500.0, 15000.0),
+                                            hidden=(16,))),
+        ("fft1024 overlap900", geometry_config(2, fft=1024, overlap=900,
+                                               freq=(500.0, 10000.0))),
+        ("96k fft1024", geometry_config(3, rate=96000.0, fft=1024, overlap=512,
+                                        freq=(500.0, 20000.0))),
+        ("hidden64", geometry_config(4, hidden=(64,))),
+        ("hidden128", geometry_config(5, hidden=(128,))),
+        *((f"fuzz{seed}", random_config(np.random.default_rng(seed)))
+          for seed in (1022, 1066, 1092)),
+        ("deep12", geometry_config(6, hidden=(6,) * 11,
+                                   transfers=("TanSig",) + ("LogSig", "SatLin") * 5 + ("PureLin",))),
+    ]
 
 
 def gap_config() -> SyllableDetectorConfig:

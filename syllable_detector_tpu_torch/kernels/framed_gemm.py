@@ -57,8 +57,10 @@ FRAMED_GEMM_LAUNCHES = 0
 # 32 frames a CTA took two thirds of the time of 64 and half that of 128).
 SMEM_LIMIT = 232448
 SPAN_TARGET = 24 * 1024
-# The kernel's register tile: frames x columns per thread.
+# The kernel's register tile: frames x columns per thread; a thread takes
+# NARROW_FRAMES frames where a unit of FRAMES_PER_THREAD would not fit.
 FRAMES_PER_THREAD = 8
+NARROW_FRAMES = 4
 COLS_PER_THREAD = 4
 MAX_WARPS = 8
 # A CTA with fewer units than SPLIT_WARPS splits the rows of each over
@@ -69,8 +71,8 @@ MIN_PART_ROWS = 16
 
 class Tiling(NamedTuple):
     """How one launch is cut: a warp is ``32 // cg`` threads across frames
-    by ``cg`` across columns, a thread owns 8 frames x 4 columns, so a
-    warp's unit is ``8 * 32 // cg`` frames x ``cw = 4 * cg`` columns; a CTA
+    by ``cg`` across columns, a thread owns ``fpt`` frames x 4 columns, so a
+    warp's unit is ``fpt * 32 // cg`` frames x ``cw = 4 * cg`` columns; a CTA
     stages the span of ``frames`` frames and its warps take the
     ``n_tiles * frames // unit frames`` units in turn, or, with ``ksplit``
     above 1, ``ksplit`` warps share each unit, a part of the rows each."""
@@ -83,6 +85,7 @@ class Tiling(NamedTuple):
     threads: int  # threads per CTA
     vec: bool  # samples read as float4 along k (hop % 4 == 0)
     span_bytes: int  # shared memory per CTA for the samples
+    fpt: int = FRAMES_PER_THREAD  # frames per thread
 
 
 def _round_up(v: int, m: int) -> int:
@@ -104,12 +107,34 @@ def tiling(window: int, m: int, hop: int) -> Tiling:
     :data:`MIN_PART_ROWS`), so that it has warps enough to hide its loads.
     Else a CTA has a warp per unit up to 4, 4 warps for 5 to 7 units (5
     such CTAs fit an SM's registers, 4 of 5 warps do not fill a wave of the
-    resampler's grid) and 8 from 8 units on. Raises when one unit's span
-    does not fit in shared memory."""
+    resampler's grid) and 8 from 8 units on. A thread takes
+    :data:`FRAMES_PER_THREAD` frames, or :data:`NARROW_FRAMES` where one
+    unit's span would not fit in shared memory (192k -> 11.025k at the
+    exact ratio: window 2891, hop 2560). Raises when even that does not
+    fit."""
+    for fpt in (FRAMES_PER_THREAD, NARROW_FRAMES):
+        cut = _tiling(window, m, hop, fpt)
+        if cut is not None:
+            return cut
+    need = _span_bytes(NARROW_FRAMES * 32 // _column_group(m)[1], window, hop)
+    raise ValueError(
+        f"the framed GEMM kernel stages {need} bytes per CTA at window "
+        f"{window}, hop {hop}; the card offers {SMEM_LIMIT}"
+    )
+
+
+def _column_group(m: int) -> tuple[int, int]:
+    """(columns per tile, threads of a warp across them) for ``m`` columns."""
     cw = next((w for w in (4, 8, 16) if m <= w), 32)
-    cg = cw // COLS_PER_THREAD
+    return cw, cw // COLS_PER_THREAD
+
+
+def _tiling(window: int, m: int, hop: int, fpt: int) -> Tiling | None:
+    """:func:`tiling` with ``fpt`` frames a thread, or None where one
+    unit's span does not fit."""
+    cw, cg = _column_group(m)
     n_tiles = -(-m // cw)
-    unit = FRAMES_PER_THREAD * 32 // cg
+    unit = fpt * 32 // cg
     blocks = max(1, -(-MAX_WARPS // n_tiles))
     while blocks > 1 and _span_bytes(blocks * unit, window, hop) > SPAN_TARGET:
         blocks -= 1
@@ -120,16 +145,13 @@ def tiling(window: int, m: int, hop: int) -> Tiling:
         ksplit *= 2
     if ksplit > 1:
         warps = units * ksplit  # one warp per part of each unit
-        span_and_sums = span + 4 * 32 * warps * FRAMES_PER_THREAD * COLS_PER_THREAD
+        span_and_sums = span + 4 * 32 * warps * fpt * COLS_PER_THREAD
     else:
         warps = units if units <= 4 else 4 if units < MAX_WARPS else MAX_WARPS
         span_and_sums = span
     if span_and_sums > SMEM_LIMIT:
-        raise ValueError(
-            f"the framed GEMM kernel stages {span_and_sums} bytes per CTA at window "
-            f"{window}, hop {hop}; the card offers {SMEM_LIMIT}"
-        )
-    return Tiling(cg, cw, n_tiles, blocks * unit, ksplit, 32 * warps, hop % 4 == 0, span)
+        return None
+    return Tiling(cg, cw, n_tiles, blocks * unit, ksplit, 32 * warps, hop % 4 == 0, span, fpt)
 
 
 def column_bands(g: torch.Tensor, cw: int) -> list[tuple[int, int]]:
@@ -224,7 +246,7 @@ def framed_gemm(
     err = lib.sd_framed_gemm(
         x.data_ptr(), x.shape[0], g.data_ptr(), window, m, hop, gap, n_frames,
         out.data_ptr(), band.data_ptr(), ranges.data_ptr(), band.shape[1], cut.cg,
-        cut.ksplit, cut.frames, cut.threads, int(cut.vec),
+        cut.ksplit, cut.fpt, cut.frames, cut.threads, int(cut.vec),
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -264,7 +286,7 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.load("framed_gemm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, p, p, i, i, i, i, i, i, i, p]
+    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.sd_framed_gemm.restype = i
     lib.sd_framed_gemm_error_string.argtypes = [i]
     lib.sd_framed_gemm_error_string.restype = ctypes.c_char_p

@@ -36,9 +36,19 @@ permuted into 8-column re and im tiles, zero-padded), and the conv filter
 bank likewise (:func:`tile_conv_bank_bf16`); the kernel splits the samples
 as it loads them; :func:`split_dft_reference` is the TF32 arithmetic in
 plain PyTorch. A CTA transforms ``frames`` frames for ``frames - timeRange
-+ 1`` evaluations; :func:`cta_frames` picks ``frames`` from the launch shape
-(64 for a live bucket on many lanes, 128 for long lanes) and
-:func:`smem_bytes` is the shared memory it needs. Each entry
++ 1`` evaluations; :func:`cta_choice` picks ``frames`` from the launch shape
+(64 for a live bucket on many lanes, 128 for long lanes) and the
+shared-memory layout from the geometry, and :func:`smem_bytes` is the
+shared memory it needs. The resident layout holds a CTA's whole working
+set (the sample span, every column chunk of C, a bf16 first layer's whole
+product and bank) and is taken wherever it fits, the sample geometry's
+every path among them; the streamed layout stages A one k-block at a time,
+C over groups of column chunks and a bf16 first layer one chunk at a time,
+and fits every geometry of :data:`ENVELOPE` (fft up to 1024 over any band,
+window, overlap or gap; timeRange up to 32; layers up to 256 wide; any
+depth), on every entry, wire, input form, tier and net form. The two give
+the same outputs bit for bit. Outside the envelope a geometry may still
+fit; one that does not raises, naming the envelope. Each entry
 launches the kernel for a CUDA tensor, raising rather than falling back,
 and runs its plain PyTorch version (:func:`fused_offline_outputs_reference`,
 :func:`fused_batch_outputs_reference`, :func:`fused_tier_outputs_reference`,
@@ -47,7 +57,7 @@ counted per entry: :data:`LAUNCHES` (one stream), :data:`BATCH_LAUNCHES`
 (float32 batches, the float32 wire included), :data:`PROGRAM_LAUNCHES`
 (the dequantising wires), :data:`TIER_LAUNCHES` (per precision tier),
 :data:`FRAMES_LAUNCHES` (frames input) and :data:`GRID_LAUNCHES` (slabs of
-the grid layout).
+the grid layout), and per layout in :data:`LAYOUT_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -79,6 +89,11 @@ __all__ = [
     "TIER_LAUNCHES",
     "FRAMES_LAUNCHES",
     "GRID_LAUNCHES",
+    "LAYOUT_LAUNCHES",
+    "ENVELOPE",
+    "CtaChoice",
+    "cta_choice",
+    "col_group_for",
     "TIERS",
     "WIRE_DTYPES",
     "FusedOperands",
@@ -137,6 +152,17 @@ SM_REGISTERS = 65536
 KERNEL_REGISTERS = 120
 # Dynamic shared memory one CTA may opt in to on Hopper (227 KB).
 SMEM_LIMIT = 232448
+# Floats past a k-block's rows between two staged frames of the streamed
+# layout (csrc/fused_detector.cu kRowPad).
+STREAM_ROW_PAD = 4
+# The geometries every entry takes on the card, each wire, input form, tier
+# and net form (cta_choice: the resident layout where it fits, else the
+# streamed one, which fits every geometry inside; a geometry outside may
+# still fit, and one that does not raises naming this).
+ENVELOPE = (
+    "every fusable spec with fft <= 1024 (any band, window, overlap or gap), "
+    "timeRange <= 32, every layer <= 256 wide and any depth"
+)
 
 SCALING_CODES = {"linear": 0, "log": 1, "db": 2}
 TRANSFER_CODES = {"PureLin": 0, "TanSig": 1, "LogSig": 2, "SatLin": 3}
@@ -161,6 +187,8 @@ TIERS = {"fast": (1, 1), "split": (3, 3), "conv": (0, 3), "split4": (4, 4)}
 TIER_LAUNCHES = {tier: 0 for tier in TIERS}
 FRAMES_LAUNCHES = 0
 GRID_LAUNCHES = 0
+# Launches per shared-memory layout (CtaChoice.layout), from any entry.
+LAYOUT_LAUNCHES = {"resident": 0, "streamed": 0}
 # bf16 k-step: split_operands pads the untiled halves to it
 FRAG = 16
 
@@ -875,10 +903,10 @@ def fused_batch_program(
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.sd_fused_detector.argtypes = (
-        [p, i, i, ll, ll, ll] + [p] * 8 + [i] * 13 + [p, p, f, f, f, i, p]
+        [p, i, i, ll, ll, ll] + [p] * 8 + [i] * 14 + [p, p, p, f, f, f, i, p]
     )
     lib.sd_fused_detector.restype = i
-    lib.sd_fused_detector_smem_bytes.argtypes = [i] * 11
+    lib.sd_fused_detector_smem_bytes.argtypes = [i] * 12
     lib.sd_fused_detector_smem_bytes.restype = ll
     lib.sd_fused_detector_c_blocks.argtypes = [i, i]
     lib.sd_fused_detector_c_blocks.restype = i
@@ -888,8 +916,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sd_fused_detector_conv_bank_floats.restype = ll
     lib.sd_fused_detector_set_profile.argtypes = [p]
     lib.sd_fused_detector_set_profile.restype = None
-    lib.sd_max_layers.argtypes = []
-    lib.sd_max_layers.restype = i
     lib.sd_error_string.argtypes = [i]
     lib.sd_error_string.restype = ctypes.c_char_p
     return lib
@@ -909,49 +935,87 @@ def _dft_chunks(spec: DetectorSpec) -> int:
 
 
 def smem_bytes(spec: DetectorSpec, frames: int, max_width: int,
-               tier: str | None = None, frames_input: bool = False) -> int:
+               tier: str | None = None, frames_input: bool = False,
+               col_group: int = 0) -> int:
     """Dynamic shared memory of one CTA of the kernel that transforms
     ``frames`` frames under ``tier`` (a :data:`TIERS` key, None for full
     fp32), from samples or with ``frames_input`` from a frames matrix
-    (``smem_floats`` of ``csrc/fused_detector.cu``): the sample span (or the
-    frame rows at a stride of the window rounded up to 32, plus 4), the
-    stages of C's row blocks (both halves), the spectrogram, its row sums
-    and two activation buffers. Under a bf16 first layer the first region
-    also holds that layer's product ([frames, 64 per chunk of T*h1 columns
-    + 8]) and the stages its tiled filter bank (both halves)."""
-    _, conv_passes = TIERS[tier] if tier else (0, 0)
+    (``smem_floats`` of ``csrc/fused_detector.cu``).
+
+    The resident layout (``col_group`` 0): the sample span (or the frame
+    rows at a stride of the window rounded up to 32, plus 4), the stages of
+    C's row blocks (both halves), the spectrogram, its row sums and two
+    activation buffers. Under a bf16 first layer the first region also
+    holds that layer's product ([frames, 64 per chunk of T*h1 columns + 8])
+    and the stages its tiled filter bank (both halves).
+
+    The streamed layout (``col_group`` chunks of C a pass over k): the
+    stages of C over those chunks (under a bf16 first layer at least one
+    k-step of one chunk of its bank and that chunk's product [frames, 72]);
+    the first activation buffer, or during the band DFT two k-blocks of A
+    [frames, rows + 4] and the mu-law table; the spectrogram, or after the
+    first layer the second activation buffer; the row sums and norms."""
+    dft_passes, conv_passes = TIERS[tier] if tier else (0, 0)
+    step = 8 * DFT_UNIT_COLS  # floats of one k-step of one 64-column chunk
+    tile = frames - spec.time_range + 1
+    if col_group:
+        rows = DFT_BF16_BLOCK_ROWS if dft_passes else DFT_BLOCK_ROWS
+        ring = DFT_STAGES * 2 * 2 * step * col_group
+        if conv_passes:
+            ring = max(ring, 2 * step + frames * (DFT_UNIT_COLS + 8))
+        acts = _round_up(tile * max_width, 4)
+        act_a = max(acts, 2 * frames * (rows + STREAM_ROW_PAD) + 256)
+        spec_region = max(frames * spec.n_bins, acts)
+        return 4 * (ring + act_a + spec_region + _round_up(frames + tile, 4))
     gap, _ = normalize_overlap(spec.window_overlap)
     window = spec.window_length
     if frames_input:
         staged = frames * (_round_up(window, 32) + 4)
     else:
         staged = _round_up((frames - 1) * spec.hop + gap + window, 4)
-    step = 8 * DFT_UNIT_COLS  # floats of one k-step of one 64-column chunk
     stages = DFT_STAGES * 2 * 2 * step * _dft_chunks(spec)
     if conv_passes:
         chunks = -(-spec.time_range * spec.net.layer_sizes[0][1] // DFT_UNIT_COLS)
         staged = max(staged, frames * (DFT_UNIT_COLS * chunks + 8))
         stages = max(stages, 2 * -(-spec.n_bins // BF16_STEP_ROWS) * chunks * step)
-    tile = frames - spec.time_range + 1
     return 4 * (staged + stages + frames * spec.n_bins + frames + 2 * tile * max_width)
 
 
-def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
+class CtaChoice(NamedTuple):
+    """How the kernel cuts one launch: ``frames`` a CTA transforms, and its
+    shared-memory layout: resident (``col_group`` 0) or streamed over
+    ``col_group`` chunks of C a pass over k (:func:`smem_bytes`)."""
+
+    frames: int
+    col_group: int = 0
+
+    @property
+    def layout(self) -> str:
+        return "streamed" if self.col_group else "resident"
+
+
+def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
                n_sm: int = H100_SMS, tier: str | None = None,
                frames_input: bool = False, workload: str | None = None,
-               device_kind: str | None = None) -> int:
-    """Frames one CTA of the kernel transforms for a launch of ``lanes`` x
-    ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
-    input form as :func:`smem_bytes` takes them. A CTA of ``f`` frames
-    serves ``f - timeRange + 1`` evaluations, so a large ``f`` wastes few
-    transforms (128 frames: 1.08 per evaluation at timeRange 10, 64 frames:
-    1.16), while a CTA's time hardly depends on ``f`` (its chain of barriers
-    and loads does not). The choice over :data:`CTA_FRAMES` takes the fewest
-    waves, ``ceil(CTAs / (n_sm * CTAs resident on an SM))``, then the fewest
-    frames in all, then the larger ``f``: 64 frames for a live bucket on 256
-    lanes, 128 for one 60 s stream and for long lanes. A ``timeRange`` above
-    every choice takes the next multiple of 64. Raises when no choice fits
-    in shared memory.
+               device_kind: str | None = None) -> CtaChoice:
+    """Frames and layout of one CTA of the kernel for a launch of ``lanes``
+    x ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
+    input form as :func:`smem_bytes` takes them.
+
+    A CTA of ``f`` frames serves ``f - timeRange + 1`` evaluations, so a
+    large ``f`` wastes few transforms (128 frames: 1.08 per evaluation at
+    timeRange 10, 64 frames: 1.16), while a CTA's time hardly depends on
+    ``f`` (its chain of barriers and loads does not). The choice over
+    :data:`CTA_FRAMES` takes the fewest waves, ``ceil(CTAs / (n_sm * CTAs
+    resident on an SM))``, then the fewest frames in all, then the larger
+    ``f``: 64 frames for a live bucket on 256 lanes, 128 for one 60 s
+    stream and for long lanes. A ``timeRange`` above every choice takes the
+    next multiple of 64.
+
+    The resident layout is taken wherever a choice fits in shared memory
+    (the sample geometry's every path); else the streamed one, each ``f``
+    with the most chunks of C a pass that fit. Raises, naming
+    :data:`ENVELOPE`, when neither fits.
 
     With a ``workload`` (``single``, ``batched`` or ``distinct``) and a
     ``device_kind`` (``tuning.device_kind``), a full-fp32 launch from
@@ -962,32 +1026,63 @@ def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
         from syllable_detector_tpu_torch.tuning import tuned_cta_frames
 
         tuned = tuned_cta_frames(device_kind, spec, workload, lanes, n_evals)
-        if (
-            tuned is not None
-            and tuned > halo
-            and tuned % 64 == 0
-            and smem_bytes(spec, tuned, max_width) <= SMEM_LIMIT
-        ):
-            return tuned
-    choices = [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
+        if tuned is not None and tuned > halo and tuned % 64 == 0:
+            group = col_group_for(spec, tuned, max_width)
+            if group is not None:
+                return CtaChoice(tuned, group)
+    choices = _frame_choices(spec)
     best = None
     for frames in choices:
-        smem = smem_bytes(spec, frames, max_width, tier, frames_input)
-        if smem > SMEM_LIMIT:
+        group = col_group_for(spec, frames, max_width, tier, frames_input)
+        if group is None:
             continue
+        smem = smem_bytes(spec, frames, max_width, tier, frames_input, group)
         threads = 128 * min(2, frames // 64 * _dft_chunks(spec))
         resident = max(1, min(SM_SMEM // (smem + 1024), SM_REGISTERS // (KERNEL_REGISTERS * threads)))
         ctas = lanes * -(-n_evals // (frames - halo))
         key = (-(-ctas // (n_sm * resident)), ctas * frames, -frames)
         if best is None or key < best[0]:
-            best = (key, frames)
+            best = (key, CtaChoice(frames, group))
     if best is None:
+        need = smem_bytes(spec, choices[0], max_width, tier, frames_input, 1)
         raise ValueError(
-            f"the fused kernel needs "
-            f"{smem_bytes(spec, choices[0], max_width, tier, frames_input)} bytes "
-            f"of shared memory per CTA at this geometry; the card offers {SMEM_LIMIT}"
+            f"the fused kernel needs {need} bytes of shared memory per CTA at fft "
+            f"{spec.fourier_length}, {spec.n_bins} bins, timeRange {spec.time_range} and "
+            f"layers up to {max_width} wide; the card offers {SMEM_LIMIT}. Its envelope: "
+            f"{ENVELOPE}"
         )
     return best[1]
+
+
+def _frame_choices(spec: DetectorSpec) -> list[int]:
+    """The frames a CTA may transform: :data:`CTA_FRAMES` above timeRange -
+    1, or the next multiple of 64 above it."""
+    halo = spec.time_range - 1
+    return [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
+
+
+def col_group_for(spec: DetectorSpec, frames: int, max_width: int,
+                  tier: str | None = None, frames_input: bool = False) -> int | None:
+    """The layout a CTA of ``frames`` frames takes, as :func:`cta_choice`
+    takes it: 0 (resident) where it fits there, unless no frames choice
+    fits there; then the most chunks of C a streamed pass that fit; None
+    where nothing fits."""
+
+    def fits(f: int, group: int) -> bool:
+        return smem_bytes(spec, f, max_width, tier, frames_input, group) <= SMEM_LIMIT
+
+    if any(fits(f, 0) for f in _frame_choices(spec)):
+        return 0 if fits(frames, 0) else None
+    return next((g for g in range(_dft_chunks(spec), 0, -1) if fits(frames, g)), None)
+
+
+def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
+               n_sm: int = H100_SMS, tier: str | None = None,
+               frames_input: bool = False, workload: str | None = None,
+               device_kind: str | None = None) -> int:
+    """The frames of :func:`cta_choice` (same arguments)."""
+    return cta_choice(spec, n_evals, lanes, max_width, n_sm, tier, frames_input,
+                      workload, device_kind).frames
 
 
 @functools.cache
@@ -1062,6 +1157,7 @@ def _launch(
     lanes: int | None = None,
     out: torch.Tensor | None = None,
     frames: int | None = None,
+    col_group: int | None = None,
 ) -> torch.Tensor:
     """One launch over lanes ``[lane0, lane0 + lanes)`` of ``xs`` (on the
     card: ``[C, n]`` samples of the wire's type or, with ``frames_input``,
@@ -1069,7 +1165,10 @@ def _launch(
     ``[C, n_evals, outputs]`` float32 (allocated when None), which it
     returns, under ``tier`` (a :data:`TIERS` key, None for full fp32). The
     lanes' slice of every operand is a pointer offset. ``frames`` per CTA
-    defaults to :func:`cta_frames`' choice (the tuner times others)."""
+    and the layout's ``col_group`` default to :func:`cta_choice`'s (the
+    tuner times other frames, ``chip_smoke.py`` forces the streamed layout
+    where the resident one fits); ``frames`` alone takes the resident
+    layout. Counts the launch in :data:`LAYOUT_LAUNCHES`."""
     c, n = xs.shape[:2]
     lanes = c - lane0 if lanes is None else lanes
     want = (3, spec.window_length) if frames_input else (2, n)
@@ -1087,8 +1186,6 @@ def _launch(
         raise ValueError("the tiers and the frames input read float32 only")
     lib = _library()
     widths = [w for _, w in spec.net.layer_sizes]
-    if len(widths) > lib.sd_max_layers():
-        raise ValueError(f"the fused kernel takes at most {lib.sd_max_layers()} layers")
     gap, _ = normalize_overlap(spec.window_overlap)
     geometry = (spec.window_length, spec.hop, gap, spec.n_bins, spec.time_range)
     dft_passes, conv_passes = TIERS[tier] if tier else (0, 0)
@@ -1108,11 +1205,14 @@ def _launch(
                              "tile_conv_bank_bf16 under this tier")
     if frames is None:
         workload = "distinct" if folded.per_lane else "single" if lanes == 1 else "batched"
-        frames = cta_frames(spec, n_evals, lanes, max(widths), _sm_count(xs.device), tier,
-                            frames_input, workload, _device_kind(xs.device))
+        frames, chosen = cta_choice(spec, n_evals, lanes, max(widths), _sm_count(xs.device),
+                                    tier, frames_input, workload, _device_kind(xs.device))
+        col_group = chosen if col_group is None else col_group
+    col_group = col_group or 0
     smem = lib.sd_fused_detector_smem_bytes(
-        *geometry, frames, max(widths), widths[0], dft_passes, conv_passes, int(frames_input))
-    mirror = smem_bytes(spec, frames, max(widths), tier, frames_input)
+        *geometry, frames, max(widths), widths[0], dft_passes, conv_passes, int(frames_input),
+        col_group)
+    mirror = smem_bytes(spec, frames, max(widths), tier, frames_input, col_group)
     if smem != mirror:
         raise RuntimeError(
             f"the kernel's shared memory ({smem} bytes) is not smem_bytes' ({mirror})")
@@ -1127,10 +1227,10 @@ def _launch(
         or not out.is_contiguous()
     ):
         raise ValueError(f"unexpected output tensor of shape {tuple(out.shape)}")
+    codes = tuple(TRANSFER_CODES[t] for t in spec.net.transfers)
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    c_transfers = (ctypes.c_int * len(widths))(
-        *(TRANSFER_CODES[t] for t in spec.net.transfers)
-    )
+    c_transfers = (ctypes.c_int * len(widths))(*codes)
+    layers = _layer_table(tuple(widths), codes, xs.device)
 
     def at(t: torch.Tensor, per_net: bool = True) -> int:
         """``t``'s address at lane ``lane0``: ``xs`` and ``out`` have a lane
@@ -1147,8 +1247,8 @@ def _launch(
         at(folded.c1), at(folded.mids_flat), at(folded.out_a), at(folded.out_c),
         at(out, False), int(folded.per_lane),
         *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), frames,
-        dft_passes, conv_passes, int(frames_input),
-        len(widths), c_widths, c_transfers,
+        dft_passes, conv_passes, int(frames_input), col_group,
+        len(widths), c_widths, c_transfers, layers.data_ptr(),
         float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
         device, torch.cuda.current_stream(xs.device).cuda_stream,
     )
@@ -1157,4 +1257,12 @@ def _launch(
             "fused detector kernel launch failed: "
             f"{lib.sd_error_string(err).decode()} (cudaError {err})"
         )
+    LAYOUT_LAUNCHES["streamed" if col_group else "resident"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_table(widths: tuple, transfers: tuple, device: torch.device) -> torch.Tensor:
+    """The kernel's table of layer widths, then Transfer codes: ``[2,
+    layers]`` int32 on ``device``, uploaded once per net shape."""
+    return torch.tensor([widths, transfers], dtype=torch.int32, device=device)

@@ -179,15 +179,17 @@ class Trial:
 
 def _fits(spec, frames: int) -> str | None:
     """Why ``frames`` cannot be a CTA of the fp32 kernel at this geometry,
-    or None when it can."""
+    in the layout the kernel takes there (``col_group_for``), or None when
+    it can."""
     from syllable_detector_tpu_torch.kernels import fused_detector as fused
 
     if frames % 64 or frames < spec.time_range:
         return "not a multiple of 64 above timeRange - 1"
     width = max(w for _, w in spec.net.layer_sizes)
-    smem = fused.smem_bytes(spec, frames, width)
-    if smem > fused.SMEM_LIMIT:
-        return f"needs {smem} bytes of shared memory, the card offers {fused.SMEM_LIMIT}"
+    if fused.col_group_for(spec, frames, width) is None:
+        smem = fused.smem_bytes(spec, frames, width)
+        return (f"needs {smem} bytes of shared memory, the card offers {fused.SMEM_LIMIT}, "
+                "and another frames per CTA fits")
     return None
 
 
@@ -212,7 +214,10 @@ def _measure(spec, params, workload: str, lanes: int, n_evals: int, frames: int,
         if workload == "distinct"
         else fused.fold_constants(spec, params, device)
     )
-    return event_ms(lambda: fused._launch(spec, folded, xs, n_evals, frames=frames))[0]
+    width = max(w for _, w in spec.net.layer_sizes)
+    group = fused.col_group_for(spec, frames, width)
+    return event_ms(lambda: fused._launch(spec, folded, xs, n_evals, frames=frames,
+                                          col_group=group))[0]
 
 
 def tune_cta_frames(
