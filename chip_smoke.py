@@ -4,11 +4,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
   1. device  — require a CUDA card; print its name and power limit.
   2. build   — build every kernel from csrc/ with nvcc, one nvcc per
-               source, all started together; ptxas' registers and spill
-               bytes of every kernel (the fused detector's instantiations
-               named by wire, arithmetic, input form and layout): any spill
-               fails, and so do resident fp32 instantiations from samples
-               outside 104-108 registers.
+               source (the fused detector's one per layout), all started
+               together; ptxas' registers and spill bytes of every kernel
+               (the fused detector's instantiations named by wire,
+               arithmetic, input form and layout): any spill fails, and so
+               does an instantiation above the registers its layout has in
+               ``fused.KERNEL_REGISTERS`` (the figure ``cta_choice`` counts
+               CTAs an SM by), or a resident fp32 one from samples on the
+               CUDA cores outside 104-120.
   3. kernel  — the kernel against its plain PyTorch version and the
                unfused path, on the card, for every configuration of
                fixtures.fused_cases (10 s streams, a short one, log and dB
@@ -185,9 +188,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
                JAX fuzz generator's seeds 1000-1099 and
                ``fixtures.wide_geometry_configs()``, against its plain
                version (phase 3's, 6's and 12's bounds, NaN in the same
-               places) and bit for bit against the same launch in another
-               shared-memory layout (resident against streamed, or another
-               chunk group); K2 on every ordered pair of
+               places) and bit for bit against the same launch in each
+               other shared-memory layout that fits (resident, span,
+               streamed, or another chunk group); K2 on every ordered pair of
                ``fixtures.RESAMPLE_RATES`` at the resampler's ratio and the
                exact one (1e-4/1e-4); the CLI (one file, and
                ``--batched``) fused against matmul on two wide nets. One
@@ -195,8 +198,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
                worst error; one line per wide
                geometry gives each entry's device time on a 60 s stream or
                256 lanes x 128 evaluations beside its plain version, its
-               bound and the layout it took; one K2's at the exact 192k ->
-               11.025k. Then one line of each phase's host wall.
+               bound, the layout it took and its stage shares; at three
+               of them one line with K1a's and K1e's time and stage shares
+               in each layout that fits (``scripts/k1_stage_shares.py``);
+               one K2's at the exact 192k -> 11.025k. Then one line of each
+               phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -248,6 +254,10 @@ from syllable_detector_tpu_torch.training import trainer
 from syllable_detector_tpu_torch.utils.measure import event_ms
 from syllable_detector_tpu_torch.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
+
+# the stage shares of each layout (a script beside this one, which also runs
+# on an older checkout of the port)
+stage_shares_script = importlib.import_module("scripts.k1_stage_shares")
 
 # the kernels package exports the function framed_gemm under its module's
 # name, as the JAX package does, so the module comes from the import system
@@ -416,12 +426,22 @@ def _round_up4(v: int) -> int:
     return -(-v // 4) * 4
 
 
+def register_key(kernel: str) -> str:
+    """The ``fused.KERNEL_REGISTERS`` key of a fused detector instantiation
+    named as ``ptxas_report`` names it."""
+    for layout in ("span", "streamed"):
+        if kernel.endswith(" " + layout):
+            return layout
+    return "resident tc" if " fp32-tc " in kernel else "resident"
+
+
 def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes) of every kernel in an nvcc build log
     with ``-Xptxas -v``. A fused detector instantiation is named by its
-    template arguments: the wire, the DFT and first-layer arithmetic (fp32
-    or the tier's bf16 passes), the input form and, for the streamed
-    layout, "streamed"."""
+    template arguments: the wire, the DFT and first-layer arithmetic (fp32,
+    fp32-tc with the first layer on the tensor cores, or the tier's bf16
+    passes), the input form and, outside the resident layout, "span" or
+    "streamed"."""
     wires = {"f": "float32", "s": "int16", "a": "mulaw8"}
     tiers = {(p[0], p[1]): t for t, p in fused.TIERS.items()}
     out, name = [], None
@@ -429,11 +449,13 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            m = re.search(r"fused_detector_kernelI([fsa])Li(\d)ELi(\d)ELb([01])ELb([01])E", name)
+            m = re.search(r"fused_detector_kernelI([fsa])Li(\d)ELi(n?\d)ELb([01])ELi(\d)E", name)
             if m:
-                tier = tiers.get((int(m.group(2)), int(m.group(3))), "fp32")
+                dft, conv = int(m.group(2)), int(m.group(3).replace("n", "-"))
+                tier = ("fp32-tc" if conv == fused.CONV_TF32
+                        else tiers.get((dft, conv), "fp32"))
                 form = "frames" if m.group(4) == "1" else "samples"
-                layout = " streamed" if m.group(5) == "1" else ""
+                layout = ("", " span", " streamed")[int(m.group(5))]
                 name = f"fused_detector {wires[m.group(1)]} {tier} {form}{layout}"
             out.append([name, -1, -1])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -2472,8 +2494,8 @@ def phase_tune(tmp: str, card_line: str) -> dict:
         raise RuntimeError(f"tune returned {proc.returncode}: {proc.stderr[-2000:]}")
     with open(tuning.tune_cache_path()) as fh:
         cache = json.load(fh)
-    kind = tuning.device_kind("cuda")
-    if len(cache) != 3 or not all(k.startswith(kind + "/") for k in cache):
+    kind = f"r{tuning.KERNEL_REVISION}/{tuning.device_kind('cuda')}/"
+    if len(cache) != 3 or not all(k.startswith(kind) for k in cache):
         raise AssertionError(f"the tune cache holds {list(cache)}")
     tuning.reset_tune_cache()
     for key, entry in sorted(cache.items()):
@@ -2563,23 +2585,33 @@ def repeated_fold(folded, lanes: int):
         mids=tuple((rep(w), rep(b)) for w, b in folded.mids),
         out_a=rep(folded.out_a), out_c=rep(folded.out_c), mids_flat=rep(folded.mids_flat),
         w1g_bf16=rep(folded.w1g_bf16), per_lane=True,
+        w1g_tf32=rep(folded.w1g_tf32) if folded.w1g_tf32 is not None else None,
     )
 
 
-def streamed_other(spec, width: int, chosen, tier, frames_input: bool):
-    """A streamed (frames, col_group) other than ``chosen`` (a
-    ``fused.CtaChoice``) that fits, for a bit-for-bit comparison: the most
-    chunks a pass where ``chosen`` is resident, else one chunk a pass, else
-    every chunk."""
+def other_layouts(spec, width: int, chosen, tier, frames_input: bool) -> list[tuple[int, int]]:
+    """(frames, col_group) launches other than ``chosen`` (a
+    ``fused.CtaChoice``) that fit, for bit-for-bit comparisons: each other
+    layout of ``fused.LAYOUTS`` at the chosen frames, else at 64, with the
+    most chunks of C a pass that fit; and the chosen layout outside the
+    resident one over one chunk a pass."""
     chunks = fused._dft_chunks(spec)
 
     def fits(frames, group):
-        return fused.smem_bytes(spec, frames, width, tier, frames_input, group) <= fused.SMEM_LIMIT
+        return (frames > spec.time_range - 1 and fused.smem_bytes(
+            spec, frames, width, tier, frames_input, group) <= fused.SMEM_LIMIT)
 
-    options = ([(chosen.frames, g) for g in range(chunks, 0, -1)] + [(64, 1)]
-               if not chosen.col_group else [(chosen.frames, 1), (chosen.frames, chunks)])
-    return next(((f, g) for f, g in options
-                 if f > spec.time_range - 1 and (f, g) != tuple(chosen) and fits(f, g)), None)
+    out = []
+    for sign, layout in ((0, "resident"), (-1, "span"), (1, "streamed")):
+        if layout == chosen.layout:
+            options = [(chosen.frames, sign)] if sign else []
+        else:
+            options = [(f, sign * g) for f in (chosen.frames, 64)
+                       for g in (range(chunks, 0, -1) if sign else (0,))]
+        pick = next(((f, g) for f, g in options if (f, g) != tuple(chosen) and fits(f, g)), None)
+        if pick is not None:
+            out.append(pick)
+    return out
 
 
 def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> None:
@@ -2598,6 +2630,7 @@ def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> Non
     frames = frame_signal(xd, n_evals + spec.time_range - 1, spec.window_length,
                           spec.window_overlap).contiguous()
     layouts[fused.cta_choice(spec, n_evals, 1, width).layout] += 1
+    layouts["tensor-core first layer"] += fused.tc_first_layer(spec)
 
     def hold(entry, got, plain, rtol, atol):
         worst[entry] = max(worst[entry], held(got, plain, rtol, atol, f"{name} {entry}"))
@@ -2606,13 +2639,13 @@ def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> Non
                      folded_=folded):
         chosen = fused.cta_choice(spec, n_evals, lanes, width, tier=tier,
                                   frames_input=frames_input)
-        other = streamed_other(spec, width, chosen, tier, frames_input)
-        if other is not None:
+        for other in other_layouts(spec, width, chosen, tier, frames_input):
             again = fused._launch(spec, folded_, xs_, n_evals, wire=wire, tier=tier,
                                   frames_input=frames_input, frames=other[0], col_group=other[1])
             held(again.reshape(got.shape), got, 0.0, 0.0,
                  f"{name} {entry} at {tuple(chosen)} and at {other}")
             layouts["bit equal"] += 1
+            layouts["bit equal " + fused.CtaChoice(*other).layout] += 1
 
     got = fused.fused_offline_outputs(spec, params, xd, folded=folded)
     hold("K1a", got, fused.fused_offline_outputs_reference(spec, folded, xd), *tol)
@@ -2643,7 +2676,7 @@ def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> Non
 def time_geometry(name: str, cfg, card_line: str) -> dict:
     """Each K1 entry's device time on one geometry (the 60 s stream, or
     256 lanes x 128 evaluations) beside its plain version and its bound,
-    with the layout it took."""
+    with the layout it took and its stage shares there."""
     spec, params = detector.detector_spec_from_config(cfg, "cuda")
     folded = fused.fold_constants(spec, params, "cuda")
     width = max(w for _, w in spec.net.layer_sizes)
@@ -2687,16 +2720,21 @@ def time_geometry(name: str, cfg, card_line: str) -> dict:
         p = event_ms(plain, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0]
         least = fused_bound(spec, lanes, samples, itemsize, LANES if entry == "K1f int16" else 1,
                             tier, frames_input)
-        times[entry] = (k, p, least, choice)
+        shares = fused.stage_shares(kernel)
+        times[entry] = (k, p, least, choice, shares)
         parts.append(f"{entry} {k:.4f} ms (plain {p:.4f}, bound {least[0]:.4f} {least[1]}, "
                      f"{choice.frames} frames {choice.layout}"
-                     f"{f' over {choice.col_group} chunks' if choice.col_group else ''})")
+                     f"{f' over {abs(choice.col_group)} chunks' if choice.col_group else ''}; "
+                     + " ".join(f"{stage} {v:.3f}" for stage, v in shares.items() if v >= 0.005)
+                     + ")")
     print(
         f"phase 22 times [{card_line}]: {name} (fft {spec.fourier_length}, window "
         f"{spec.window_length}, hop {spec.hop}, {spec.n_bins} bins, timeRange {spec.time_range}, "
-        f"widths {[w for _, w in spec.net.layer_sizes]}); the 60 s stream ({n} samples) for "
-        f"K1a-K1c, {LANES} x 128 evaluations for K1d-K1f; device ms, median of "
-        f"{GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls: " + "; ".join(parts),
+        f"widths {[w for _, w in spec.net.layer_sizes]}, first layer on the "
+        f"{'tensor' if fused.tc_first_layer(spec) else 'CUDA'} cores); the 60 s stream ({n} "
+        f"samples) for K1a-K1c, {LANES} x 128 evaluations for K1d-K1f; device ms, median of "
+        f"{GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls; stage shares of the CTAs' cycles at "
+        f"least 0.005: " + "; ".join(parts),
         flush=True,
     )
     return times
@@ -2713,7 +2751,8 @@ def phase_geometry(card_line: str) -> dict:
     entries = ("K1a", "K1b", *(f"K1c {t}" for t in fused.TIERS), "K1d", "K1e shared",
                "K1e per-lane", "K1f int16", "K1f mulaw8")
     worst = {entry: 0.0 for entry in entries}
-    layouts = {"resident": 0, "streamed": 0, "bit equal": 0}
+    layouts = {**{layout: 0 for layout in fused.LAYOUTS}, "tensor-core first layer": 0,
+               "bit equal": 0, **{f"bit equal {layout}": 0 for layout in fused.LAYOUTS}}
     geometries = [(f"fuzz{seed}", fixtures.random_config(np.random.default_rng(seed)), seed)
                   for seed in GEOMETRY_SEEDS]
     geometries += [(name, cfg, 77) for name, cfg in fixtures.wide_geometry_configs()]
@@ -2770,9 +2809,11 @@ def phase_geometry(card_line: str) -> dict:
         f"phase 22 geometry sweep: {swept} fusable geometries of {len(geometries)} (fuzz seeds "
         f"{GEOMETRY_SEEDS.start}-{GEOMETRY_SEEDS.stop - 1} and {len(geometries) - len(GEOMETRY_SEEDS)} "
         f"wide ones, {GEOMETRY_SECONDS:g} s of audio each), K1a by layout: "
-        f"{layouts['resident']} resident, {layouts['streamed']} streamed; "
-        f"{layouts['bit equal']} launches equal bit for bit in another layout; launches by "
-        f"layout {fused.LAYOUT_LAUNCHES}; worst vs plain max_abs: "
+        + ", ".join(f"{layouts[layout]} {layout}" for layout in fused.LAYOUTS)
+        + f", {layouts['tensor-core first layer']} with the first layer on the tensor cores; "
+        f"{layouts['bit equal']} launches equal bit for bit in another layout ("
+        + ", ".join(f"{layouts['bit equal ' + layout]} {layout}" for layout in fused.LAYOUTS)
+        + f"); launches by layout {fused.LAYOUT_LAUNCHES}; worst vs plain max_abs: "
         + ", ".join(f"{entry} {err:.3g}" for entry, err in worst.items())
         + f" (1e-3/2e-4, log and dB 2e-3/5e-4, tiers as phase 12; NaN in the same places); "
         f"K2 on {pairs} rate pairs of {len(fixtures.RESAMPLE_RATES)} rates vs plain max_abs "
@@ -2784,6 +2825,17 @@ def phase_geometry(card_line: str) -> dict:
           f"{'; '.join(cli_parts)}; columns 1-3 identical ok", flush=True)
     times = {name: time_geometry(name, cfg, card_line)
              for name, cfg in fixtures.wide_geometry_configs()}
+    # each layout that fits, its time and stage shares, where the resident
+    # layout does not fit or T*h1 is wide
+    configs = dict(fixtures.wide_geometry_configs())
+    for name in stage_shares_script.GEOMETRIES:
+        rows = stage_shares_script.layout_shares(name, configs[name], card_line)
+        print(f"phase 22 layouts [{card_line}]: {name}, device ms and stage shares of each "
+              f"layout that fits: " + "; ".join(
+                  f"{r['entry']} {r['frames']} frames {r['layout']} over {abs(r['col_group'])} "
+                  f"chunks{' (chosen)' if r['chosen'] else ''} {r['ms']:.4f} ms: "
+                  + " ".join(f"{k} {v:.3f}" for k, v in r['shares'].items() if v >= 0.005)
+                  for r in rows), flush=True)
     # K2 where a thread takes fewer frames: one 60 s channel at 192k -> 11.025k
     x = fixtures.chirp_audio(60.0, 92, rate=192000)
     xin, g, w_len, overlap, blocks, _ = resample.polyphase_framing(
@@ -2844,9 +2896,18 @@ def run_phases(marks, mark) -> int:
         kernels = ptxas_report(log)
         if not kernels or any(spill != 0 for _, _, spill in kernels):
             raise AssertionError(f"{name}.cu: ptxas reports spills or nothing: {log[-2000:]}")
+        # cta_choice counts each instantiation's CTAs an SM by the registers
+        # fused.KERNEL_REGISTERS gives its layout; the resident fp32 ones on
+        # the CUDA cores keep two CTAs of 256 threads an SM
         fp32 = [regs for kernel, regs, _ in kernels if kernel.endswith("fp32 samples")]
-        if name == "fused_detector" and (len(fp32) != 3 or not all(104 <= r <= 108 for r in fp32)):
-            raise AssertionError(f"the fp32 instantiations use {fp32} registers, not 104-108")
+        over = [(kernel, regs) for kernel, regs, _ in kernels
+                if name == "fused_detector" and regs > fused.KERNEL_REGISTERS[register_key(kernel)]]
+        if name == "fused_detector" and (len(fp32) != 3 or not all(
+                104 <= r <= fused.KERNEL_REGISTERS["resident"] for r in fp32) or over):
+            raise AssertionError(
+                f"the resident fp32 instantiations use {fp32} registers (104-"
+                f"{fused.KERNEL_REGISTERS['resident']}); above their layout's "
+                f"fused.KERNEL_REGISTERS: {over}")
         print(
             f"phase 2 build: {name}.cu in {seconds:.2f} s; registers: "
             f"{'; '.join(f'{kernel} {regs}' for kernel, regs, _ in kernels)}; spill bytes 0 "
@@ -2921,6 +2982,8 @@ def run_phases(marks, mark) -> int:
     }
     if not all(sweep.values()):
         raise AssertionError(f"phase 22 launched an entry no time: {sweep}")
+    if not all(fused.LAYOUT_LAUNCHES.values()):
+        raise AssertionError(f"phase 22 took a layout no time: {fused.LAYOUT_LAUNCHES}")
     print(f"phase 22 launches: {sweep}; by layout {fused.LAYOUT_LAUNCHES} ok", flush=True)
     mark("22")
     print(

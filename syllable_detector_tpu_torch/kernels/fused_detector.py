@@ -29,33 +29,40 @@ registers). In full fp32 it is three TF32 products of split operands
 keeps fp32 accuracy (about 1e-6 relative; the counterpart of
 ``Precision.HIGHEST``'s bf16 passes on the TPU); under a tier it is the
 tier's bf16 products of the JAX kernel's hi/lo halves, and so is the first
-layer's conv filter-bank GEMM. The fold splits C once and lays it out as
-the tensor cores read it (:func:`tile_dft_matrix` in TF32,
-:func:`tile_dft_matrix_bf16` in bf16, from :func:`pad_dft_matrix`: columns
-permuted into 8-column re and im tiles, zero-padded), and the conv filter
-bank likewise (:func:`tile_conv_bank_bf16`); the kernel splits the samples
-as it loads them; :func:`split_dft_reference` is the TF32 arithmetic in
-plain PyTorch. A CTA transforms ``frames`` frames for ``frames - timeRange
-+ 1`` evaluations; :func:`cta_choice` picks ``frames`` from the launch shape
-(64 for a live bucket on many lanes, 128 for long lanes) and the
-shared-memory layout from the geometry, and :func:`smem_bytes` is the
-shared memory it needs. The resident layout holds a CTA's whole working
-set (the sample span, every column chunk of C, a bf16 first layer's whole
-product and bank) and is taken wherever it fits, the sample geometry's
-every path among them; the streamed layout stages A one k-block at a time,
-C over groups of column chunks and a bf16 first layer one chunk at a time,
-and fits every geometry of :data:`ENVELOPE` (fft up to 1024 over any band,
-window, overlap or gap; timeRange up to 32; layers up to 256 wide; any
-depth), on every entry, wire, input form, tier and net form. The two give
-the same outputs bit for bit. Outside the envelope a geometry may still
-fit; one that does not raises, naming the envelope. Each entry
-launches the kernel for a CUDA tensor, raising rather than falling back,
-and runs its plain PyTorch version (:func:`fused_offline_outputs_reference`,
-:func:`fused_batch_outputs_reference`, :func:`fused_tier_outputs_reference`,
+layer's conv filter-bank GEMM; where T*h1 is wide (:func:`tc_first_layer`)
+the fp32 first layer is that GEMM too, in three TF32 products. The fold
+splits C once and lays it out as the tensor cores read it
+(:func:`tile_dft_matrix` in TF32, :func:`tile_dft_matrix_bf16` in bf16,
+from :func:`pad_dft_matrix`: columns permuted into 8-column re and im
+tiles, zero-padded), and the conv filter bank likewise
+(:func:`tile_conv_bank_bf16`, :func:`tile_conv_bank_tf32`); the kernel
+splits the samples as it loads them; :func:`split_dft_reference` is the
+TF32 arithmetic in plain PyTorch. A
+CTA transforms ``frames`` frames for ``frames - timeRange + 1``
+evaluations; :func:`cta_choice` picks ``frames`` from the launch shape (64
+for a live bucket on many lanes, 128 for long lanes) and the shared-memory
+layout from the geometry, and :func:`smem_bytes` is the shared memory it
+needs. Three layouts (:data:`LAYOUTS`), tried in order: the resident one
+holds a CTA's whole working set (the sample span, every column chunk of C,
+a bf16 first layer's whole product and bank) and is taken wherever it
+fits, the sample geometry's every path among them; the span layout, for
+CTAs of 128 frames or more, keeps the span resident and streams C over
+groups of column chunks (and a bf16 first layer one chunk at a time); the
+streamed layout also stages A one
+k-block at a time, and fits every geometry of :data:`ENVELOPE` (fft up to
+1024 over any band, window, overlap or gap; timeRange up to 32; layers up
+to 256 wide; any depth), on every entry, wire, input form, tier and net
+form. All three give the same outputs bit for bit. Outside the envelope a
+geometry may still fit; one that does not raises, naming the envelope. Each
+entry launches the kernel for a CUDA tensor, raising rather than falling
+back, and runs its plain PyTorch version
+(:func:`fused_offline_outputs_reference`,
+:func:`fused_batch_outputs_reference`,
+:func:`fused_tier_outputs_reference`,
 :func:`fused_frames_outputs_reference`) for a CPU tensor. Launches are
 counted per entry: :data:`LAUNCHES` (one stream), :data:`BATCH_LAUNCHES`
-(float32 batches, the float32 wire included), :data:`PROGRAM_LAUNCHES`
-(the dequantising wires), :data:`TIER_LAUNCHES` (per precision tier),
+(float32 batches, the float32 wire included), :data:`PROGRAM_LAUNCHES` (the
+dequantising wires), :data:`TIER_LAUNCHES` (per precision tier),
 :data:`FRAMES_LAUNCHES` (frames input) and :data:`GRID_LAUNCHES` (slabs of
 the grid layout), and per layout in :data:`LAYOUT_LAUNCHES`.
 """
@@ -91,9 +98,11 @@ __all__ = [
     "GRID_LAUNCHES",
     "LAYOUT_LAUNCHES",
     "ENVELOPE",
+    "LAYOUTS",
     "CtaChoice",
     "cta_choice",
     "col_group_for",
+    "round_chunks",
     "TIERS",
     "WIRE_DTYPES",
     "FusedOperands",
@@ -107,6 +116,8 @@ __all__ = [
     "tile_conv_bank_bf16",
     "split_operands",
     "split_dft_reference",
+    "tc_first_layer",
+    "tile_conv_bank_tf32",
     "cta_frames",
     "smem_bytes",
     "stage_shares",
@@ -144,17 +155,36 @@ BF16_STEP_ROWS = 16
 BF16_STEP_ORDER = tuple(8 * (p // 8) + (p % 8) // 2 + 4 * (p % 2) for p in range(16))
 # An H100's SMs (for choosing a tile where no card can be asked), the shared
 # memory and registers of one, and the registers a thread of the kernel
-# takes at most (ptxas reports 106-114 for the fp32 forms; the build log has
-# every instantiation's).
+# takes at most in each layout, the resident one with its fp32 first layer
+# on the CUDA or the tensor cores (ptxas on an H100 build, CUDA 12.8:
+# 75-109, 117-121, 111-149 and 127-200; chip_smoke.py phase 2 holds every
+# instantiation to its figure). A thread holds registers in eights, so 121
+# takes 128: two CTAs of 256 threads an SM either way in the resident
+# layout, one in the others.
 H100_SMS = 132
 SM_SMEM = 233472
 SM_REGISTERS = 65536
-KERNEL_REGISTERS = 120
+KERNEL_REGISTERS = {"resident": 120, "resident tc": 128, "span": 152, "streamed": 200}
 # Dynamic shared memory one CTA may opt in to on Hopper (227 KB).
 SMEM_LIMIT = 232448
 # Floats past a k-block's rows between two staged frames of the streamed
-# layout (csrc/fused_detector.cu kRowPad).
+# layout, the row stride of the chunked first layer's product, and the
+# stages of its bank ring in the streamed layout (csrc/fused_detector.cu
+# kRowPad, kProdLd, kConvRingStreamed).
 STREAM_ROW_PAD = 4
+PROD_LD = DFT_UNIT_COLS + 8
+CONV_RING_STREAMED = 2
+# The streamed layout's stages of C and of A (csrc/fused_detector.cu
+# kStreamStages, kAStages).
+STREAM_STAGES = 4
+A_STAGES = 3
+# conv_passes of the fp32 first layer on the tensor cores (three TF32
+# products of split operands, csrc/fused_detector.cu kConvTf32), its rows
+# per k-step, and the T*h1 from which the kernel takes it over its CUDA-core
+# first layer (chip_smoke.py phase 22 times both).
+CONV_TF32 = -3
+TF32_STEP_ROWS = 8
+TC_FIRST_LAYER_COLS = 160
 # The geometries every entry takes on the card, each wire, input form, tier
 # and net form (cta_choice: the resident layout where it fits, else the
 # streamed one, which fits every geometry inside; a geometry outside may
@@ -188,7 +218,7 @@ TIER_LAUNCHES = {tier: 0 for tier in TIERS}
 FRAMES_LAUNCHES = 0
 GRID_LAUNCHES = 0
 # Launches per shared-memory layout (CtaChoice.layout), from any entry.
-LAYOUT_LAUNCHES = {"resident": 0, "streamed": 0}
+LAYOUT_LAUNCHES = {"resident": 0, "span": 0, "streamed": 0}
 # bf16 k-step: split_operands pads the untiled halves to it
 FRAG = 16
 
@@ -225,6 +255,9 @@ class FusedOperands(NamedTuple):
     # layout, see tile_dft_matrix_bf16 and tile_conv_bank_bf16
     c_bf16: torch.Tensor | None = None
     w1g_bf16: torch.Tensor | None = None
+    # for the fp32 first layer on the tensor cores (tc_first_layer): the
+    # conv filter bank split into TF32 halves, see tile_conv_bank_tf32
+    w1g_tf32: torch.Tensor | None = None
 
 
 def fusable(spec: DetectorSpec) -> bool:
@@ -294,6 +327,7 @@ def fold_constants(spec: DetectorSpec, params: dict, device) -> FusedOperands:
         c_tiled=tile_dft_matrix(c_t),
         c_bf16=tile_dft_matrix_bf16(c_t),
         w1g_bf16=tile_conv_bank_bf16(w1_t),
+        w1g_tf32=tile_conv_bank_tf32(w1_t) if tc_first_layer(spec) else None,
     )
 
 
@@ -400,6 +434,40 @@ def tile_conv_bank_bf16(w1: torch.Tensor) -> torch.Tensor:
     return tiled.squeeze(2).transpose(0, 1).contiguous()
 
 
+def tc_first_layer(spec: DetectorSpec) -> bool:
+    """Whether the kernel computes the fp32 first layer on the tensor cores
+    (the conv filter-bank GEMM in three TF32 products, chunk by chunk, as
+    the tiers compute theirs) rather than as dot products on the CUDA
+    cores: where T*h1 is at least :data:`TC_FIRST_LAYER_COLS`. The sample
+    net (T*h1 = 40) keeps the CUDA cores."""
+    return spec.time_range * spec.net.layer_sizes[0][1] >= TC_FIRST_LAYER_COLS
+
+
+def _conv_bank(w1: torch.Tensor) -> torch.Tensor:
+    """The conv filter bank ``w1g[k, t*h1 + j] = w1[t, k, j]`` of a folded
+    ``w1`` [..., T, bins, h1]: ``[..., bins, T*h1]``."""
+    t_range, b, h1 = w1.shape[-3:]
+    return w1.transpose(-3, -2).reshape(*w1.shape[:-3], b, t_range * h1)
+
+
+def tile_conv_bank_tf32(w1: torch.Tensor) -> torch.Tensor:
+    """The kernel's operand for the fp32 first layer on the tensor cores,
+    from one net's folded ``w1`` [T, bins, h1]: the conv filter bank
+    zero-padded to whole k-steps of 8 bins and chunks of 64 columns, split
+    into TF32 halves and tiled as one k-step of C is
+    (:func:`tile_dft_matrix`): ``[2 (hi, lo), steps, chunks, 8, 2, 8, 4]`` =
+    halves x k-steps of 8 rows x chunks of 64 columns x blocks of 8 columns
+    x halves of a k-step x column x row."""
+    t_range, b, h1 = w1.shape
+    padded = w1.new_zeros((_round_up(b, TF32_STEP_ROWS), _round_up(t_range * h1, DFT_UNIT_COLS)))
+    padded[:b, : t_range * h1] = _conv_bank(w1)
+    rows, cols = padded.shape
+    halves = torch.stack(_tf32_hi_lo(padded))  # [2, rows, cols]
+    t = halves.reshape(2, rows // 8, 2, 4, cols // DFT_UNIT_COLS, 8, 8)
+    # (half, step, k half, k, chunk, column block, column)
+    return t.permute(0, 1, 4, 5, 2, 6, 3).contiguous()
+
+
 def split_dft_reference(frames: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The kernel's full-fp32 band DFT in plain PyTorch: ``[..., window]`` frames
     and the folded ``c`` [window, 2*bins] -> ``[..., 2*bins]`` (re | im) as
@@ -470,6 +538,7 @@ def fold_constants_stacked(
         c_tiled=f0.c_tiled.to(device),
         c_bf16=f0.c_bf16.to(device),
         w1g_bf16=stack(f.w1g_bf16 for f in folds),
+        w1g_tf32=stack(f.w1g_tf32 for f in folds) if f0.w1g_tf32 is not None else None,
     )
 
 
@@ -914,6 +983,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sd_fused_detector_c_chunks.restype = i
     lib.sd_fused_detector_conv_bank_floats.argtypes = [i, i, i]
     lib.sd_fused_detector_conv_bank_floats.restype = ll
+    lib.sd_fused_detector_tf32_bank_floats.argtypes = [i, i, i]
+    lib.sd_fused_detector_tf32_bank_floats.restype = ll
     lib.sd_fused_detector_set_profile.argtypes = [p]
     lib.sd_fused_detector_set_profile.restype = None
     lib.sd_error_string.argtypes = [i]
@@ -934,70 +1005,104 @@ def _dft_chunks(spec: DetectorSpec) -> int:
     return -(-2 * DFT_GROUP_BINS * -(-spec.n_bins // DFT_GROUP_BINS) // DFT_UNIT_COLS)
 
 
+def _conv_passes(spec: DetectorSpec, tier: str | None, tc: bool | None = None) -> int:
+    """The kernel's ``conv_passes``: a tier's bf16 products, else
+    :data:`CONV_TF32` for the fp32 first layer on the tensor cores (``tc``,
+    by default :func:`tc_first_layer`), else 0 for the CUDA cores."""
+    if tier:
+        return TIERS[tier][1]
+    return CONV_TF32 if (tc_first_layer(spec) if tc is None else tc) else 0
+
+
 def smem_bytes(spec: DetectorSpec, frames: int, max_width: int,
                tier: str | None = None, frames_input: bool = False,
-               col_group: int = 0) -> int:
+               col_group: int = 0, tc: bool | None = None) -> int:
     """Dynamic shared memory of one CTA of the kernel that transforms
     ``frames`` frames under ``tier`` (a :data:`TIERS` key, None for full
-    fp32), from samples or with ``frames_input`` from a frames matrix
-    (``smem_floats`` of ``csrc/fused_detector.cu``).
+    fp32), from samples or with ``frames_input`` from a frames matrix, in
+    the layout ``col_group`` names (``smem_floats`` of
+    ``csrc/fused_detector.cu``). ``tc`` forces the fp32 first layer onto the
+    tensor cores or off them (default :func:`tc_first_layer`).
 
     The resident layout (``col_group`` 0): the sample span (or the frame
     rows at a stride of the window rounded up to 32, plus 4), the stages of
     C's row blocks (both halves), the spectrogram, its row sums and two
     activation buffers. Under a bf16 first layer the first region also
     holds that layer's product ([frames, 64 per chunk of T*h1 columns + 8])
-    and the stages its tiled filter bank (both halves).
+    and the stages its tiled filter bank (both halves); under the fp32 one
+    on the tensor cores the first region holds one chunk of its product
+    ([frames, 72]) and the stages its bank ring.
 
-    The streamed layout (``col_group`` chunks of C a pass over k): the
-    stages of C over those chunks (under a bf16 first layer at least one
-    k-step of one chunk of its bank and that chunk's product [frames, 72]);
-    the first activation buffer, or during the band DFT two k-blocks of A
-    [frames, rows + 4] and the mu-law table; the spectrogram, or after the
-    first layer the second activation buffer; the row sums and norms."""
-    dft_passes, conv_passes = TIERS[tier] if tier else (0, 0)
+    The span layout (``col_group`` -n, n chunks of C a pass over k): the
+    span or frame rows (later one chunk of a chunked first layer's product,
+    then the second activation buffer), the stages of C over n chunks, the
+    spectrogram, the first activation buffer, the row sums and norms.
+
+    The streamed layout (``col_group`` n): :data:`STREAM_STAGES` stages of C
+    over n chunks (under a chunked first layer at least two k-steps of one
+    chunk of its bank and that chunk's product [frames, 72]); the first
+    activation buffer, or during the band DFT :data:`A_STAGES` k-blocks of
+    A [frames, rows + 4] and the mu-law table; the spectrogram, or after
+    the first layer the second activation buffer; the row sums and
+    norms.
+
+    A chunked first layer: the fp32 one on the tensor cores, or a bf16 one
+    outside the resident layout."""
+    dft_passes = TIERS[tier][0] if tier else 0
+    conv_passes = _conv_passes(spec, tier, tc)
     step = 8 * DFT_UNIT_COLS  # floats of one k-step of one 64-column chunk
     tile = frames - spec.time_range + 1
-    if col_group:
-        rows = DFT_BF16_BLOCK_ROWS if dft_passes else DFT_BLOCK_ROWS
-        ring = DFT_STAGES * 2 * 2 * step * col_group
-        if conv_passes:
-            ring = max(ring, 2 * step + frames * (DFT_UNIT_COLS + 8))
-        acts = _round_up(tile * max_width, 4)
-        act_a = max(acts, 2 * frames * (rows + STREAM_ROW_PAD) + 256)
-        spec_region = max(frames * spec.n_bins, acts)
-        return 4 * (ring + act_a + spec_region + _round_up(frames + tile, 4))
     gap, _ = normalize_overlap(spec.window_overlap)
     window = spec.window_length
     if frames_input:
-        staged = frames * (_round_up(window, 32) + 4)
+        rows = frames * (_round_up(window, 32) + 4)
     else:
-        staged = _round_up((frames - 1) * spec.hop + gap + window, 4)
+        rows = _round_up((frames - 1) * spec.hop + gap + window, 4)
+    chunked = conv_passes == CONV_TF32 or (conv_passes > 0 and col_group != 0)
+    product = frames * PROD_LD if chunked else 0
+    acts = _round_up(tile * max_width, 4)
+    sums = _round_up(frames + tile, 4)
+    stage = 2 * 2 * step * abs(col_group)  # one row block of C over a pass's chunks
+    if col_group < 0:
+        return 4 * (max(rows, acts, product) + DFT_STAGES * stage
+                    + _round_up(frames * spec.n_bins, 4) + acts + sums)
+    if col_group > 0:
+        a_rows = DFT_BF16_BLOCK_ROWS if dft_passes else DFT_BLOCK_ROWS
+        ring = STREAM_STAGES * stage
+        if chunked:
+            ring = max(ring, CONV_RING_STREAMED * 2 * step + product)
+        act_a = max(acts, A_STAGES * frames * (a_rows + STREAM_ROW_PAD) + 256)
+        return 4 * (ring + act_a + max(frames * spec.n_bins, acts) + sums)
     stages = DFT_STAGES * 2 * 2 * step * _dft_chunks(spec)
-    if conv_passes:
+    staged = max(rows, product)
+    if conv_passes > 0:
         chunks = -(-spec.time_range * spec.net.layer_sizes[0][1] // DFT_UNIT_COLS)
         staged = max(staged, frames * (DFT_UNIT_COLS * chunks + 8))
         stages = max(stages, 2 * -(-spec.n_bins // BF16_STEP_ROWS) * chunks * step)
     return 4 * (staged + stages + frames * spec.n_bins + frames + 2 * tile * max_width)
 
 
+LAYOUTS = ("resident", "span", "streamed")
+
+
 class CtaChoice(NamedTuple):
     """How the kernel cuts one launch: ``frames`` a CTA transforms, and its
-    shared-memory layout: resident (``col_group`` 0) or streamed over
-    ``col_group`` chunks of C a pass over k (:func:`smem_bytes`)."""
+    shared-memory layout, named by ``col_group``: resident (0), span (-n:
+    the span resident, C streamed over n chunks a pass over k) or streamed
+    (n: A streamed too) (:func:`smem_bytes`)."""
 
     frames: int
     col_group: int = 0
 
     @property
     def layout(self) -> str:
-        return "streamed" if self.col_group else "resident"
+        return LAYOUTS[0 if self.col_group == 0 else (1 if self.col_group < 0 else 2)]
 
 
 def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
                n_sm: int = H100_SMS, tier: str | None = None,
                frames_input: bool = False, workload: str | None = None,
-               device_kind: str | None = None) -> CtaChoice:
+               device_kind: str | None = None, layouts: tuple = LAYOUTS) -> CtaChoice:
     """Frames and layout of one CTA of the kernel for a launch of ``lanes``
     x ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
     input form as :func:`smem_bytes` takes them.
@@ -1007,15 +1112,17 @@ def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
     timeRange 10, 64 frames: 1.16), while a CTA's time hardly depends on
     ``f`` (its chain of barriers and loads does not). The choice over
     :data:`CTA_FRAMES` takes the fewest waves, ``ceil(CTAs / (n_sm * CTAs
-    resident on an SM))``, then the fewest frames in all, then the larger
+    resident on an SM))`` (by shared memory and :data:`KERNEL_REGISTERS`),
+    then the fewest frames in all, then the larger
     ``f``: 64 frames for a live bucket on 256 lanes, 128 for one 60 s
     stream and for long lanes. A ``timeRange`` above every choice takes the
     next multiple of 64.
 
-    The resident layout is taken wherever a choice fits in shared memory
-    (the sample geometry's every path); else the streamed one, each ``f``
-    with the most chunks of C a pass that fit. Raises, naming
-    :data:`ENVELOPE`, when neither fits.
+    The ``layouts`` are tried in order (:func:`col_group_for`): resident
+    wherever a choice fits (the sample geometry's every path), else for
+    each ``f`` of 128 frames or more the span layout, else the streamed
+    one, with a round's chunks of C a pass (:func:`round_chunks`). Raises,
+    naming :data:`ENVELOPE`, when none fits.
 
     With a ``workload`` (``single``, ``batched`` or ``distinct``) and a
     ``device_kind`` (``tuning.device_kind``), a full-fp32 launch from
@@ -1033,12 +1140,16 @@ def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
     choices = _frame_choices(spec)
     best = None
     for frames in choices:
-        group = col_group_for(spec, frames, max_width, tier, frames_input)
+        group = col_group_for(spec, frames, max_width, tier, frames_input, layouts)
         if group is None:
             continue
         smem = smem_bytes(spec, frames, max_width, tier, frames_input, group)
         threads = 128 * min(2, frames // 64 * _dft_chunks(spec))
-        resident = max(1, min(SM_SMEM // (smem + 1024), SM_REGISTERS // (KERNEL_REGISTERS * threads)))
+        layout = CtaChoice(frames, group).layout
+        if layout == "resident" and tier is None and tc_first_layer(spec):
+            layout = "resident tc"
+        regs = KERNEL_REGISTERS[layout] * threads
+        resident = max(1, min(SM_SMEM // (smem + 1024), SM_REGISTERS // regs))
         ctas = lanes * -(-n_evals // (frames - halo))
         key = (-(-ctas // (n_sm * resident)), ctas * frames, -frames)
         if best is None or key < best[0]:
@@ -1061,19 +1172,41 @@ def _frame_choices(spec: DetectorSpec) -> list[int]:
     return [f for f in CTA_FRAMES if f > halo] or [_round_up(halo + 1, 64)]
 
 
+def round_chunks(spec: DetectorSpec, frames: int) -> int:
+    """Chunks of C one round of a CTA's two warpgroups covers outside the
+    resident layout, each warpgroup taking a 64-frame group and two chunks
+    (two chains of products), its units going chunk by chunk: two where
+    the CTA has two 64-frame groups or more, four where it has one (as far
+    as the bins fill them)."""
+    return min(_dft_chunks(spec), 2 * max(1, 2 // (frames // 64)))
+
+
 def col_group_for(spec: DetectorSpec, frames: int, max_width: int,
-                  tier: str | None = None, frames_input: bool = False) -> int | None:
+                  tier: str | None = None, frames_input: bool = False,
+                  layouts: tuple = LAYOUTS) -> int | None:
     """The layout a CTA of ``frames`` frames takes, as :func:`cta_choice`
-    takes it: 0 (resident) where it fits there, unless no frames choice
-    fits there; then the most chunks of C a streamed pass that fit; None
-    where nothing fits."""
+    takes it, the ``layouts`` tried in order: 0 (resident) where some
+    frames choice fits there; else the span layout (-n) where this
+    ``frames`` is 128 or more and fits there; else the streamed one (n).
+    Outside the resident layout a pass over k covers n =
+    :func:`round_chunks` chunks of C, or fewer where they do not fit: more
+    would stream chunks that a round does not use. A 64-frame CTA streams
+    A: a span pass serves one 64-frame group a block of C, from a shallower
+    ring than the streamed layout's, and on an H100 the span layout is
+    mostly slower there than the launch taken without it, and faster at 128
+    frames (``scripts/k1_choices.py layouts`` times both). None where this
+    ``frames`` does not fit the layout taken."""
 
-    def fits(f: int, group: int) -> bool:
-        return smem_bytes(spec, f, max_width, tier, frames_input, group) <= SMEM_LIMIT
+    def fits(group: int) -> bool:
+        return smem_bytes(spec, frames, max_width, tier, frames_input, group) <= SMEM_LIMIT
 
-    if any(fits(f, 0) for f in _frame_choices(spec)):
-        return 0 if fits(frames, 0) else None
-    return next((g for g in range(_dft_chunks(spec), 0, -1) if fits(frames, g)), None)
+    if "resident" in layouts and any(
+            smem_bytes(spec, f, max_width, tier, frames_input) <= SMEM_LIMIT
+            for f in _frame_choices(spec)):
+        return 0 if fits(0) else None
+    signs = (-1, 1) if "span" in layouts and frames >= 128 else (1,)
+    return next((sign * g for sign in signs for g in range(round_chunks(spec, frames), 0, -1)
+                 if fits(sign * g)), None)
 
 
 def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
@@ -1098,7 +1231,7 @@ def _device_kind(device: torch.device) -> str:
     return device_kind(device)
 
 
-STAGES = ("staging", "C wait", "band DFT", "|X|", "first layer", "rest")
+STAGES = ("staging", "C wait", "band DFT", "A and C copies", "|X|", "first layer", "rest")
 
 
 def stage_shares(launch, device="cuda") -> dict:
@@ -1108,8 +1241,9 @@ def stage_shares(launch, device="cuda") -> dict:
     ``clock64()`` counters on, and returns each
     stage's share of the cycles the CTAs' first threads counted
     (:data:`STAGES`: staging the span, waiting for a block of C, the wgmma
-    steps, |X| and scaling, row sums and first layer, hidden layers and
-    output). CTAs that share an SM slow each other, so the shares say where
+    steps, the streamed layout's copies of the next block of A and C while
+    the tensor cores run, |X| and scaling, row sums and first layer, hidden
+    layers and output). CTAs that share an SM slow each other, so the shares say where
     a CTA waits, not what a stage costs alone. For measurements only."""
     lib = _library()
     counters = torch.zeros(8, dtype=torch.int64, device=device)
@@ -1122,7 +1256,7 @@ def stage_shares(launch, device="cuda") -> dict:
         lib.sd_fused_detector_set_profile(None)
     c = counters.cpu().numpy().astype(np.float64)
     total = float(c.sum())
-    order = (0, 4, 5, 1, 2, 3)
+    order = (0, 4, 5, 6, 1, 2, 3)
     return {name: float(c[i]) / total for name, i in zip(STAGES, order)}
 
 
@@ -1130,8 +1264,8 @@ def _check_launchable(x: torch.Tensor, folded: FusedOperands, lanes: int) -> Non
     """Raise unless ``x`` lies on a Hopper card with ``folded`` beside it."""
     if x.device.type != "cuda":
         raise ValueError(f"no fused detector kernel for device {x.device}")
-    operands = (folded.c, folded.c_tiled, folded.c_bf16, folded.w1g_bf16, folded.w1,
-                folded.c1, folded.mids_flat, folded.out_a, folded.out_c)
+    operands = (folded.c, folded.c_tiled, folded.c_bf16, folded.w1g_bf16, folded.w1g_tf32,
+                folded.w1, folded.c1, folded.mids_flat, folded.out_a, folded.out_c)
     if any(o is not None and o.device != x.device for o in operands):
         raise ValueError("folded operands and samples lie on different devices")
     if folded.per_lane and folded.w1.shape[0] != lanes:
@@ -1158,6 +1292,7 @@ def _launch(
     out: torch.Tensor | None = None,
     frames: int | None = None,
     col_group: int | None = None,
+    tc: bool | None = None,
 ) -> torch.Tensor:
     """One launch over lanes ``[lane0, lane0 + lanes)`` of ``xs`` (on the
     card: ``[C, n]`` samples of the wire's type or, with ``frames_input``,
@@ -1166,9 +1301,11 @@ def _launch(
     returns, under ``tier`` (a :data:`TIERS` key, None for full fp32). The
     lanes' slice of every operand is a pointer offset. ``frames`` per CTA
     and the layout's ``col_group`` default to :func:`cta_choice`'s (the
-    tuner times other frames, ``chip_smoke.py`` forces the streamed layout
-    where the resident one fits); ``frames`` alone takes the resident
-    layout. Counts the launch in :data:`LAYOUT_LAUNCHES`."""
+    tuner times other frames, ``chip_smoke.py`` forces the other layouts
+    that fit); ``frames`` alone takes the resident layout. ``tc`` forces the
+    fp32 first layer onto the tensor cores or off them (default:
+    :func:`tc_first_layer`; ``chip_smoke.py`` times both). Counts the launch
+    in :data:`LAYOUT_LAUNCHES`."""
     c, n = xs.shape[:2]
     lanes = c - lane0 if lanes is None else lanes
     want = (3, spec.window_length) if frames_input else (2, n)
@@ -1188,7 +1325,8 @@ def _launch(
     widths = [w for _, w in spec.net.layer_sizes]
     gap, _ = normalize_overlap(spec.window_overlap)
     geometry = (spec.window_length, spec.hop, gap, spec.n_bins, spec.time_range)
-    dft_passes, conv_passes = TIERS[tier] if tier else (0, 0)
+    dft_passes = TIERS[tier][0] if tier else 0
+    conv_passes = _conv_passes(spec, tier, tc)
     cs = folded.c_bf16 if dft_passes else folded.c_tiled
     want_c = (lib.sd_fused_detector_c_blocks(spec.window_length, dft_passes), 2, 2,
               lib.sd_fused_detector_c_chunks(spec.n_bins), 8, 2, 8, 8 if dft_passes else 4)
@@ -1196,13 +1334,23 @@ def _launch(
         raise ValueError(
             f"the fused kernel takes C tiled as {want_c} "
             f"({'tile_dft_matrix_bf16' if dft_passes else 'tile_dft_matrix'})")
-    if conv_passes:
+    bank = None
+    if conv_passes == CONV_TF32:
+        bank = folded.w1g_tf32
+        if bank is None:  # a first layer forced onto the tensor cores
+            tiled = [tile_conv_bank_tf32(w) for w in (folded.w1 if folded.per_lane
+                                                     else folded.w1[None])]
+            bank = torch.stack(tiled) if folded.per_lane else tiled[0]
+        floats = lib.sd_fused_detector_tf32_bank_floats(spec.n_bins, spec.time_range, widths[0])
+        name = "tile_conv_bank_tf32 for the fp32 first layer on the tensor cores"
+    elif conv_passes:
         bank = folded.w1g_bf16
         floats = lib.sd_fused_detector_conv_bank_floats(spec.n_bins, spec.time_range, widths[0])
+        name = "tile_conv_bank_bf16 under this tier"
+    if conv_passes:
         one_net = bank[0] if bank is not None and folded.per_lane else bank
-        if one_net is None or one_net.numel() * 2 != 4 * floats:
-            raise ValueError("the fused kernel takes the conv filter bank of "
-                             "tile_conv_bank_bf16 under this tier")
+        if one_net is None or one_net.numel() * one_net.element_size() != 4 * floats:
+            raise ValueError(f"the fused kernel takes the conv filter bank of {name}")
     if frames is None:
         workload = "distinct" if folded.per_lane else "single" if lanes == 1 else "batched"
         frames, chosen = cta_choice(spec, n_evals, lanes, max(widths), _sm_count(xs.device),
@@ -1212,7 +1360,7 @@ def _launch(
     smem = lib.sd_fused_detector_smem_bytes(
         *geometry, frames, max(widths), widths[0], dft_passes, conv_passes, int(frames_input),
         col_group)
-    mirror = smem_bytes(spec, frames, max(widths), tier, frames_input, col_group)
+    mirror = smem_bytes(spec, frames, max(widths), tier, frames_input, col_group, tc)
     if smem != mirror:
         raise RuntimeError(
             f"the kernel's shared memory ({smem} bytes) is not smem_bytes' ({mirror})")
@@ -1243,7 +1391,7 @@ def _launch(
     scale = MULAW_INV127 if wire == "mulaw8" else INT16_SCALE
     err = lib.sd_fused_detector(
         at(xs, False), WIRE_CODES[wire], lanes, xs.stride(0), n, n_evals,
-        cs.data_ptr(), at(folded.w1), at(folded.w1g_bf16) if conv_passes else None,
+        cs.data_ptr(), at(folded.w1), at(bank) if conv_passes else None,
         at(folded.c1), at(folded.mids_flat), at(folded.out_a), at(folded.out_c),
         at(out, False), int(folded.per_lane),
         *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), frames,
@@ -1257,7 +1405,7 @@ def _launch(
             "fused detector kernel launch failed: "
             f"{lib.sd_error_string(err).decode()} (cudaError {err})"
         )
-    LAYOUT_LAUNCHES["streamed" if col_group else "resident"] += 1
+    LAYOUT_LAUNCHES[CtaChoice(frames, col_group).layout] += 1
     return out
 
 

@@ -15,9 +15,10 @@ fit in shared memory are skipped.
 
 Cache: ``~/.cache/syllable_detector_tpu_torch/tune.json`` (override with
 ``SD_TUNE_CACHE``), written atomically under a lock; a corrupt file reads
-as empty. Keys are the card (``cuda:`` and its name), the geometry, the
-workload, and lanes and evaluations bucketed to powers of two, so one tune
-covers a deployment's neighbourhood.
+as empty. Keys are the kernel's revision (:data:`KERNEL_REVISION`), the
+card (``cuda:`` and its name), the geometry, the workload, and lanes and
+evaluations bucketed to powers of two, so one tune covers a deployment's
+neighbourhood, and a tune of an older kernel is not consulted.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 __all__ = [
     "Trial",
     "WORKLOADS",
+    "KERNEL_REVISION",
     "geometry_key",
     "tune_cache_path",
     "reset_tune_cache",
@@ -43,6 +45,10 @@ __all__ = [
 ]
 
 WORKLOADS = ("single", "batched", "distinct")
+# The fused kernel's revision in the cache's keys: bumped whenever a change
+# to the kernel's layouts or arithmetic can move which frames per CTA win,
+# so that what an older kernel measured is not taken for this one's.
+KERNEL_REVISION = 2
 # evaluations of the single-stream tune, as the JAX package's tune_single
 SINGLE_EVALS = 1 << 15
 
@@ -148,7 +154,8 @@ def _bucket(n: int) -> int:
 
 def tune_key(kind: str, spec, workload: str, lanes: int, n_evals: int) -> str:
     return "/".join(
-        (kind, geometry_key(spec), workload, f"c{_bucket(lanes)}", f"ne{_bucket(n_evals)}")
+        (f"r{KERNEL_REVISION}", kind, geometry_key(spec), workload, f"c{_bucket(lanes)}",
+         f"ne{_bucket(n_evals)}")
     )
 
 

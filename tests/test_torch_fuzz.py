@@ -90,12 +90,14 @@ def geometries():
 
 def admitted(spec, n_evals, lanes, tier, frames_input):
     """The kernel's choice for a launch, checked: whole wgmma tiles, the
-    resident layout wherever it fits, shared memory within the card's."""
+    resident layout wherever it fits, else the span layout wherever the
+    chosen CTA has 128 frames or more and fits it, shared memory within the
+    card's."""
     width = max(w for _, w in spec.net.layer_sizes)
     choice = tfused.cta_choice(spec, n_evals, lanes, width, tier=tier,
                                frames_input=frames_input)
     assert choice.frames % 64 == 0 and choice.frames > spec.time_range - 1
-    assert 0 <= choice.col_group <= tfused._dft_chunks(spec)
+    assert abs(choice.col_group) <= tfused._dft_chunks(spec)
     smem = tfused.smem_bytes(spec, choice.frames, width, tier, frames_input, choice.col_group)
     assert smem <= tfused.SMEM_LIMIT
     resident_fits = any(
@@ -103,6 +105,10 @@ def admitted(spec, n_evals, lanes, tier, frames_input):
         for f in tfused.CTA_FRAMES if f > spec.time_range - 1
     )
     assert (choice.col_group == 0) == resident_fits
+    # the span layout for CTAs of 128 frames or more
+    span_fits = tfused.smem_bytes(
+        spec, choice.frames, width, tier, frames_input, -1) <= tfused.SMEM_LIMIT
+    assert (choice.col_group < 0) == (span_fits and choice.frames >= 128 and not resident_fits)
     return choice
 
 
@@ -115,7 +121,7 @@ def test_fused_kernel_admits_every_fuzz_and_wide_geometry(
     for name, spec in geometries:
         layouts = {admitted(spec, n_evals, lanes, tier, frames_input).layout
                    for n_evals in (1, 128, 20000)}
-        if "streamed" in layouts:
+        if layouts != {"resident"}:
             streamed.append(name)
     # the resident layout does not hold 29 of the generator's seeds in fp32
     # and under the fast tier (fewer from frames), all at fft 512; each wide
@@ -157,14 +163,19 @@ def test_outside_the_envelope_raises_naming_it():
         fixtures.geometry_config(fft=1024, freq=(0.0, 22050.0), time_range=1,
                                  hidden=(256,)), "cpu")[0]
     b = spec.n_bins
-    ring = 3 * 2 * 2 * 512
+    ring = 4 * 2 * 2 * 512  # four stages of C, one chunk each
     acts = 64 * 256
-    assert tfused.smem_bytes(spec, 64, 256, None, False, 1) == 4 * (ring + acts + 64 * b + 128)
-    # a bf16 first layer's bank step and product, and a tier's A blocks of 32 rows
+    # T*h1 = 256: the fp32 first layer's bank ring and product where it runs
+    # on the tensor cores
+    fp32_ring = max(ring, 2 * 1024 + 64 * 72) if tfused.tc_first_layer(spec) else ring
+    assert tfused.smem_bytes(spec, 64, 256, None, False, 1) == 4 * (
+        fp32_ring + acts + 64 * b + 128)
+    # a bf16 first layer's two bank steps and product, and a tier's three A
+    # blocks of 32 rows
     assert tfused.smem_bytes(spec, 128, 256, "split", False, 1) == 4 * (
-        max(ring, 1024 + 128 * 72) + 128 * 256 + 128 * b + 256)
+        max(ring, 2 * 1024 + 128 * 72) + 128 * 256 + 128 * b + 256)
     assert tfused.smem_bytes(spec, 64, 4, "split", False, 1) == 4 * (
-        ring + max(64 * 4, 2 * 64 * 36 + 256) + 64 * b + 128)
+        max(ring, 2 * 1024 + 64 * 72) + max(64 * 4, 3 * 64 * 36 + 256) + 64 * b + 128)
 
 
 def perturbed(params, seed):

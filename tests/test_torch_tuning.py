@@ -141,6 +141,29 @@ def test_cta_frames_consults_the_cache(spec, tune_cache):
         assert fused.cta_frames(spec, 2048, 64, 4, **kw) == analytic
 
 
+def test_entry_of_an_older_kernel_is_ignored(spec, tune_cache):
+    """What a tune measured on an older kernel (its key without the kernel's
+    revision, or with an earlier one) is not consulted; the same entry
+    under this kernel's key is."""
+    analytic = fused.cta_frames(spec, 2048, 64, 4)
+    other = 128 if analytic == 64 else 64
+    key = tuning.tune_key("cpu", spec, "distinct", 64, 2048)
+    revision = f"r{tuning.KERNEL_REVISION}/"
+    assert key.startswith(revision)
+    unrevised = key[len(revision):]
+    earlier = f"r{tuning.KERNEL_REVISION - 1}/" + unrevised
+    assert unrevised == "/".join(("cpu", tuning.geometry_key(spec), "distinct", "c64", "ne2048"))
+    kw = dict(workload="distinct", device_kind="cpu")
+    tune_cache.parent.mkdir(parents=True)
+    tune_cache.write_text(json.dumps({unrevised: {"frames": other}, earlier: {"frames": other}}))
+    tuning.reset_tune_cache()
+    assert tuning.tuned_cta_frames("cpu", spec, "distinct", 64, 2048) is None
+    assert fused.cta_frames(spec, 2048, 64, 4, **kw) == analytic
+    tune_cache.write_text(json.dumps({key: {"frames": other}}))
+    tuning.reset_tune_cache()
+    assert fused.cta_frames(spec, 2048, 64, 4, **kw) == other
+
+
 @pytest.fixture
 def net(tmp_path):
     path = tmp_path / "net.txt"
