@@ -45,11 +45,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
                60 s inputs: the resampler's framing for 48k->44.1k,
                44.1k->48k, 96k->44.1k, 32k->44.1k and 22.05k->44.1k (hop 1),
                and the six framings of the JAX package's framed GEMM tests
-               with a zero-padded tail and a dense random G; each line
-               gives the tiling, the rows of G a column tile sums over and
-               the kernel's device time. Every case again with a NaN, an
-               Inf and a -Inf in the samples: NaN and Inf in the same
-               places as in the plain version.
+               with a zero-padded tail and a dense random G; and the
+               resampler's framing of one 5 s channel at 48k->11.025k and
+               96k->44.1k (the band launch); each line gives the launch
+               taken, the rows of G a column tile sums over and the
+               kernel's device time. Every case again with a NaN, an Inf
+               and a -Inf in the samples: NaN and Inf in the same places as
+               in the plain version.
   10. corpus — the batched corpus scan, this slice's main path: 8 seeded
                2-channel 60 s chirp files at 44.1, 48 and 96 kHz (16 lanes,
                10 of them resampled on the card) through
@@ -190,7 +192,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
                version (phase 3's, 6's and 12's bounds, NaN in the same
                places) and bit for bit against the same launch in each
                other shared-memory layout that fits (resident, span,
-               streamed, or another chunk group); K2 on every ordered pair of
+               streamed, or another chunk group); K1f's every streamed
+               launch (int16 and mu-law) bit for bit against the same
+               launch on the float32 wire fed the samples the wire
+               dequantises to; K2 on every ordered pair of
                ``fixtures.RESAMPLE_RATES`` at the resampler's ratio and the
                exact one (1e-4/1e-4); the CLI (one file, and
                ``--batched``) fused against matmul on two wide nets. One
@@ -201,8 +206,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
                bound, the layout it took and its stage shares; at three
                of them one line with K1a's and K1e's time and stage shares
                in each layout that fits (``scripts/k1_stage_shares.py``);
-               one K2's at the exact 192k -> 11.025k. Then one line of each
-               phase's host wall.
+               one K2's at the exact 192k -> 11.025k; one line with K2 on a
+               5 s channel at ten rate pairs (kernel, plain, ``unfold @ g``,
+               bound, the launch taken). Then one line of each phase's host
+               wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -337,6 +344,12 @@ TUNE_EVALS = 2048
 # each timing
 GEOMETRY_SEEDS = range(1000, 1100)
 GEOMETRY_SECONDS = 2.0
+# K2 on short channels: one channel of SHORT_SECONDS, at the six rate pairs
+# where the long launch lost most to unfold @ g and at the four into the
+# sample net's rate
+SHORT_SECONDS = 5.0
+SHORT_PAIRS = ((48000, 11025), (192000, 11025), (44100, 8000), (22050, 8000), (96000, 11025),
+               (96000, 22050), (48000, 44100), (96000, 44100), (192000, 44100), (8000, 44100))
 GEOMETRY_LANES = 4
 GEOMETRY_TIMES = (3, 5)
 
@@ -410,16 +423,29 @@ def tile_of(spec, lanes: int, n: int, tier: str | None = None,
             f"{fused.smem_bytes(spec, frames, width, tier, frames_input)} B shared")
 
 
-def tiling_of(g: torch.Tensor, window: int, hop: int) -> str:
-    """The framed GEMM kernel's tiling of ``frames @ g`` and the rows of
+def tiling_of(x: torch.Tensor, g: torch.Tensor, window: int, overlap: int, n_frames: int) -> str:
+    """The framed GEMM kernel's launch for ``frames(x) @ g`` and the rows of
     ``g`` its column tiles sum over, as its wrapper chooses them."""
-    cut = fg.tiling(window, g.shape[1], hop)
+    cut = fg.launch_tiling(x, g, window, overlap, n_frames)
     bands = fg.column_bands(g, cut.cw)
     most = max(_round_up4(hi) - lo // 4 * 4 for lo, hi in bands)
     shown = ", ".join(f"[{lo}, {hi})" for lo, hi in bands[:3]) + (", ..." if len(bands) > 3 else "")
-    return (f"tiling: {cut.n_tiles} column tiles of {cut.cw}, {cut.frames} frames and "
-            f"{cut.threads} threads a CTA, {cut.ksplit} warps a unit, {cut.span_bytes} B shared, float4 samples "
+    staged = (f"band launch, {cut.group} column tile(s) a CTA, their {cut.rows} rows of G staged "
+              + (f"frame by frame at stride {cut.stride}" if cut.stride != hop_length(window, overlap)
+                 else "as one run") if cut.band else "long launch, the frames' span staged")
+    return (f"launch: {staged}; {fg.launch_ctas(cut, n_frames)} CTAs of {cut.frames} frames "
+            f"({cut.fpt} a thread) and {cut.threads} threads, {cut.n_tiles} column tiles of "
+            f"{cut.cw}, {cut.ksplit} warps a unit, {cut.span_bytes} B shared, float4 samples "
             f"{cut.vec}; rows of G per tile {shown}: at most {most} of {window}")
+
+
+def launch_of(x: torch.Tensor, g: torch.Tensor, window: int, overlap: int, n_frames: int) -> str:
+    """The framed GEMM's launch in a few words: CTAs, frames a CTA, column
+    tile, row split."""
+    cut = fg.launch_tiling(x, g, window, overlap, n_frames)
+    return (f"{'band' if cut.band else 'long'} {fg.launch_ctas(cut, n_frames)} CTAs x "
+            f"{cut.frames} frames, tile {cut.cw}{f' x {cut.group}' if cut.band else ''}, "
+            f"row split {cut.ksplit}")
 
 
 def _round_up4(v: int) -> int:
@@ -632,6 +658,7 @@ def reset_counts() -> None:
     fused.GRID_LAUNCHES = 0
     fused.LAYOUT_LAUNCHES = {layout: 0 for layout in fused.LAYOUT_LAUNCHES}
     fg.FRAMED_GEMM_LAUNCHES = 0
+    fg.LAUNCH_KINDS = {kind: 0 for kind in fg.LAUNCH_KINDS}
 
 
 def program_launches(wire: str) -> int:
@@ -979,6 +1006,16 @@ def phase_resample_kernel() -> float:
             x, in_rate, out_rate, device="cuda"
         )
         cases.append((rate_name(in_rate, out_rate), xin, g, w_len, overlap, frames))
+    # a short channel: the band launch
+    for in_rate, out_rate in ((48000, 11025), (96000, 44100)):
+        x = fixtures.chirp_audio(SHORT_SECONDS, 93, rate=in_rate)
+        xin, g, w_len, overlap, frames, _ = resample.polyphase_framing(
+            x, in_rate, out_rate, device="cuda")
+        if not fg.launch_tiling(xin, g, w_len, overlap, frames).band:
+            raise AssertionError(f"{rate_name(in_rate, out_rate)} on {SHORT_SECONDS:g} s: "
+                                 f"not the band launch")
+        cases.append((f"{rate_name(in_rate, out_rate)} {SHORT_SECONDS:g} s", xin, g, w_len,
+                      overlap, frames))
     noise = torch.from_numpy(
         rng.standard_normal(int(CORPUS_SECONDS * NET_RATE)).astype(np.float32)
     ).cuda()
@@ -1023,7 +1060,7 @@ def phase_resample_kernel() -> float:
             f"[{frames}, {g.shape[1]}] (hop {hop}), vs plain "
             f"max_abs {err:.3g} (rtol=1e-4, atol=1e-4); with a NaN, an Inf and a -Inf in the "
             f"samples: {int(np.isnan(b).sum())} NaN, {int(np.isinf(b).sum())} Inf in the same "
-            f"places; kernel {ms:.4f} ms device; {tiling_of(g, window, hop)} ok",
+            f"places; kernel {ms:.4f} ms device; {tiling_of(x, g, window, overlap, frames)} ok",
             flush=True,
         )
     return worst
@@ -1172,7 +1209,7 @@ def phase_corpus_times(scan: dict, card_line: str) -> dict:
             f"device ({kernel[1]:.4f} ms host enqueue), plain {plain[0]:.4f} ms device "
             f"({plain[1]:.4f} ms host enqueue), library unfold @ g {library[0]:.4f} ms device "
             f"({library[1]:.4f} ms host enqueue); bound {least[0]:.4f} ms ({least[1]}); "
-            f"{tiling_of(g, w_len, hop)}; whole "
+            f"{tiling_of(xin, g, w_len, overlap, frames)}; whole "
             f"polyphase_resample from numpy to numpy, host clock median of 5: "
             f"{statistics.median(whole):.3f} ms",
             flush=True,
@@ -2110,9 +2147,11 @@ def phase_capture(tmp: str, audio: np.ndarray, card_line: str) -> dict:
             raise AssertionError(f"{kind} capture: detections {sum(got)} against {sum(want)}")
         rows, worst = compare_events(log, sim_log, f"{kind} capture")
         pulses = fake.pulses
-        if ((pulses > 0) != (np.array(got) > 0)).any() or (pulses > np.array(got)).any():
-            raise AssertionError(f"{kind} capture: TTL pulses {pulses.tolist()[:8]} "
-                                 f"against detections {got[:8]}")
+        wrong = np.flatnonzero(((pulses > 0) != (np.array(got) > 0)) | (pulses > np.array(got)))
+        if len(wrong):
+            raise AssertionError(
+                f"{kind} capture: TTL pulses {pulses[wrong].tolist()[:8]} against detections "
+                f"{np.array(got)[wrong].tolist()[:8]} on channels {wrong.tolist()[:8]}")
         print(
             f"phase 18 capture [{card_line}]: --input {kind} --output {kind}, {LANES} channels x "
             f"{CAPTURE_SECONDS:g} s through a fake library ({CAPTURE_FRAMES} frames a read), "
@@ -2671,6 +2710,20 @@ def sweep_geometry(name: str, cfg, seed: int, worst: dict, layouts: dict) -> Non
         hold(f"K1f {wire}", got,
              fused.fused_batch_outputs_reference(spec, stacked, xw, wire, n_evals), *tol)
         other_layout(f"K1f {wire}", got, xw, GEOMETRY_LANES, wire=wire, folded_=stacked)
+        # the streamed layout stages the raw wire and dequantises it where
+        # the fragments are loaded: each of its launches equals, bit for
+        # bit, the same launch on the float32 wire fed the samples the wire
+        # dequantises to
+        chosen = fused.cta_choice(spec, n_evals, GEOMETRY_LANES, width)
+        xf = fused.dequant(xw, wire).contiguous()
+        for frames_, group in [tuple(chosen)] + other_layouts(spec, width, chosen, None, False):
+            if fused.CtaChoice(frames_, group).layout != "streamed":
+                continue
+            a = fused._launch(spec, stacked, xw, n_evals, wire=wire, frames=frames_, col_group=group)
+            b = fused._launch(spec, stacked, xf, n_evals, frames=frames_, col_group=group)
+            held(a, b, 0.0, 0.0, f"{name} K1f {wire} at {(frames_, group)} against K1e fed "
+                 f"its dequantised samples")
+            layouts[f"wire bit equal {wire}"] += 1
 
 
 def time_geometry(name: str, cfg, card_line: str) -> dict:
@@ -2690,6 +2743,8 @@ def time_geometry(name: str, cfg, card_line: str) -> dict:
     live16 = torch.from_numpy(to_wire(live.cpu().numpy(), "int16")).cuda()
     per_lane = repeated_fold(folded, LANES)
     prog = fused.BatchProgram(spec, per_lane, LANES, n_live, 128, "int16", "cuda")
+    live8 = torch.from_numpy(to_wire(live.cpu().numpy(), "mulaw8")).cuda()
+    prog8 = fused.BatchProgram(spec, per_lane, LANES, n_live, 128, "mulaw8", "cuda")
     cases = [
         ("K1a", None, False, 1, n, 4,
          lambda: fused.fused_offline_outputs(spec, params, x, folded=folded),
@@ -2710,6 +2765,9 @@ def time_geometry(name: str, cfg, card_line: str) -> dict:
         ("K1f int16", None, False, LANES, n_live, 2,
          lambda: prog.launch(live16),
          lambda: fused.fused_batch_outputs_reference(spec, per_lane, live16, "int16", 128)),
+        ("K1f mulaw8", None, False, LANES, n_live, 1,
+         lambda: prog8.launch(live8),
+         lambda: fused.fused_batch_outputs_reference(spec, per_lane, live8, "mulaw8", 128)),
     ]
     times = {}
     parts = []
@@ -2718,7 +2776,7 @@ def time_geometry(name: str, cfg, card_line: str) -> dict:
         choice = fused.cta_choice(spec, e, lanes, width, tier=tier, frames_input=frames_input)
         k = event_ms(kernel, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0]
         p = event_ms(plain, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0]
-        least = fused_bound(spec, lanes, samples, itemsize, LANES if entry == "K1f int16" else 1,
+        least = fused_bound(spec, lanes, samples, itemsize, LANES if entry.startswith("K1f") else 1,
                             tier, frames_input)
         shares = fused.stage_shares(kernel)
         times[entry] = (k, p, least, choice, shares)
@@ -2752,7 +2810,8 @@ def phase_geometry(card_line: str) -> dict:
                "K1e per-lane", "K1f int16", "K1f mulaw8")
     worst = {entry: 0.0 for entry in entries}
     layouts = {**{layout: 0 for layout in fused.LAYOUTS}, "tensor-core first layer": 0,
-               "bit equal": 0, **{f"bit equal {layout}": 0 for layout in fused.LAYOUTS}}
+               "bit equal": 0, **{f"bit equal {layout}": 0 for layout in fused.LAYOUTS},
+               "wire bit equal int16": 0, "wire bit equal mulaw8": 0}
     geometries = [(f"fuzz{seed}", fixtures.random_config(np.random.default_rng(seed)), seed)
                   for seed in GEOMETRY_SEEDS]
     geometries += [(name, cfg, 77) for name, cfg in fixtures.wide_geometry_configs()]
@@ -2783,6 +2842,7 @@ def phase_geometry(card_line: str) -> dict:
                     narrow.append(f"{rate_name(in_rate, out_rate)} (window {w_len}, hop "
                                   f"{hop_length(w_len, overlap)}, {cut.fpt} frames a thread)")
     torch.cuda.synchronize()
+    band_launches = fg.LAUNCH_KINDS["band"]
     sweep_s = time.perf_counter() - t0
     # the CLI on two wide nets, one file at a time and as a batched scan:
     # fused against matmul, as phase 4 holds it
@@ -2813,7 +2873,9 @@ def phase_geometry(card_line: str) -> dict:
         + f", {layouts['tensor-core first layer']} with the first layer on the tensor cores; "
         f"{layouts['bit equal']} launches equal bit for bit in another layout ("
         + ", ".join(f"{layouts['bit equal ' + layout]} {layout}" for layout in fused.LAYOUTS)
-        + f"); launches by layout {fused.LAYOUT_LAUNCHES}; worst vs plain max_abs: "
+        + f"); K1f on the streamed layout bit for bit K1e fed its dequantised samples on "
+        f"{layouts['wire bit equal int16']} int16 and {layouts['wire bit equal mulaw8']} mu-law "
+        f"launches; launches by layout {fused.LAYOUT_LAUNCHES}; worst vs plain max_abs: "
         + ", ".join(f"{entry} {err:.3g}" for entry, err in worst.items())
         + f" (1e-3/2e-4, log and dB 2e-3/5e-4, tiers as phase 12; NaN in the same places); "
         f"K2 on {pairs} rate pairs of {len(fixtures.RESAMPLE_RATES)} rates vs plain max_abs "
@@ -2853,10 +2915,46 @@ def phase_geometry(card_line: str) -> dict:
         f"([{xin.numel()}] x [{w_len}, {g.shape[1]}] -> [{blocks}, {g.shape[1]}], hop {hop}), "
         f"median of {GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls: kernel {k2[0]:.4f} ms, "
         f"plain {k2[1]:.4f} ms, library unfold @ g {k2[2]:.4f} ms, bound {k2_least[0]:.4f} ms "
-        f"({k2_least[1]}); {tiling_of(g, w_len, hop)}; phase {time.perf_counter() - t0:.1f} s",
+        f"({k2_least[1]}); {tiling_of(xin, g, w_len, overlap, blocks)}; phase "
+        f"{time.perf_counter() - t0:.1f} s",
         flush=True,
     )
-    return {"worst": worst, "k2": k2_worst, "times": times, "k2_times": (k2, k2_least)}
+    short = short_channel_times(card_line)
+    return {"worst": worst, "k2": k2_worst, "times": times, "k2_times": (k2, k2_least),
+            "short": short, "band_launches": band_launches,
+            "wire_equal": {w: layouts[f"wire bit equal {w}"] for w in ("int16", "mulaw8")}}
+
+
+def short_channel_times(card_line: str) -> dict:
+    """K2 on one SHORT_SECONDS channel at each of SHORT_PAIRS: device ms of
+    the kernel, its plain version and ``unfold @ g`` beside the bound, and
+    the launch it took; one line. Returns (kernel, plain) ms, bound and
+    library ms per pair."""
+    out, parts = {}, []
+    for in_rate, out_rate in SHORT_PAIRS:
+        x = np.random.default_rng(6).uniform(
+            -0.7, 0.7, int(SHORT_SECONDS * in_rate)).astype(np.float32)
+        xin, g, w_len, overlap, blocks, _ = resample.polyphase_framing(
+            x, in_rate, out_rate, device="cuda")
+        hop = hop_length(w_len, overlap)
+        need = (blocks - 1) * hop + w_len
+        xpad = torch.cat([xin, xin.new_zeros(max(0, need - xin.numel()))])[:need]
+        held(fg.framed_gemm(xin, g, w_len, overlap, blocks),
+             xpad.unfold(0, w_len, hop) @ g, 1e-4, 1e-4, f"K2 {rate_name(in_rate, out_rate)}")
+        ms = [event_ms(fn, samples=GEOMETRY_TIMES[0], batch=4 * GEOMETRY_TIMES[1])[0] for fn in (
+            lambda: fg.framed_gemm(xin, g, w_len, overlap, blocks),
+            lambda: fg.framed_gemm_reference(xin, g, w_len, overlap, blocks),
+            lambda: xpad.unfold(0, w_len, hop) @ g)]
+        least = framed_bound(xin, g, blocks)
+        name = rate_name(in_rate, out_rate)
+        out[name] = ((ms[0], ms[1]), least, ms[2])
+        parts.append(f"{name} kernel {ms[0]:.4f} / plain {ms[1]:.4f} / unfold @ g {ms[2]:.4f} "
+                     f"({ms[0] / ms[2]:.2f} x) / bound {least[0]:.4f} ms ({least[1]}), "
+                     f"{launch_of(xin, g, w_len, overlap, blocks)}")
+    print(f"phase 22 times [{card_line}]: K2 on one {SHORT_SECONDS:g} s channel, device ms, "
+          f"median of {GEOMETRY_TIMES[0]} x {4 * GEOMETRY_TIMES[1]} calls: " + "; ".join(parts),
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -2984,7 +3082,13 @@ def run_phases(marks, mark) -> int:
         raise AssertionError(f"phase 22 launched an entry no time: {sweep}")
     if not all(fused.LAYOUT_LAUNCHES.values()):
         raise AssertionError(f"phase 22 took a layout no time: {fused.LAYOUT_LAUNCHES}")
-    print(f"phase 22 launches: {sweep}; by layout {fused.LAYOUT_LAUNCHES} ok", flush=True)
+    if not all(fg.LAUNCH_KINDS.values()):
+        raise AssertionError(f"phase 22 took a framed GEMM launch no time: {fg.LAUNCH_KINDS}")
+    if not (geometry["wire_equal"]["int16"] and geometry["wire_equal"]["mulaw8"]):
+        raise AssertionError(f"phase 22 held no streamed K1f launch against K1e: "
+                             f"{geometry['wire_equal']}")
+    print(f"phase 22 launches: {sweep}; by layout {fused.LAYOUT_LAUNCHES}; K2 by launch "
+          f"{fg.LAUNCH_KINDS} ok", flush=True)
     mark("22")
     print(
         "phase walls (host clock, each to its last line): "
@@ -3000,6 +3104,7 @@ def run_phases(marks, mark) -> int:
                 "bound_ms": least[0], "bound_by": least[1], "library_ms": library_ms}
 
     n = live["launches"]
+    band_launches = geometry["band_launches"]
     kernel, plain, library, least = resample_times[48000]
     worst = geometry["worst"]
     print(json.dumps({"kernels": [
@@ -3016,6 +3121,8 @@ def run_phases(marks, mark) -> int:
           for wire in ("int16", "mulaw8")),
         entry("framed_gemm", FRAMED_SOURCE, REPLACES_FRAMED, scan["k2"] + sweep["K2"],
               max(resample_err, geometry["k2"]), (kernel[0], plain[0]), least, library[0]),
+        entry("framed_gemm band launch 48k->11.025k 5 s", FRAMED_SOURCE, REPLACES_FRAMED,
+              band_launches, geometry["k2"], *geometry["short"]["48k->11.025k"]),
         entry("fused_detector_frames", KERNEL_SOURCE, REPLACES_FRAMES,
               mesh_counts["frames"] + sweep["K1b"], max(new_err["frames"], worst["K1b"]),
               new_times["frames"], new_times["frames"][2]),

@@ -7,7 +7,10 @@ shared net), it launches the kernel once for each frames choice and layout
 that fits in shared memory (the most chunks of C a pass), and the launch
 ``cta_choice`` makes, times it with CUDA events and reads its ``clock64()``
 stage shares (``fused.stage_shares``).
-One JSON line a launch, the card's name and power limit in each.
+One JSON line a launch, the card's name and power limit in each. Then, at
+``WIRE_GEOMETRIES``, the streamed layout on each wire (:func:`wire_shares`):
+K1f on 256 lanes x 128 evaluations of int16 and of mu-law samples, and K1e on
+the samples the int16 wire dequantises to, all three on K1f's launch.
 
 It uses only what the port's kernel wrapper has had since its streamed
 layout came in, so it runs on any checkout of the port from then on: run it
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 GEOMETRIES = ("fft1024 overlap900", "96k fft1024", "hidden128")
+WIRE_GEOMETRIES = ("96k fft1024", "fft512 hidden16")
 LIVE_LANES = 256
 LIVE_EVALS = 128
 # (samples, batch) of each timing, as chip_smoke.py's geometry times
@@ -105,6 +109,47 @@ def layout_shares(name: str, cfg, card_line: str) -> list[dict]:
     return rows
 
 
+def wire_shares(name: str, cfg, card_line: str) -> list[dict]:
+    """One row a wire at geometry ``name``: device ms and stage shares of
+    one launch on 256 lanes x 128 evaluations with a net per lane, at the
+    launch K1f takes on the int16 wire: int16 and mu-law samples (K1f), and
+    the float32 samples the int16 wire dequantises to (K1e)."""
+    from syllable_detector_tpu_torch.kernels import fused_detector as fused
+    from syllable_detector_tpu_torch.models import detector
+    from syllable_detector_tpu_torch.ops.stft import normalize_overlap
+    from syllable_detector_tpu_torch.utils.measure import event_ms
+
+    spec, params = detector.detector_spec_from_config(cfg, "cuda")
+    folded = fused.fold_constants_stacked(spec, [params] * LIVE_LANES, "cuda")
+    width = max(w for _, w in spec.net.layer_sizes)
+    gap, _ = normalize_overlap(spec.window_overlap)
+    n_live = (LIVE_EVALS + spec.time_range - 2) * spec.hop + gap + spec.window_length
+    rng = np.random.default_rng(8)
+    live = rng.uniform(-0.7, 0.7, (LIVE_LANES, n_live)).astype(np.float32)
+    q = np.rint(np.clip(live, -1.0, 1.0) * 32767.0).astype(np.int16)
+    # the bank's mu-law staging: encode, then round to 8 bits
+    y = np.clip(live, -1.0, 1.0)
+    mu = np.sign(y) * np.log1p(255.0 * np.abs(y)) / np.log1p(255.0)
+    wires = {"int16": torch.from_numpy(q).cuda(),
+             "mulaw8": torch.from_numpy(np.rint(mu * 127.0).astype(np.int8)).cuda()}
+    wires["float32"] = fused.dequant(wires["int16"], "int16").contiguous()
+    chosen = fused.cta_choice(spec, LIVE_EVALS, LIVE_LANES, width, workload="distinct")
+    rows = []
+    for wire, xs in wires.items():
+        def launch(wire=wire, xs=xs):
+            fused._launch(spec, folded, xs, LIVE_EVALS, wire=wire, frames=chosen[0],
+                          col_group=chosen[1])
+
+        ms = event_ms(launch, samples=TIMES[0], batch=TIMES[1])[0]
+        shares = fused.stage_shares(launch)
+        rows.append({
+            "card": card_line, "geometry": name, "entry": "K1e" if wire == "float32" else "K1f",
+            "wire": wire, "frames": chosen[0], "col_group": chosen[1], "ms": ms,
+            "shares": {k: round(v, 4) for k, v in shares.items()},
+        })
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k1_stage_shares: no CUDA device is available", file=sys.stderr)
@@ -116,6 +161,9 @@ def main() -> int:
     configs = dict(fixtures.wide_geometry_configs())
     for name in sys.argv[1:] or GEOMETRIES:
         for row in layout_shares(name, configs[name], card_line):
+            print(json.dumps(row), flush=True)
+    for name in sys.argv[1:] or WIRE_GEOMETRIES:
+        for row in wire_shares(name, configs[name], card_line):
             print(json.dumps(row), flush=True)
     return 0
 

@@ -1,16 +1,24 @@
 """The port's framed GEMM (K2) against its plain version and the library
-call ``unfold @ g`` on every pair of the resampler's rates.
+call ``unfold @ g`` on every pair of the resampler's rates, on channels of
+1 s, 5 s and 60 s.
 
-For each pair of ``fixtures.RESAMPLE_RATES`` at the resampler's ratio (its
-default ``max_denominator``), it resamples one 5 s channel of seeded noise
-and times, with CUDA events, one batch of 20 calls each of the kernel, its
-plain version and ``unfold @ g``, beside the bound (``chip_smoke.framed_bound``).
-One JSON line a pair, the card's name and power limit in each, then one
-line with the pairs where the kernel is slower than the library call.
+For each channel length of ``SECONDS`` and each pair of
+``fixtures.RESAMPLE_RATES`` at the resampler's ratio (its default
+``max_denominator``), it resamples one channel of seeded noise and times,
+with CUDA events, the median of three batches of 20 calls each of the
+kernel, its plain version and ``unfold @ g``, beside the bound
+(``chip_smoke.framed_bound``) and the launch the kernel took (long or band,
+CTAs, frames a CTA, column tile and group, row split). One JSON line a pair and length, the card's name and
+power limit in each, then one line a length with the pairs where the
+kernel is slower than the library call.
 
 Run from the root of the repo, on a machine with one CUDA card:
 
-    PYTHONPATH=. python3 scripts/k2_rate_grid.py
+    PYTHONPATH=. python3 scripts/k2_rate_grid.py [SECONDS ...]
+
+It runs on older checkouts of the port too (from the root of that
+checkout, ``PYTHONPATH=. python3 /path/to/k2_rate_grid.py``); where that
+checkout's ``chip_smoke.py`` cannot name the launch, the line says so.
 """
 
 from __future__ import annotations
@@ -22,15 +30,15 @@ import sys
 import numpy as np
 import torch
 
-SECONDS = 5.0
+SECONDS = (1.0, 5.0, 60.0)
 # (samples, batch) of each timing
-TIMES = (1, 20)
+TIMES = (3, 20)
 
 
 def pair_times(x: np.ndarray, in_rate: float, out_rate: float) -> tuple:
-    """(kernel, plain, library ``unfold @ g``) device ms and the bound of
-    K2 resampling ``x`` from ``in_rate`` to ``out_rate`` at the resampler's
-    ratio."""
+    """(kernel, plain, library ``unfold @ g``) device ms, the bound and the
+    launch of K2 resampling ``x`` from ``in_rate`` to ``out_rate`` at the
+    resampler's ratio."""
     import chip_smoke
     from syllable_detector_tpu_torch.ops import resample
     from syllable_detector_tpu_torch.ops.stft import hop_length
@@ -49,7 +57,9 @@ def pair_times(x: np.ndarray, in_rate: float, out_rate: float) -> tuple:
         lambda: fg.framed_gemm(xin, g, w_len, overlap, blocks),
         lambda: fg.framed_gemm_reference(xin, g, w_len, overlap, blocks),
         lambda: xpad.unfold(0, w_len, hop) @ g)]
-    return (*ms, chip_smoke.framed_bound(xin, g, blocks)[0])
+    launch_of = getattr(chip_smoke, "launch_of", None)
+    return (*ms, chip_smoke.framed_bound(xin, g, blocks)[0],
+            launch_of(xin, g, w_len, overlap, blocks) if launch_of else "not named")
 
 
 def main() -> int:
@@ -61,22 +71,25 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card_line = chip_smoke.card()
-    losses = []
-    for in_rate in fixtures.RESAMPLE_RATES:
-        x = np.random.default_rng(6).uniform(
-            -0.7, 0.7, int(SECONDS * in_rate)).astype(np.float32)
-        for out_rate in fixtures.RESAMPLE_RATES:
-            if out_rate == in_rate:
-                continue
-            kernel, plain, library, least = pair_times(x, in_rate, out_rate)
-            name = chip_smoke.rate_name(in_rate, out_rate)
-            print(json.dumps({"card": card_line, "pair": name, "kernel_ms": kernel,
-                              "plain_ms": plain, "library_ms": library, "bound_ms": least,
-                              "kernel_over_library": kernel / library}), flush=True)
-            if kernel > library:
-                losses.append((name, kernel / library))
-    losses.sort(key=lambda t: -t[1])
-    print(json.dumps({"card": card_line, "slower_than_library": losses}), flush=True)
+    for seconds in [float(a) for a in sys.argv[1:]] or SECONDS:
+        losses = []
+        for in_rate in fixtures.RESAMPLE_RATES:
+            x = np.random.default_rng(6).uniform(
+                -0.7, 0.7, int(seconds * in_rate)).astype(np.float32)
+            for out_rate in fixtures.RESAMPLE_RATES:
+                if out_rate == in_rate:
+                    continue
+                kernel, plain, library, least, launch = pair_times(x, in_rate, out_rate)
+                name = chip_smoke.rate_name(in_rate, out_rate)
+                print(json.dumps({"card": card_line, "seconds": seconds, "pair": name,
+                                  "kernel_ms": kernel, "plain_ms": plain, "library_ms": library,
+                                  "bound_ms": least, "kernel_over_library": kernel / library,
+                                  "launch": launch}), flush=True)
+                if kernel > library:
+                    losses.append((name, kernel / library, launch))
+        losses.sort(key=lambda t: -t[1])
+        print(json.dumps({"card": card_line, "seconds": seconds, "slower_than_library": losses}),
+              flush=True)
     return 0
 
 

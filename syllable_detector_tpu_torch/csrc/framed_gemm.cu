@@ -18,7 +18,9 @@
 // operations per frame, a few microseconds of the card's fp32 rate, against
 // the samples read and the output written once. A dense product does 3-8 x
 // the multiply-adds, and with one load per multiply-add the load units, not
-// the FMA units, set its pace.
+// the FMA units, set its pace. On a short channel (a file of a few seconds)
+// the bytes are a microsecond or less: there the launch has to reach the
+// card's SMs at all, and the latency of the first loads is the cost.
 //
 // What the design does about it.
 //   * Columns go in tiles of `cw` = 4 * cg neighbouring columns (32 for a
@@ -33,32 +35,64 @@
 //     loads of a row are one 128-byte line that stays in L1 (the bands of
 //     all tiles are 37 KB at 48k), and the warp's stores of a row of the
 //     result are contiguous.
-//   * A thread keeps a kF frames x 4 columns register tile (kF = 8): per
-//     row of G 1 load of G and 8 of samples feed 32 FMAs; where hop and lo
-//     are multiples of 4 the samples are read as float4 along k (4 rows: 12
-//     16-byte loads for 128 FMAs). A warp is 32 / cg threads across frames
-//     (frame fg + r * 32/cg, so neighbouring threads read neighbouring hops)
-//     by cg across columns: one unit of kF * 32/cg frames x cw columns.
-//     Where one unit's span would not fit in shared memory (a long hop: 2560
-//     at 192k -> 11.025k), a thread takes kF = 4 frames, half the span, at
-//     half the FMAs per load of G. The warps of a CTA take
-//     the units of its `frames` frames in turn. CTAs are small (one unit of
-//     frames, 4 warps at the resampler's shapes), so that several share an
-//     SM and one's staging hides behind another's sums. Where a launch has
-//     few units (a narrow dense G over few frames) `ksplit` warps share a
-//     unit, each summing a part of the rows, and the parts are added in
-//     shared memory in the order of the rows.
-//   * A CTA stages the contiguous span of its frames once for all column
-//     tiles, (frames - 1) * hop + window samples, zero past n. While
-//     staging it notes whether the span holds a NaN or an Inf. If it does,
-//     the CTA computes its frames from all of G's rows instead: 0 * NaN is
-//     NaN, so the dense product has NaN in every column of such a frame,
-//     and the result keeps that.
-// Sums are fp32 FMAs over k in ascending order (with a row split: per part,
-// then over the parts), no TF32, as Precision.HIGHEST asks of the JAX
-// kernel; a skipped row would have added an exact zero, so without a row
-// split the result does not depend on the tiling. The TPU
-// kernel's slab parts exist for its layout and are not carried over.
+//   * A thread keeps a kF frames x 4 columns register tile: per row of G 1
+//     load of G and kF of samples feed 4 * kF FMAs; the samples are read as
+//     float4 along k where their rows start on 16 bytes (4 rows: kF + 4
+//     16-byte loads for 16 * kF FMAs). A warp is 32 / cg threads across
+//     frames (frame fg + r * 32/cg, so neighbouring threads read
+//     neighbouring hops) by cg across columns: one unit of kF * 32/cg frames
+//     x cw columns. With `ksplit` above 1, ksplit warps share a unit, each
+//     summing a part of the rows, and the parts are added in shared memory
+//     in the order of the rows.
+//   * Two launches, chosen by the wrapper from the frame count and the
+//     card's SMs (tiling in kernels/framed_gemm.py):
+//     - the long launch (a 60 s channel): the grid cuts the frames only. A
+//       CTA stages the contiguous span of its frames once for all column
+//       tiles, (frames - 1) * hop + window samples, and its warps take the
+//       units of all tiles in turn. kF = 8, or 4 where one unit's span would
+//       not fit in shared memory (a long hop: 2560 at 192k -> 11.025k).
+//       CTAs are small (one unit of frames, 4 warps at the resampler's
+//       shapes), so that several share an SM and one's staging hides behind
+//       another's sums; this needs at least two CTAs an SM.
+//     - the band launch (where the long one leaves SMs idle: a channel of a
+//       few seconds; the wrapper's rule counts the long launch's CTAs
+//       against the SMs and the depth of the bands): the grid is
+//       frame blocks x groups of neighbouring column tiles, the fewest
+//       groups that give two CTAs an SM (one tile a group on a short
+//       channel); a CTA takes one unit of kF = 2 frames a thread of each of
+//       its tiles, and where a group leaves warps to spare, up to 8 warps
+//       split each unit's rows (parts of 16 rows or more), so that a CTA's
+//       chain of loads and sums is short and there are CTAs for every SM
+//       (over a single tile the launch only re-cuts the frames). A CTA
+//       stages only its group's rows of G, from the first band's first row
+//       to the last band's end, [lo, lo + rows) of each frame: frame by
+//       frame at a row stride of `stride` floats (an odd multiple of 4, so
+//       that the warp's float4 reads of several frames fall on distinct
+//       banks) where the hop is longer than that, so the gaps between the
+//       rows are not staged (<= 228 of 724 rows a frame at 48k -> 11.025k);
+//       else, where the rows of neighbouring frames overlap, as one
+//       contiguous run from row lo at stride hop. Every group's CTAs read
+//       the channel from L2 (a 5 s channel is < 4 MB of the card's 50 MB);
+//       the fewer the groups, the fewer times.
+//   * The non-finite rule. A CTA notes whether the span of its frames
+//     ((frames - 1) * hop + window + 8 samples from its first frame, zero
+//     past n) holds a NaN or an Inf. If it does, the CTA computes its frames
+//     from all of G's rows instead: 0 * NaN is NaN, so the dense product
+//     has NaN in every column of such a frame, and the result keeps that.
+//     The long launch checks the span as it stages it. The band launch
+//     reads the whole span too, in one pass: it checks every sample and
+//     stores those of its band, so a sample outside the band still sends
+//     the CTA to the dense sums (from device memory, a path for bad input
+//     only).
+// Sums are fp32 FMAs over k in ascending order, no TF32, as
+// Precision.HIGHEST asks of the JAX kernel. A skipped row would have added
+// an exact zero, so without a row split the result does not depend on the
+// tiling: the band launch's frames equal the long launch's bit for bit
+// where both have ksplit 1. With a row split (ksplit > 1) each part sums
+// its rows in ascending order and part 0 then adds parts 1, 2, ... to its
+// own in that order, the same order on every run; that rounds differently
+// from one unsplit sum. The TPU kernel's slab parts exist for its layout
+// and are not carried over.
 
 #include <cuda_runtime.h>
 
@@ -72,9 +106,11 @@ namespace {
 
 constexpr int kMaxWarps = 8;
 constexpr int kMaxDevices = 64;
-constexpr int kWideFrames = 8;  // kF of every shape whose span fits
+constexpr int kWideFrames = 8;  // kF of every long-launch shape whose span fits
 constexpr int kNarrowFrames = 4;
+constexpr int kTinyFrames = 2;  // kF of the band launch
 constexpr int kColsPerThread = 4;
+constexpr int kStageUnroll = 4;  // float4 loads in flight a thread while a band CTA stages
 constexpr long long kSmemLimit = 232448;  // bytes one block may opt in to
 constexpr long long kSmemDefault = 48 * 1024;
 
@@ -86,46 +122,152 @@ struct Shape {
   int cg;          // threads of a warp across columns: 1, 2, 4 or 8
   int n_tiles;     // column tiles of 4 * cg columns
   int frames;      // frames per CTA, a multiple of fpt * 32 / cg
-  int fpt;         // frames a thread takes: kWideFrames or kNarrowFrames
+  int fpt;         // frames a thread: kWideFrames or kNarrowFrames; the band launch kTinyFrames
   int ksplit;      // warps that share a unit, each summing a part of the rows
   int band_rows;   // rows of each tile's band in `band`
-  int span;        // floats staged per CTA (a multiple of 4)
+  int span;        // samples of the span of a CTA's frames (a multiple of 4)
+  int stride;      // band launch: floats between two staged frames (hop: one run)
+  int staged;      // floats of shared memory before the row split's sums
+  int group;       // band launch: column tiles a CTA takes
 };
 
 __device__ __forceinline__ bool non_finite(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
 }
 
+// The band launch's staging: rows [lo, lo + rows) of each of the CTA's
+// frames (frame f's row lo + r at x[start + f*hop + lo + r]) into `xs`,
+// frame f at f * stride, or, with stride == hop, as one run from row lo of
+// frame 0; zero past n. One pass over the CTA's whole span [start, start +
+// span) reads every sample once, kStageUnroll 16-byte loads in flight a
+// thread, stores those of the band and notes any NaN or Inf among all of
+// them. Returns this thread's note.
+__device__ __forceinline__ bool stage_band(const float* __restrict__ x, long long n,
+                                           long long start,
+                           const Shape& s, int lo, int rows, float* xs) {
+  const bool run = s.stride == s.hop;
+  const int run_len = (s.frames - 1) * s.hop + rows;  // the run's floats
+  if (start + (long long)(s.frames - 1) * s.hop + lo + rows > n) {
+    for (int i = threadIdx.x; i < s.staged; i += blockDim.x) xs[i] = 0.0f;
+    __syncthreads();
+  }
+  const long long avail = n - start;
+  const int len = avail <= 0 ? 0 : (avail < s.span ? static_cast<int>(avail) : s.span);
+  bool bad = false;
+  // sample q of the span (q = position - start): its frame f and row r of
+  // that frame's band are tracked from q0 on, one division per call
+  auto put = [&](int q0, float4 v, int count) {
+    int rel = q0 - lo;
+    int f = 0, r = rel;
+    if (!run && rel >= 0) {
+      f = rel / s.hop;
+      r = rel - f * s.hop;
+    }
+    bad |= non_finite(v.x) | non_finite(v.y) | non_finite(v.z) | non_finite(v.w);
+    // four samples of one row run, 16-byte aligned in shared memory: one store
+    if (count == 4 && rel >= 0 && (rel & 3) == 0 &&
+        (run ? rel + 3 < run_len : (r & 3) == 0 && r + 3 < rows && f < s.frames)) {
+      *reinterpret_cast<float4*>(xs + (run ? rel : f * s.stride + r)) = v;
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j, ++rel, ++r) {
+      if (j >= count) break;
+      const float vj = j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+      if (rel < 0) continue;
+      if (run) {
+        if (rel < run_len) xs[rel] = vj;
+      } else {
+        if (r == s.hop) {
+          r = 0;
+          ++f;
+        }
+        if (f < s.frames && r < rows) xs[f * s.stride + r] = vj;
+      }
+    }
+  };
+  const float* src = x + start;
+  // samples before the first 16-byte boundary, and after the last whole float4
+  const int head = min(len, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 4));
+  const int n_vec = (len - head) / 4;
+  const int tail = head + 4 * n_vec;
+  for (int q = threadIdx.x; q < head; q += blockDim.x) {
+    put(q, make_float4(__ldg(src + q), 0.0f, 0.0f, 0.0f), 1);
+  }
+  for (int q = tail + threadIdx.x; q < len; q += blockDim.x) {
+    put(q, make_float4(__ldg(src + q), 0.0f, 0.0f, 0.0f), 1);
+  }
+  const float4* src4 = reinterpret_cast<const float4*>(src + head);
+  for (int v0 = threadIdx.x; v0 < n_vec; v0 += blockDim.x * kStageUnroll) {
+    float4 raw[kStageUnroll];
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v < n_vec) raw[u] = __ldg(src4 + v);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v < n_vec) put(head + 4 * v, raw[u], 4);
+    }
+  }
+  return bad;
+}
+
 // kSplit: `ksplit` warps share a unit (else s.ksplit is 1 and the code for it
 // is compiled out: the registers it costs lose the resampler a CTA per SM).
-// kF: frames a thread takes (s.fpt).
-template <bool kVec, bool kSplit, int kF>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    framed_gemm_kernel(const float* __restrict__ x, long long n,
-                       const float* __restrict__ g,       // [window, m]
-                       const float* __restrict__ band,    // [tiles, band_rows, 4*cg]
-                       const int* __restrict__ ranges,    // [tiles, 2]: lo, rows
-                       long long n_frames, float* __restrict__ out, Shape s) {
+// kF: frames a thread takes (s.fpt). kBand: the band launch (a group of
+// column tiles a CTA, their bands staged alone), else the long launch.
+template <bool kVec, bool kSplit, int kF, bool kBand>
+__device__ __forceinline__ void framed_gemm_body(const float* __restrict__ x, long long n,
+                                                 const float* __restrict__ g,
+                                                 const float* __restrict__ band,
+                                                 const int* __restrict__ ranges,
+                                                 long long n_frames, float* __restrict__ out,
+                                                 const Shape& s) {
   extern __shared__ __align__(16) float xs[];
-  const long long f0 = (long long)blockIdx.x * s.frames;
+  // the band launch's CTA takes one frame block and a group of s.group
+  // column tiles (the last group may have fewer); the long launch's every tile
+  const int n_groups = kBand ? (s.n_tiles + s.group - 1) / s.group : 1;
+  const int tile0 = kBand ? static_cast<int>(blockIdx.x % n_groups) * s.group : 0;
+  const int tiles_here = kBand ? min(s.group, s.n_tiles - tile0) : s.n_tiles;
+  const long long f0 = (long long)(blockIdx.x / n_groups) * s.frames;
   const long long start = s.gap + f0 * s.hop;
 
-  // the span of this CTA's frames; zero past the end of x
   bool bad = false;
-  const float* src = x + start;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && start + s.span <= n) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* dst4 = reinterpret_cast<float4*>(xs);
-    for (int i = threadIdx.x; i < s.span / 4; i += blockDim.x) {
-      const float4 v = __ldg(src4 + i);
-      bad |= non_finite(v.x) | non_finite(v.y) | non_finite(v.z) | non_finite(v.w);
-      dst4[i] = v;
+  int lo_g = 0;  // the band launch's first staged row of G
+  if constexpr (kBand) {
+    // the group's rows: from the first row of its first band to the end of
+    // its last (the resampler's bands move down the window with the tile)
+    int hi_g = 0;
+    lo_g = INT_MAX;
+    for (int t = tile0; t < tile0 + tiles_here; ++t) {
+      const int lo = __ldg(ranges + 2 * t);
+      const int rows = __ldg(ranges + 2 * t + 1);
+      if (rows > 0) {
+        lo_g = min(lo_g, lo);
+        hi_g = max(hi_g, lo + rows);
+      }
     }
+    if (hi_g == 0) lo_g = 0;
+    bad = stage_band(x, n, start, s, lo_g, hi_g - lo_g, xs);
   } else {
-    for (int i = threadIdx.x; i < s.span; i += blockDim.x) {
-      const float v = start + i < n ? __ldg(src + i) : 0.0f;
-      bad |= non_finite(v);
-      xs[i] = v;
+    // the span of this CTA's frames; zero past the end of x
+    const float* src = x + start;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && start + s.span <= n) {
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+      float4* dst4 = reinterpret_cast<float4*>(xs);
+      for (int i = threadIdx.x; i < s.span / 4; i += blockDim.x) {
+        const float4 v = __ldg(src4 + i);
+        bad |= non_finite(v.x) | non_finite(v.y) | non_finite(v.z) | non_finite(v.w);
+        dst4[i] = v;
+      }
+    } else {
+      for (int i = threadIdx.x; i < s.span; i += blockDim.x) {
+        const float v = start + i < n ? __ldg(src + i) : 0.0f;
+        bad |= non_finite(v);
+        xs[i] = v;
+      }
     }
   }
   const bool dense = __syncthreads_or(bad);
@@ -139,15 +281,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int unit_frames = kF * fgw;
   const int frame_blocks = s.frames / unit_frames;
   const int cw = kColsPerThread * s.cg;
+  // the floats between two staged frames
+  const int xstride = kBand ? s.stride : s.hop;
 
-  // With ksplit > 1 a CTA has exactly one warp per (unit, part of the rows),
-  // so that every warp reaches the barrier of the reduction below.
+  // With ksplit > 1 a CTA has one warp per (unit, part of the rows) it can
+  // have, so that every warp takes one and reaches the barrier of the
+  // reduction below; a warp past the last unit (the band launch's last
+  // group of tiles may be short) sums and stores nothing.
   const int ksplit = kSplit ? s.ksplit : 1;
-  for (int w = warp; w < s.n_tiles * frame_blocks * ksplit; w += warps) {
+  const int work = tiles_here * frame_blocks * ksplit;
+  for (int w = warp; w < (kBand && kSplit ? warps : work); w += warps) {
+    const bool live = !kBand || w < work;  // the long launch has a unit for every warp
     const int u = w / ksplit;
     const int part = w - u * ksplit;
-    const int tile = u / frame_blocks;
-    const int fb = u - tile * frame_blocks;
+    const int tile = live ? tile0 + u / frame_blocks : tile0;
+    const int fb = u - (tile - tile0) * frame_blocks;
     const int fl = fb * unit_frames + fg;  // this thread's frames: fl + r*fgw
     const int c0 = tile * cw + ci;         // its columns: c0 + j*cg
     float acc[kF][kColsPerThread];
@@ -156,8 +304,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.0f;
     }
-    if (dense) {
-      // all rows of G, straight from the matrix
+    if (live && dense) {
+      // all rows of G, straight from the matrix; the band launch reads the
+      // samples from device memory (it staged its band only)
       int gcol[kColsPerThread];
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) gcol[j] = min(c0 + j * s.cg, s.m - 1);
@@ -171,20 +320,26 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         }
 #pragma unroll
         for (int r = 0; r < kF; ++r) {
-          const float xv = xs[(fl + r * fgw) * s.hop + k];
+          float xv;
+          if constexpr (kBand) {
+            const long long at = start + (long long)(fl + r * fgw) * s.hop + k;
+            xv = at < n ? __ldg(x + at) : 0.0f;
+          } else {
+            xv = xs[(fl + r * fgw) * s.hop + k];
+          }
 #pragma unroll
           for (int j = 0; j < kColsPerThread; ++j) {
             acc[r][j] = fmaf(xv, gv[j], acc[r][j]);
           }
         }
       }
-    } else {
+    } else if (live) {
       const int lo = __ldg(ranges + 2 * tile);
       const int rows = __ldg(ranges + 2 * tile + 1);  // a multiple of 4
       const float4* bt = reinterpret_cast<const float4*>(
                              band + (long long)tile * s.band_rows * cw) + ci;
-      const float* xb = xs + fl * s.hop + lo;
-      const int xstep = fgw * s.hop;
+      const float* xb = xs + fl * xstride + lo - lo_g;
+      const int xstep = fgw * xstride;
       const int chunk = ((rows + ksplit - 1) / ksplit + 3) / 4 * 4;
       const int k_end = min(rows, (part + 1) * chunk);
       for (int k = part * chunk; k < k_end; k += 4) {
@@ -214,16 +369,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (kSplit) {
       // the parts' sums meet in shared memory and are added in the order of
       // the rows by the warp of part 0
-      float* red = xs + s.span;  // [warps][8 frames x 4 columns][32 lanes]
+      float* red = xs + s.staged;  // [warps][kF frames x 4 columns][32 lanes]
       constexpr int kTile = kF * kColsPerThread;
-      if (part > 0) {
+      if (live && part > 0) {
 #pragma unroll
         for (int q = 0; q < kTile; ++q) {
           red[(w * kTile + q) * 32 + lane] = acc[q / kColsPerThread][q % kColsPerThread];
         }
       }
       __syncthreads();
-      if (part > 0) continue;
+      if (!live || part > 0) continue;
       for (int p = 1; p < ksplit; ++p) {
 #pragma unroll
         for (int q = 0; q < kTile; ++q) {
@@ -244,16 +399,49 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-// The span, and with a row split one register tile per thread.
+// The two launches' kernels (g [window, m], band [tiles, band_rows, 4*cg],
+// ranges [tiles, 2]: lo, rows). The band launch's is declared for one CTA
+// an SM at least: with no such bound ptxas held one of its instantiations
+// to 64 registers and spilled; the long launch's keeps the registers that
+// give it its CTAs an SM.
+template <bool kVec, bool kSplit, int kF>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    framed_gemm_kernel(const float* __restrict__ x, long long n, const float* __restrict__ g,
+                       const float* __restrict__ band, const int* __restrict__ ranges,
+                       long long n_frames, float* __restrict__ out, Shape s) {
+  framed_gemm_body<kVec, kSplit, kF, false>(x, n, g, band, ranges, n_frames, out, s);
+}
+template <bool kVec, bool kSplit, int kF>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    framed_gemm_band_kernel(const float* __restrict__ x, long long n,
+                            const float* __restrict__ g, const float* __restrict__ band,
+                            const int* __restrict__ ranges, long long n_frames,
+                            float* __restrict__ out, Shape s) {
+  framed_gemm_body<kVec, kSplit, kF, true>(x, n, g, band, ranges, n_frames, out, s);
+}
+
+using KernelFn = void (*)(const float*, long long, const float*, const float*, const int*,
+                          long long, float*, Shape);
+
+template <bool kVec, bool kSplit, int kF, bool kBand>
+KernelFn kernel_of() {
+  if constexpr (kBand) {
+    return framed_gemm_band_kernel<kVec, kSplit, kF>;
+  } else {
+    return framed_gemm_kernel<kVec, kSplit, kF>;
+  }
+}
+
+// The staged samples, and with a row split one register tile per thread.
 size_t smem_bytes(const Shape& s, int threads) {
   const size_t red = s.ksplit > 1
       ? static_cast<size_t>(threads) * s.fpt * kColsPerThread : 0;
-  return (static_cast<size_t>(s.span) + red) * sizeof(float);
+  return (static_cast<size_t>(s.staged) + red) * sizeof(float);
 }
 
-// A span above 48 KB has to opt in; the opt-in is a maximum, raised once
-// per kernel instantiation, device and size.
-template <bool kVec, bool kSplit, int kF>
+// Shared memory above 48 KB has to be opted in to; the opt-in is a maximum,
+// raised once per kernel instantiation, device and size.
+template <bool kVec, bool kSplit, int kF, bool kBand>
 cudaError_t opt_in(int device, size_t smem) {
   static std::mutex mutex;
   static size_t granted[kMaxDevices] = {};
@@ -263,7 +451,7 @@ cudaError_t opt_in(int device, size_t smem) {
     return cudaSuccess;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      framed_gemm_kernel<kVec, kSplit, kF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel_of<kVec, kSplit, kF, kBand>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
     granted[device] = smem;
@@ -271,17 +459,29 @@ cudaError_t opt_in(int device, size_t smem) {
   return err;
 }
 
-template <bool kVec, bool kSplit, int kF>
+template <bool kVec, bool kSplit, int kF, bool kBand>
 int launch(const float* x, long long n, const float* g, const float* band,
            const int* ranges, long long n_frames, float* out, const Shape& s,
            int threads, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(s, threads);
-  const cudaError_t err = opt_in<kVec, kSplit, kF>(device, smem);
+  const cudaError_t err = opt_in<kVec, kSplit, kF, kBand>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long gx = (n_frames + s.frames - 1) / s.frames;
-  framed_gemm_kernel<kVec, kSplit, kF><<<static_cast<unsigned>(gx), threads, smem, stream>>>(
+  const long long gx =
+      (n_frames + s.frames - 1) / s.frames * (kBand ? (s.n_tiles + s.group - 1) / s.group : 1);
+  kernel_of<kVec, kSplit, kF, kBand>()<<<static_cast<unsigned>(gx), threads, smem, stream>>>(
       x, n, g, band, ranges, n_frames, out, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBand, int kF>
+int launch_vs(bool vec, int ksplit, const float* x, long long n, const float* g,
+              const float* band, const int* ranges, long long n_frames, float* out,
+              const Shape& s, int threads, int device, cudaStream_t stream) {
+#define SD_LAUNCH(V, S) \
+  launch<V, S, kF, kBand>(x, n, g, band, ranges, n_frames, out, s, threads, device, stream)
+  return ksplit > 1 ? (vec ? SD_LAUNCH(true, true) : SD_LAUNCH(false, true))
+                    : (vec ? SD_LAUNCH(true, false) : SD_LAUNCH(false, false));
+#undef SD_LAUNCH
 }
 
 }  // namespace
@@ -298,27 +498,33 @@ const char* sd_framed_gemm_error_string(int err) {
 // wrapper's: `cg` threads of a warp across columns (1, 2, 4 or 8; a column
 // tile is 4 * cg columns), `ksplit` warps per unit (each sums a part of the
 // rows; above 1 the CTA must have exactly one warp per part of each unit),
-// `fpt` frames a thread (8, or 4 where a unit's span of 8 would not fit),
-// `frames` frames per CTA (a multiple of fpt * 32 / cg), `threads` per CTA
-// (whole warps, at most 256); `band`
-// [tiles, band_rows, 4 * cg] and `ranges` [tiles, 2] (first row, row count;
-// counts are multiples of 4 and first rows too when `vec` is set) are the
+// `fpt` frames a thread (8 or 4; the band launch 2), `frames` frames per
+// CTA (a multiple of fpt * 32 / cg), `threads` per CTA (whole warps, at most
+// 256); `band` [tiles, band_rows, 4 * cg] and `ranges` [tiles, 2] (first
+// row, row count; counts are multiples of 4 and first rows too) are the
 // tiles' bands of g as the note at the head of this file lays them out,
-// device pointers. `vec` reads samples as float4 along k and needs hop % 4
-// == 0. Returns cudaErrorInvalidValue for a geometry it cannot launch
-// (among them a span that does not fit in shared memory), else
-// cudaGetLastError() after the launch: 0 when the launch was taken.
+// device pointers. `band_launch` 0 takes the long launch (a CTA stages its
+// frames' span for all tiles); 1 the band launch (a CTA one tile of one
+// unit of frames, its band staged at `stride` floats a frame: `stride` ==
+// hop stages one run, else stride >= band_rows, a multiple of 4, needs
+// hop >= band_rows). `vec` reads staged samples as float4 along k: the long
+// launch needs hop % 4 == 0 for it, the band launch a stride % 4 == 0.
+// Returns cudaErrorInvalidValue for a geometry it cannot launch (among them
+// samples that do not fit in shared memory), else cudaGetLastError() after
+// the launch: 0 when the launch was taken.
 int sd_framed_gemm(const float* x, long long n, const float* g, int window,
                    int m, int hop, int gap, long long n_frames, float* out,
                    const float* band, const int* ranges, int band_rows, int cg,
                    int ksplit, int fpt, int frames, int threads, int vec,
-                   int device, void* stream) {
+                   int band_launch, int group, int stage_rows, int stride, int device,
+                   void* stream) {
+  const bool fpt_ok = band_launch ? fpt == kTinyFrames
+                                  : fpt == kWideFrames || fpt == kNarrowFrames;
   if (window < 1 || m < 1 || hop < 1 || gap < 0 || n < 0 || n_frames < 1 ||
       (cg != 1 && cg != 2 && cg != 4 && cg != 8) || band_rows < 0 ||
       band_rows % 4 != 0 || threads < 32 || threads > kMaxWarps * 32 ||
-      threads % 32 != 0 || frames < 1 || ksplit < 1 ||
-      (fpt != kWideFrames && fpt != kNarrowFrames) || frames % (fpt * 32 / cg) != 0 ||
-      (vec && hop % 4 != 0)) {
+      threads % 32 != 0 || frames < 1 || ksplit < 1 || !fpt_ok ||
+      frames % (fpt * 32 / cg) != 0 || (band_launch != 0 && band_launch != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape s;
@@ -332,31 +538,55 @@ int sd_framed_gemm(const float* x, long long n, const float* g, int window,
   s.fpt = fpt;
   s.ksplit = ksplit;
   s.band_rows = band_rows;
-  // a row split needs one warp for each part of each unit
-  if (ksplit > 1 &&
-      s.n_tiles * (frames / (fpt * 32 / cg)) * ksplit != threads / 32) {
+  s.group = band_launch ? group : s.n_tiles;
+  if (s.group < 1 || s.group > s.n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  // a row split needs one warp for each part of each unit a CTA can have
+  const int units = s.group * (frames / (fpt * 32 / cg));
+  if (ksplit > 1 && units * ksplit != threads / 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the last frame's rows run to lo + rows <= window + 6 (both rounded to 4)
   const long long span = ((long long)(frames - 1) * hop + window + 8 + 3) / 4 * 4;
+  long long staged = span;
+  if (band_launch) {
+    if (stage_rows < 0 || stage_rows % 4 != 0 || stage_rows > window + 3) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (stride == hop) {
+      staged = ((long long)(frames - 1) * hop + stage_rows + 3) / 4 * 4;
+      if (vec && hop % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if (stride < stage_rows || stride % 4 != 0 || hop < stage_rows) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      staged = (long long)frames * stride;
+    }
+  } else if (vec && hop % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (span > INT_MAX || staged > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   s.span = static_cast<int>(span);
+  s.stride = band_launch ? stride : 0;
+  s.staged = static_cast<int>(staged);
   if (static_cast<long long>(smem_bytes(s, threads)) > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((n_frames + frames - 1) / frames > INT_MAX) {
+  if ((n_frames + frames - 1) / frames * ((s.n_tiles + s.group - 1) / s.group) > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SD_LAUNCH(V, S, F) \
-  launch<V, S, F>(x, n, g, band, ranges, n_frames, out, s, threads, device, st)
-#define SD_LAUNCH_VS(F)                                                             \
-  (ksplit > 1 ? (vec ? SD_LAUNCH(true, true, F) : SD_LAUNCH(false, true, F))       \
-              : (vec ? SD_LAUNCH(true, false, F) : SD_LAUNCH(false, false, F)))
-  return fpt == kWideFrames ? SD_LAUNCH_VS(kWideFrames) : SD_LAUNCH_VS(kNarrowFrames);
-#undef SD_LAUNCH_VS
-#undef SD_LAUNCH
+  const bool v = vec != 0;
+  if (band_launch) {
+    return launch_vs<true, kTinyFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out, s,
+                                        threads, device, st);
+  }
+  return fpt == kWideFrames
+             ? launch_vs<false, kWideFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out, s,
+                                             threads, device, st)
+             : launch_vs<false, kNarrowFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out,
+                                               s, threads, device, st);
 }
 
 }  // extern "C"

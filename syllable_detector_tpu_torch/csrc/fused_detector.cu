@@ -126,11 +126,16 @@
 //     not fit either (long hops, 96 kHz at fft 1024 with 128 frames), also
 //     stages A by k-block: each round stages rows kb*kRows .. +kRows of
 //     only the 64-frame groups its units use, into kAStages buffers taken
-//     in turn, by cp.async for the float32 wire (16 bytes where the rows
-//     are 16-byte aligned, else 4, zero-filled past the window and the
-//     stream), dequantising plain loads for the others; the copies of C
-//     and A run two blocks ahead of the tensor cores (kStreamStages stages
-//     of C), and a block's wgmma wait comes one block later;
+//     in turn, all by cp.async: the float32 wire as floats (16 bytes where
+//     the rows are 16-byte aligned, else 4, zero-filled past the window and
+//     the stream), the int16 and mu-law wires as their raw bytes (the
+//     16-byte pieces from the boundary at or below each row's first
+//     sample, zero-filled past the stream; an odd hop or gap only moves the
+//     first sample within its piece), dequantised where the A fragments are
+//     loaded, with the window masked there: the same floats the float32
+//     wire stages, so the same products; the copies of C and A run two
+//     blocks ahead of the tensor cores (kStreamStages stages of C), and a
+//     block's wgmma wait comes one block later;
 //   * outside the resident layout a bf16 first layer is chunked (below),
 //     and the activation buffers lie over regions that are dead by then.
 // The chunked first layer (a bf16 one outside the resident layout, the fp32
@@ -988,13 +993,50 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
     auto expand_s = [&](Sample v) {
       return sizeof(Sample) == 1 ? lut_s[static_cast<uint8_t>(v)] : dequant(v, dq);
     };
-    // rows kb * kRows .. + kRows - 1 of the nf frames from f0 into `buf`
-    // (frame f0 + i at row i), zero past the window, the stream or the
-    // frames matrix: the float32 wire by cp.async (the caller commits), the
-    // others dequantised by plain loads, kStageUnroll in flight per thread
-    auto stage_a = [&](int kb, int f0, int nf, float* buf) {
+    // The int16 and mu-law wires: a staged frame's row of a block is its raw
+    // bytes, the kRawChunks 16-byte pieces of the wire that hold its kRows
+    // samples (the piece holding the first one, and on), at kRawStride bytes
+    // a frame (an odd number of pieces: the fragment loads of 8 frames fall
+    // on distinct banks), kAStages buffers of raw_buf bytes in the first
+    // activation buffer where the float32 ring would lie. A frame's first
+    // sample sits at the same offset of its first piece in every block
+    // (kRows samples are a whole number of pieces), raw_off below. Pieces
+    // reach back at most 15 bytes before a row and forward past it; the
+    // bytes before the lane's first sample lie in the same allocation
+    // (device allocations are aligned to 256 bytes), those past the stream
+    // are zero-filled.
+    constexpr bool kRaw = sizeof(Sample) != 4;
+    constexpr int kRawChunks = kRows * static_cast<int>(sizeof(Sample)) / 16 + 1;
+    constexpr int kRawStride = (kRawChunks | 1) * 16;
+    const int raw_buf = g.frames * kRawStride;
+    unsigned char* raw = reinterpret_cast<unsigned char*>(act_a);
+    const uintptr_t raw0 = reinterpret_cast<uintptr_t>(x) + (start + g.gap) * sizeof(Sample);
+    const uintptr_t raw_end = raw0 + (left > 0 ? left : 0) * sizeof(Sample);
+    const uintptr_t raw_any = reinterpret_cast<uintptr_t>(x) & ~static_cast<uintptr_t>(15);
+    auto raw_off = [&](int f) {  // byte offset of frame f's first sample in its piece
+      return static_cast<int>((raw0 + (long long)f * g.hop * sizeof(Sample)) & 15);
+    };
+    // rows kb * kRows .. + kRows - 1 of the nf frames from f0 into A's
+    // buffer `stage` (frame f0 + i at row i), by cp.async (the caller
+    // commits): the float32 wire as floats, zero past the window, the
+    // stream or the frames matrix; the other wires as raw pieces, zero past
+    // the stream (the fragment loads mask the window and dequantise)
+    auto stage_a = [&](int kb, int f0, int nf, int stage) {
       const int k0 = kb * kRows;
-      if constexpr (sizeof(Sample) == 4) {
+      if constexpr (kRaw) {
+        unsigned char* dst = raw + stage * raw_buf;
+        for (int i = threadIdx.x; i < nf * kRawChunks; i += blockDim.x) {
+          const int f = i / kRawChunks;
+          const int c = i - f * kRawChunks;
+          const uintptr_t row = raw0 + ((long long)(f0 + f) * g.hop + k0) * sizeof(Sample);
+          const uintptr_t src = (row & ~static_cast<uintptr_t>(15)) + 16 * c;
+          const long long have = raw_end > src ? static_cast<long long>(raw_end - src) : 0;
+          const int bytes = have >= 16 ? 16 : static_cast<int>(have);
+          cp_async16_zfill(reinterpret_cast<float*>(dst + f * kRawStride + 16 * c),
+                           reinterpret_cast<const float*>(bytes ? src : raw_any), bytes);
+        }
+      } else {
+        float* buf = act_a + stage * a_buf;
         if (vec16) {
           constexpr int kPer = kRows / 4;  // 16-byte copies a frame
           for (int i = threadIdx.x; i < nf * kPer; i += blockDim.x) {
@@ -1012,26 +1054,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
             const long long at = (long long)(f0 + f) * grs + k;
             const bool in = k < g.window && at < left;
             cp_async4_zfill(buf + f * ast + k - k0, in ? row0 + at : row0, in ? 4 : 0);
-          }
-        }
-      } else {
-        const Sample* xs0 = x + start + g.gap;
-        const int total = nf * kRows;
-        for (int i0 = threadIdx.x; i0 < total; i0 += blockDim.x * kStageUnroll) {
-          float v[kStageUnroll];
-#pragma unroll
-          for (int q = 0; q < kStageUnroll; ++q) {
-            const int i = i0 + q * blockDim.x;
-            const int f = i / kRows;
-            const int k = k0 + i - f * kRows;
-            const long long at = (long long)(f0 + f) * g.hop + k;
-            v[q] = i < total && k < g.window && at < left ? expand_s(xs0[at]) : 0.0f;
-          }
-#pragma unroll
-          for (int q = 0; q < kStageUnroll; ++q) {
-            const int i = i0 + q * blockDim.x;
-            const int f = i / kRows;
-            if (i < total) buf[f * ast + i - f * kRows] = v[q];
           }
         }
       }
@@ -1056,6 +1078,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
         const int f_a = mg0 + fg_n <= fg ? mg0 * kUnitFrames : 0;
         const int nf = mg0 + fg_n <= fg ? fg_n * kUnitFrames : g.frames;
         const int arow = (mg * kUnitFrames - f_a + wrow + gid) * ast + tig;
+        // the raw wires: this thread's two frames' rows and first samples
+        const int rrow = mg * kUnitFrames - f_a + wrow + gid;
+        const int roff0 = kRaw ? raw_off(mg * kUnitFrames + wrow + gid) : 0;
+        const int roff1 = kRaw ? raw_off(mg * kUnitFrames + wrow + gid + 8) : 0;
         float acc[kDual][32];
 #pragma unroll
         for (int d = 0; d < kDual; ++d) {
@@ -1067,7 +1093,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
         for (int kb = 0; kb < 2; ++kb) {
           if (kb < n_blocks) {
             prefetch(kb, c0, gcur);
-            stage_a(kb, f_a, nf, act_a + kb * a_buf);
+            stage_a(kb, f_a, nf, kb);
           }
           cp_async_commit();
         }
@@ -1083,7 +1109,26 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
           // the stage of C and the A buffer written next are free
           __syncthreads();
           stamp(prof, 4, t_prof);
-          {
+          if constexpr (kRaw) {
+            static_assert(!kBf16Dft, "the int16 and mu-law wires run in full fp32 only");
+            // the fragments from the raw rows, dequantised as loaded (the
+            // float32 wire's staged value), zero past the window
+            const unsigned char* rb = raw + (kb % kAStages) * raw_buf;
+            const Sample* s0 = reinterpret_cast<const Sample*>(rb + rrow * kRawStride + roff0);
+            const Sample* s1 = reinterpret_cast<const Sample*>(rb + (rrow + 8) * kRawStride + roff1);
+#pragma unroll
+            for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int kc = ks * 8 + (q >> 1) * 4 + tig;
+                const float v =
+                    kb * kRows + kc < g.window ? expand_s(((q & 1) ? s1 : s0)[kc]) : 0.0f;
+                hi[ks][q] = to_tf32(v);
+                lo[ks][q] = to_tf32(v - __uint_as_float(hi[ks][q]));
+              }
+            }
+            block_products(acc, hi, lo, stages + (kb % kC) * sfl, gcur, cl, nd);
+          } else {
             const float* a0 = act_a + (kb % kAStages) * a_buf + arow;
             const float* a1 = a0 + 8 * ast;
             // the fragments as the resident layout loads them, from the
@@ -1113,7 +1158,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) fused_detector_kernel(
           }
           if (kb + 2 < n_blocks) {
             prefetch(kb + 2, c0, gcur);
-            stage_a(kb + 2, f_a, nf, act_a + ((kb + 2) % kAStages) * a_buf);
+            stage_a(kb + 2, f_a, nf, (kb + 2) % kAStages);
           }
           cp_async_commit();
           stamp(prof, 6, t_prof);

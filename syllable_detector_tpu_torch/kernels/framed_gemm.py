@@ -15,17 +15,23 @@ counted in :data:`FRAMED_GEMM_LAUNCHES`.
 
 The kernel skips G's zeros. The resampler's G is banded, so for each tile
 of neighbouring columns only a short range of rows holds a non-zero.
-:func:`tiling` picks the tile width and the frames per CTA from the shape,
-:func:`column_bands` finds each tile's row range ``[lo, hi)`` from the
-tensor (a dense G gives ``[0, window)``), and :func:`band_layout` lays the
-bands out as the kernel reads them; both are computed once per G and kept
-(:func:`_bands_of`). A skipped row would have added an exact zero, so on
-finite samples the result is the dense product's. On a NaN or an Inf it
-would not be: ``0 * NaN`` is NaN, so the dense product (the plain version,
-and the JAX kernel) has NaN in EVERY column of a frame that holds a
-non-finite sample wherever G has a zero in that row. The kernel keeps that
-result: a CTA whose staged samples hold a NaN or an Inf sums over all of
-G's rows, so NaN falls in the same places as in the plain version.
+:func:`tiling` picks the tile width and the launch from the shape and the
+frame count, :func:`column_bands` finds each tile's row range ``[lo, hi)``
+from the tensor (a dense G gives ``[0, window)``), and :func:`band_layout`
+lays the bands out as the kernel reads them; both are computed once per G
+and kept (:func:`_bands_of`). A skipped row would have added an exact zero,
+so on finite samples the result is the dense product's. On a NaN or an Inf
+it would not be: ``0 * NaN`` is NaN, so the dense product (the plain
+version, and the JAX kernel) has NaN in EVERY column of a frame that holds
+a non-finite sample wherever G has a zero in that row. The kernel keeps
+that result: a CTA whose frames' span holds a NaN or an Inf sums over all
+of G's rows, so NaN falls in the same places as in the plain version.
+
+Two launches (see the note at the head of ``csrc/framed_gemm.cu``): the
+long launch cuts the frames only, and a CTA stages its frames' span for
+every column tile; where that gives fewer than :data:`CTAS_PER_SM` CTAs an
+SM (a channel of a few seconds), the band launch puts groups of column
+tiles on the grid too, and a CTA stages only its group's bands of rows.
 """
 
 from __future__ import annotations
@@ -40,17 +46,24 @@ from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length, norma
 
 __all__ = [
     "FRAMED_GEMM_LAUNCHES",
+    "LAUNCH_KINDS",
     "Tiling",
     "tiling",
     "column_bands",
     "band_layout",
     "framed_gemm",
     "framed_gemm_reference",
+    "CTAS_PER_SM",
+    "band_tiling",
+    "launch_ctas",
+    "launch_tiling",
+    "long_tiling",
 ]
 
 # Kernel launches in this process; reset to 0 before a run whose launches
-# are to be counted.
+# are to be counted. LAUNCH_KINDS splits them by launch (Tiling.band).
 FRAMED_GEMM_LAUNCHES = 0
+LAUNCH_KINDS = {"long": 0, "band": 0}
 # Dynamic shared memory one CTA may opt in to on Hopper (227 KB), and the
 # span above which a CTA takes fewer frames: small CTAs, many to an SM, hide
 # the staging of one behind the sums of another (on an H100 at 48k -> 44.1k,
@@ -67,14 +80,29 @@ MAX_WARPS = 8
 # several warps, a part of at least MIN_PART_ROWS rows each.
 SPLIT_WARPS = 4
 MIN_PART_ROWS = 16
+# The band launch: taken where the long launch leaves SMs idle (see
+# tiling; on an H100 the band launch lost to the long one, though not to
+# unfold @ g, on shallow bands where the long launch gave an SM a CTA or
+# more, scripts/k2_rate_grid.py). A CTA takes one unit of BAND_FRAMES
+# frames a thread (2 beat 4 and 8 on all but a few rate pairs: a short chain
+# of loads and sums a CTA) of a group of column tiles, the fewest groups
+# that give CTAS_PER_SM CTAs an SM; up to MAX_WARPS warps split a unit's
+# rows, parts of at least MIN_PART_ROWS. SMS: the SMs counted when the
+# caller gives none (an H100's).
+CTAS_PER_SM = 2
+BAND_FRAMES = 2
+SMS = 132
 
 
 class Tiling(NamedTuple):
     """How one launch is cut: a warp is ``32 // cg`` threads across frames
     by ``cg`` across columns, a thread owns ``fpt`` frames x 4 columns, so a
-    warp's unit is ``fpt * 32 // cg`` frames x ``cw = 4 * cg`` columns; a CTA
-    stages the span of ``frames`` frames and its warps take the
-    ``n_tiles * frames // unit frames`` units in turn, or, with ``ksplit``
+    warp's unit is ``fpt * 32 // cg`` frames x ``cw = 4 * cg`` columns. In
+    the long launch a CTA stages the span of ``frames`` frames and its warps
+    take the ``n_tiles * frames // unit frames`` units in turn; in the band
+    launch (``band``) a CTA takes one unit of each of ``group`` column tiles
+    and stages their bands' ``rows`` alone, frame by frame at ``stride``
+    floats (or as one run where ``stride`` is the hop). With ``ksplit``
     above 1, ``ksplit`` warps share each unit, a part of the rows each."""
 
     cg: int  # threads of a warp across columns: 1, 2, 4 or 8
@@ -83,9 +111,13 @@ class Tiling(NamedTuple):
     frames: int  # frames per CTA
     ksplit: int  # warps per unit
     threads: int  # threads per CTA
-    vec: bool  # samples read as float4 along k (hop % 4 == 0)
+    vec: bool  # staged samples read as float4 along k
     span_bytes: int  # shared memory per CTA for the samples
     fpt: int = FRAMES_PER_THREAD  # frames per thread
+    band: bool = False  # the band launch: a group of column tiles a CTA, their bands staged
+    stride: int = 0  # band launch: floats between staged frames (the hop: one run)
+    group: int = 1  # band launch: column tiles a CTA takes
+    rows: int = 0  # band launch: rows of G a CTA stages a frame, at most
 
 
 def _round_up(v: int, m: int) -> int:
@@ -97,8 +129,83 @@ def _span_bytes(frames: int, window: int, hop: int) -> int:
     return _round_up((frames - 1) * hop + window + 8, 4) * 4
 
 
-def tiling(window: int, m: int, hop: int) -> Tiling:
-    """The kernel's tiling of a ``[*, window] @ [window, m]`` product at
+def tiling(
+    window: int, m: int, hop: int, n_frames: int | None = None, sms: int | None = None,
+    ranges: list[tuple[int, int]] | None = None,
+) -> Tiling:
+    """The kernel's launch for ``n_frames`` frames of a ``[*, window] @
+    [window, m]`` product at ``hop`` on a card of ``sms`` SMs (default
+    :data:`SMS`), each column tile summing over rows ``[lo4, lo4 + n)`` of
+    ``ranges`` (as :func:`band_layout` gives them; default every row).
+    Without ``n_frames``, the long launch (:func:`long_tiling`); with it,
+    the band launch (:func:`band_tiling`, where its samples fit in shared
+    memory) where the long launch leaves SMs idle: fewer than one CTA an SM
+    over several column tiles, half of one over a single tile (where the
+    band launch only re-cuts the frames), twice that where a band is deep
+    enough to split over :data:`SPLIT_WARPS` warps."""
+    cut = long_tiling(window, m, hop)
+    if n_frames is None:
+        return cut
+    sms = SMS if sms is None else sms
+    ranges = [(0, _round_up(window, 4))] * cut.n_tiles if ranges is None else list(ranges)
+    idle = sms if cut.n_tiles > 1 else sms // 2
+    if max(n for _, n in ranges) >= SPLIT_WARPS * MIN_PART_ROWS:
+        idle *= 2
+    if launch_ctas(cut, n_frames) >= idle:
+        return cut
+    return band_tiling(window, m, hop, n_frames, sms, ranges) or cut
+
+
+def launch_ctas(cut: Tiling, n_frames: int) -> int:
+    """CTAs of a launch cut as ``cut`` over ``n_frames`` frames."""
+    return -(-n_frames // cut.frames) * (-(-cut.n_tiles // cut.group) if cut.band else 1)
+
+
+def band_tiling(
+    window: int, m: int, hop: int, n_frames: int, sms: int | None = None,
+    ranges: list[tuple[int, int]] | None = None,
+) -> Tiling | None:
+    """The band launch: a CTA takes one unit of frames (:data:`BAND_FRAMES`
+    a thread, 32 / cg threads across frames) of a group of neighbouring
+    column tiles, the fewest groups that give :data:`CTAS_PER_SM` CTAs an SM
+    (one tile a group where the frames do not allow that). It stages each
+    frame's rows of the group's bands, from the first band's first row to
+    the last band's end (``ranges``, as in :func:`tiling`): one by one at a
+    stride of that depth rounded to an odd multiple of 4 where the hop is at
+    least that, else as one run at the hop. Where a group's tiles leave
+    warps to spare, ``ksplit`` warps share each unit, a part of its rows
+    each (at least :data:`MIN_PART_ROWS`). None where the unit's samples do
+    not fit in shared memory."""
+    cw, cg = _column_group(m)
+    n_tiles = -(-m // cw)
+    ranges = [(0, _round_up(window, 4))] * n_tiles if ranges is None else list(ranges)
+    fpt = BAND_FRAMES
+    unit = fpt * 32 // cg
+    sms = SMS if sms is None else sms
+    groups = min(n_tiles, -(-CTAS_PER_SM * sms // -(-n_frames // unit)))
+    group = -(-n_tiles // groups)
+    depth, deepest = 4, 4
+    for g0 in range(0, n_tiles, group):
+        live = [(lo, n) for lo, n in ranges[g0 : g0 + group] if n > 0]
+        if live:
+            depth = max(depth, max(lo + n for lo, n in live) - min(lo for lo, _ in live))
+            deepest = max(deepest, max(n for _, n in live))
+    ksplit = 1
+    while group * ksplit * 2 <= MAX_WARPS and deepest // (ksplit * 2) >= MIN_PART_ROWS:
+        ksplit *= 2
+    warps = group * ksplit if ksplit > 1 else min(group, MAX_WARPS)
+    stride = depth + 4 if depth // 4 % 2 == 0 else depth
+    frame_by_frame = hop >= stride
+    staged = unit * stride if frame_by_frame else _round_up((unit - 1) * hop + depth, 4)
+    red = 32 * warps * fpt * COLS_PER_THREAD if ksplit > 1 else 0
+    if 4 * (staged + red) > SMEM_LIMIT:
+        return None
+    return Tiling(cg, cw, n_tiles, unit, ksplit, 32 * warps, frame_by_frame or hop % 4 == 0,
+                  4 * staged, fpt, True, stride if frame_by_frame else hop, group, depth)
+
+
+def long_tiling(window: int, m: int, hop: int) -> Tiling:
+    """The long launch's tiling of a ``[*, window] @ [window, m]`` product at
     ``hop``: the narrowest column tile of 4, 8, 16 or 32 that holds ``m``
     (32 for wider products), and as many frames per CTA as give 8 warps a
     unit each, fewer while the staged span is above :data:`SPAN_TARGET`.
@@ -130,7 +237,7 @@ def _column_group(m: int) -> tuple[int, int]:
 
 
 def _tiling(window: int, m: int, hop: int, fpt: int) -> Tiling | None:
-    """:func:`tiling` with ``fpt`` frames a thread, or None where one
+    """:func:`long_tiling` with ``fpt`` frames a thread, or None where one
     unit's span does not fit."""
     cw, cg = _column_group(m)
     n_tiles = -(-m // cw)
@@ -200,11 +307,12 @@ _BANDS_KEPT = 16
 
 
 def _bands_of(g: torch.Tensor, cg: int):
+    """(g, band, ranges, the ranges as a host list) of ``g`` at ``cg``."""
     key = (g.data_ptr(), g._version, tuple(g.shape), g.device, cg)
     hit = _BANDS.get(key)
     if hit is None:
-        bands = column_bands(g, COLS_PER_THREAD * cg)
-        hit = (g, *band_layout(g, bands, cg), bands)
+        band, ranges = band_layout(g, column_bands(g, COLS_PER_THREAD * cg), cg)
+        hit = (g, band, ranges, [tuple(r) for r in ranges.tolist()])
         while len(_BANDS) >= _BANDS_KEPT:
             _BANDS.pop(next(iter(_BANDS)))
         _BANDS[key] = hit
@@ -237,26 +345,50 @@ def framed_gemm(
     m = g.shape[1]
     if n_frames <= 0:
         return x.new_zeros((0, m))
+    cut = launch_tiling(x, g, window, window_overlap, n_frames)
+    out = _launch(x, g, window, window_overlap, n_frames, cut)
+    FRAMED_GEMM_LAUNCHES += 1
+    LAUNCH_KINDS["band" if cut.band else "long"] += 1
+    return out
+
+
+def launch_tiling(x: torch.Tensor, g: torch.Tensor, window: int, window_overlap: int,
+                  n_frames: int) -> Tiling:
+    """The launch :func:`framed_gemm` takes for these arguments on ``x``'s
+    card (:func:`tiling` with the card's SMs and G's row bands)."""
+    hop = hop_length(window, window_overlap)
+    _, cg = _column_group(g.shape[1])
+    return tiling(window, g.shape[1], hop, n_frames, _sm_count(x.device), _bands_of(g, cg)[3])
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, window: int, window_overlap: int,
+            n_frames: int, cut: Tiling) -> torch.Tensor:
+    """One launch of the kernel, cut as ``cut``. Counts nothing."""
+    m = g.shape[1]
     lib = _library()
     gap, _ = normalize_overlap(window_overlap)
     hop = hop_length(window, window_overlap)
-    cut = tiling(window, m, hop)
     _, band, ranges, _ = _bands_of(g, cut.cg)
     out = torch.empty((n_frames, m), dtype=torch.float32, device=x.device)
     err = lib.sd_framed_gemm(
         x.data_ptr(), x.shape[0], g.data_ptr(), window, m, hop, gap, n_frames,
         out.data_ptr(), band.data_ptr(), ranges.data_ptr(), band.shape[1], cut.cg,
-        cut.ksplit, cut.fpt, cut.frames, cut.threads, int(cut.vec),
+        cut.ksplit, cut.fpt, cut.frames, cut.threads, int(cut.vec), int(cut.band), cut.group,
+        cut.rows, cut.stride,
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
-            f"framed GEMM kernel launch failed (window {window}, {m} columns, hop {hop}): "
-            f"{lib.sd_framed_gemm_error_string(err).decode()} (cudaError {err})"
+            f"framed GEMM kernel launch failed (window {window}, {m} columns, hop {hop}, "
+            f"{cut}): {lib.sd_framed_gemm_error_string(err).decode()} (cudaError {err})"
         )
-    FRAMED_GEMM_LAUNCHES += 1
     return out
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_launchable(x: torch.Tensor, g: torch.Tensor) -> None:
@@ -286,7 +418,7 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.load("framed_gemm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.sd_framed_gemm.argtypes = [p, ll, p, i, i, i, i, ll, p, p, p] + [i] * 12 + [p]
     lib.sd_framed_gemm.restype = i
     lib.sd_framed_gemm_error_string.argtypes = [i]
     lib.sd_framed_gemm_error_string.restype = ctypes.c_char_p

@@ -401,8 +401,13 @@ class AlsaAudioOutput(AudioOutputInterface):
         lib = self._pcm.lib
         out = np.zeros((self.frame_size, self.channels), np.float32)
         ptr = out.ctypes.data_as(ctypes.c_void_p)
-        while not self._stop.is_set():
+        while True:
             with self._lock:
+                # on tear-down, play out the pulses already armed first: a
+                # detection of the last drain before shutdown still reaches
+                # the wire
+                if self._stop.is_set() and not self._high_for.any():
+                    break
                 before = self._high_for.copy()
                 ttl_fill(out, self._high_for)
             wrote = lib.snd_pcm_writei(self._pcm.handle, ptr, self.frame_size)
@@ -413,6 +418,8 @@ class AlsaAudioOutput(AudioOutputInterface):
                 # requested duration across the xrun
                 with self._lock:
                     np.maximum(self._high_for, before, out=self._high_for)
+                if self._stop.is_set():
+                    break  # closing: a failing device plays nothing more
                 if lib.snd_pcm_recover(self._pcm.handle, int(wrote), 1) < 0:
                     break
             elif wrote < self.frame_size:

@@ -527,8 +527,13 @@ class PulseAudioOutput(AudioOutputInterface):
         out = np.zeros((self.frame_size, self.channels), np.float32)
         ptr = out.ctypes.data_as(ctypes.c_void_p)
         err = ctypes.c_int(0)
-        while not self._stop.is_set():
+        while True:
             with self._lock:
+                # on tear-down, play out the pulses already armed first: a
+                # detection of the last drain before shutdown still reaches
+                # the wire
+                if self._stop.is_set() and not self._high_for.any():
+                    break
                 before = self._high_for.copy()
                 ttl_fill(out, self._high_for)
             rc = lib.pa_simple_write(

@@ -48,7 +48,7 @@ WORKLOADS = ("single", "batched", "distinct")
 # The fused kernel's revision in the cache's keys: bumped whenever a change
 # to the kernel's layouts or arithmetic can move which frames per CTA win,
 # so that what an older kernel measured is not taken for this one's.
-KERNEL_REVISION = 2
+KERNEL_REVISION = 3
 # evaluations of the single-stream tune, as the JAX package's tune_single
 SINGLE_EVALS = 1 << 15
 

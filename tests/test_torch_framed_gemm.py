@@ -5,8 +5,11 @@ kernel (interpret mode) and against ``frame_signal @ g`` on the six
 framings of tests/test_framed_gemm.py, within that file's rtol=1e-4,
 atol=1e-4. The port's ``polyphase_resample`` on the CPU is held against the
 JAX XLA path and the Pallas path at rtol=1e-5, atol=1e-5; its float64 plan
-must be the JAX plan exactly. Interpret mode is slow, so inputs stay at or
-under 9000 samples.
+must be the JAX plan exactly. The kernel's two launches are checked from
+their tilings, and the band launch's sums by a numpy emulation held bit for
+bit against an in-order sum, and against the JAX kernel at the resampler's
+1e-5 / 1e-5. Interpret mode is slow, so inputs stay at or under 9000
+samples.
 """
 
 import importlib
@@ -275,3 +278,194 @@ def test_non_finite_samples_follow_the_dense_product():
     banded, *_ = banded_product(x, g, window, overlap, n_frames)
     assert banded[rows(nan_at)].isfinite().any()  # the skip alone would lose NaN
     np.testing.assert_allclose(banded[clean].numpy(), want[clean].numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the launch for a short channel: column tiles on the grid, each CTA staging
+# its tile's band alone (the band launch)
+# ---------------------------------------------------------------------------
+
+# the six pairs where the long launch lost most to ``unfold @ g`` on 5 s
+# channels, and two of the corpus scan's pairs into the sample net's rate
+SHORT_CHANNEL_PAIRS = [
+    (48000.0, 11025.0), (192000.0, 11025.0), (44100.0, 8000.0), (22050.0, 8000.0),
+    (96000.0, 11025.0), (96000.0, 22050.0), (48000.0, 44100.0), (96000.0, 44100.0),
+]
+
+
+def pair_framing(in_rate, out_rate, seconds):
+    """(window, columns, hop, frames, the column tiles' row ranges) of the
+    resampler's product on a channel of ``seconds``, as the wrapper sees
+    them."""
+    from syllable_detector_tpu_torch.ops.stft import hop_length
+
+    x = np.zeros(int(seconds * in_rate), np.float32)
+    _, g, window, overlap, blocks, _ = tresample.polyphase_framing(
+        x, in_rate, out_rate, device="cpu")
+    cut = tfg.tiling(window, g.shape[1], hop_length(window, overlap))
+    _, ranges = tfg.band_layout(g, tfg.column_bands(g, cut.cw), cut.cg)
+    return window, g.shape[1], hop_length(window, overlap), blocks, [tuple(r) for r in ranges.tolist()]
+
+
+@pytest.mark.parametrize(
+    "in_rate,out_rate,seconds",
+    [(a, b, 5.0) for a, b in SHORT_CHANNEL_PAIRS] + [(48000.0, 44100.0, 60.0), (96000.0, 44100.0, 60.0)],
+)
+def test_launch_by_channel_length(in_rate, out_rate, seconds):
+    window, m, hop, blocks, ranges = pair_framing(in_rate, out_rate, seconds)
+    long = tfg.tiling(window, m, hop)
+    assert long == tfg.long_tiling(window, m, hop) and not long.band
+    cut = tfg.tiling(window, m, hop, n_frames=blocks, sms=132, ranges=ranges)
+    if seconds == 60.0:  # the corpus scan's 60 s channels: the long launch stands
+        assert cut == long and tfg.launch_ctas(long, blocks) >= 2 * 132
+        return
+    # a 5 s channel: the long launch leaves most SMs idle; the band launch
+    # puts G's column tiles on the grid and reaches an SM's worth of CTAs
+    assert tfg.launch_ctas(long, blocks) < 2 * 132
+    assert cut.band and cut.n_tiles == long.n_tiles > 1 and cut.fpt == tfg.BAND_FRAMES
+    assert tfg.launch_ctas(cut, blocks) >= 132
+    assert cut.frames == cut.fpt * 32 // cut.cg
+    # a CTA takes a group of neighbouring tiles and stages their bands' rows
+    group = [(lo, n) for lo, n in ranges[: cut.group] if n]
+    assert cut.rows >= max(lo + n for lo, n in group) - min(lo for lo, _ in group)
+    assert cut.rows <= max(n for _, n in ranges) * cut.group
+    if cut.ksplit > 1:  # one warp per (tile, part of its rows), parts of 16 rows or more
+        assert cut.threads == 32 * cut.group * cut.ksplit <= 256
+        assert max(n for _, n in ranges) // cut.ksplit >= tfg.MIN_PART_ROWS
+    else:
+        assert cut.threads == 32 * min(cut.group, tfg.MAX_WARPS)
+    # frame by frame where the hop leaves gaps between the staged rows
+    if hop >= cut.stride:
+        assert cut.stride >= cut.rows and cut.stride % 8 == 4 and cut.vec
+        assert cut.span_bytes == 4 * cut.frames * cut.stride
+        assert cut.span_bytes < tfg.long_tiling(window, m, hop).span_bytes
+    else:
+        assert cut.stride == hop
+
+
+@pytest.mark.parametrize("in_rate,out_rate", SHORT_CHANNEL_PAIRS + [(8000.0, 16000.0)])
+def test_band_launch_rule_on_long_channels(in_rate, out_rate):
+    """On a 60 s channel the band launch is taken only where the long one
+    leaves SMs idle (fewer than one CTA an SM over several column tiles,
+    half of one over one tile, twice that for a band of 64 rows or more),
+    in the fewest groups of column tiles that fill the card."""
+    window, m, hop, blocks, ranges = pair_framing(in_rate, out_rate, 60.0)
+    long = tfg.long_tiling(window, m, hop)
+    cut = tfg.tiling(window, m, hop, n_frames=blocks, sms=132, ranges=ranges)
+    ctas = tfg.launch_ctas(long, blocks)
+    idle = (132 if long.n_tiles > 1 else 66) * (2 if max(n for _, n in ranges) >= 64 else 1)
+    if ctas >= idle:
+        assert cut == long
+    else:
+        assert cut.band and tfg.launch_ctas(cut, blocks) >= 2 * 132
+        fewer = -(-long.n_tiles // cut.group) - 1
+        assert fewer == 0 or -(-blocks // cut.frames) * fewer < 2 * 132
+    # a card of one SM is filled by the long launch
+    assert tfg.tiling(window, m, hop, n_frames=blocks, sms=1, ranges=ranges) == long
+
+
+def band_launch_product(x: np.ndarray, g: np.ndarray, window: int, overlap: int,
+                        n_frames: int, cut) -> np.ndarray:
+    """The band launch's arithmetic in numpy float32, CTA by CTA: a CTA of
+    ``cut.frames`` frames (and any group of column tiles) whose span
+    ((frames - 1) * hop + window + 8 samples, zero past the end) holds a NaN
+    or an Inf sums all of G's rows; else each column tile only its band's
+    rows [lo4, lo4 + rows), read at the samples' own positions. With
+    ``cut.ksplit`` parts, each part sums its rows in ascending order and the
+    parts are then added in order."""
+    from syllable_detector_tpu_torch.ops.stft import hop_length, normalize_overlap
+
+    gap, _ = normalize_overlap(overlap)
+    hop = hop_length(window, overlap)
+    m = g.shape[1]
+    ks, frames_a_cta = cut.ksplit, cut.frames
+    _, ranges = tfg.band_layout(torch.from_numpy(g), tfg.column_bands(torch.from_numpy(g), cut.cw),
+                                cut.cg)
+    n = len(x)
+    blocks = -(-n_frames // frames_a_cta)
+    span = -(-((frames_a_cta - 1) * hop + window + 8) // 4) * 4
+    padded = np.concatenate([x, np.zeros(gap + blocks * frames_a_cta * hop + span, np.float32)])
+    gpad = np.zeros((window + 4, cut.n_tiles * cut.cw), np.float32)
+    gpad[:window, :m] = g
+    out = np.zeros((blocks * frames_a_cta, cut.n_tiles * cut.cw), np.float32)
+    rows_of = np.arange(window + 4)
+    for fb in range(blocks):
+        start = gap + fb * frames_a_cta * hop
+        dense = not np.isfinite(padded[start : min(start + span, max(n, start))]).all()
+        frames = np.stack([padded[start + f * hop + rows_of] for f in range(frames_a_cta)])
+        for t, (lo4, rows) in enumerate(ranges.tolist()):
+            cols = gpad[:, t * cut.cw : (t + 1) * cut.cw]
+            if dense:
+                lo, hi, chunk = 0, window, -(-window // ks)
+            else:
+                lo, hi, chunk = lo4, lo4 + rows, -(-(-(-rows // ks)) // 4) * 4
+            parts = [sequential_product(frames, cols, min(hi, lo + p * chunk), min(hi, lo + (p + 1) * chunk))
+                     for p in range(ks)]
+            total = parts[0]
+            with np.errstate(invalid="ignore"):
+                for part in parts[1:]:
+                    total = total + part
+            out[fb * frames_a_cta : (fb + 1) * frames_a_cta, t * cut.cw : (t + 1) * cut.cw] = total
+    return out[:n_frames, :m]
+
+
+@pytest.mark.parametrize("in_rate,out_rate", SHORT_CHANNEL_PAIRS)
+def test_band_launch_arithmetic(in_rate, out_rate):
+    """The band launch's sums: without a row split, bit for bit the dense
+    product summed in order (a skipped row adds an exact zero); with the
+    rule's row split, the JAX kernel's product within the resampler's
+    tolerance."""
+    from syllable_detector_tpu_torch.ops.stft import frame_signal, hop_length
+
+    g, window, overlap = resampler_g(in_rate, out_rate)
+    hop = hop_length(window, overlap)
+    x = chirp(in_rate, seconds=min(0.09, 8900 / in_rate))
+    n_frames = num_frames(len(x), window, overlap) + 2  # a zero-padded tail
+    gn = g.numpy()
+    long = tfg.long_tiling(window, g.shape[1], hop)
+    _, ranges = tfg.band_layout(g, tfg.column_bands(g, long.cw), long.cg)
+    cut = tfg.band_tiling(window, g.shape[1], hop, n_frames, 132, [tuple(r) for r in ranges.tolist()])
+    assert cut.band and cut.ksplit > 1  # the resampler's bands are deep enough to split
+    frames = frame_signal(torch.from_numpy(x), n_frames, window, overlap).numpy()
+    unsplit = band_launch_product(x, gn, window, overlap, n_frames, cut._replace(ksplit=1))
+    np.testing.assert_array_equal(unsplit, sequential_product(frames, gn))
+    got = band_launch_product(x, gn, window, overlap, n_frames, cut)
+    want = np.asarray(jframed_gemm(jnp.asarray(x), jnp.asarray(gn), window, overlap, n_frames,
+                                   interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, tfg.framed_gemm_reference(
+        torch.from_numpy(x), g, window, overlap, n_frames).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_band_launch_sees_non_finite_samples_outside_its_band():
+    """A NaN in a frame's window but outside a tile's band: the band
+    launch's CTA stages only the band, yet its scan of the whole span sends
+    it to the dense sums, so NaN falls where the plain version has it."""
+    from syllable_detector_tpu_torch.ops.stft import hop_length
+
+    g, window, overlap = resampler_g(48000.0, 11025.0)
+    hop = hop_length(window, overlap)
+    gn = g.numpy()
+    x = chirp(48000.0, seconds=0.18)
+    n_frames = num_frames(len(x), window, overlap)
+    cut = tfg.band_tiling(window, g.shape[1], hop, n_frames)
+    bands = tfg.column_bands(g, cut.cw)
+    # frame 3's row r lies outside tile 0's band and inside the window
+    lo, hi = bands[0]
+    row = hi + 40
+    assert row < window and not (lo <= row < hi)
+    at = 3 * hop + row
+    x[at] = np.float32("nan")
+    want = tfg.framed_gemm_reference(torch.from_numpy(x), g, window, overlap, n_frames).numpy()
+    holds = [f for f in range(n_frames) if f * hop <= at < f * hop + window]
+    assert holds and all(np.isnan(want[f]).all() for f in holds)
+    got = band_launch_product(x, gn, window, overlap, n_frames, cut)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5)
+    # without the scan, tile 0's columns of those frames would stay finite
+    frames = np.stack([np.concatenate([x, np.zeros(window + 8, np.float32)])[f * hop + np.arange(window)]
+                       for f in holds])
+    lo4 = lo // 4 * 4
+    band_only = sequential_product(frames, gn[:, : cut.cw], lo4, min(window, hi))
+    assert np.isfinite(band_only).all()

@@ -156,3 +156,33 @@ def test_monitor_list_devices_shows_enumerated(monkeypatch):
         assert monitor.main(["--list-devices"]) == 0
     assert "pulse:alsa_input.usb1" in out.getvalue()
     assert "USB Audio CODEC" in out.getvalue()
+
+
+def test_teardown_plays_out_an_armed_pulse():
+    """A pulse armed while the render loop is inside a write, with the
+    tear-down already begun, still reaches the wire before the loop stops."""
+    from syllable_detector_tpu_torch.fixtures import ReplayPulse
+
+    entered, release = threading.Event(), threading.Event()
+
+    class HeldPulse(ReplayPulse):
+        def pa_simple_write(self, h, ptr, nbytes, err_ref):
+            if not entered.is_set():
+                entered.set()
+                release.wait(timeout=10)
+            return super().pa_simple_write(h, ptr, nbytes, err_ref)
+
+    fake = HeldPulse(np.zeros(16, np.float32), channels=2, rate=16000)
+    out = PulseAudioOutput(channels=2, frame_size=16, sample_rate=16000, lib=fake)
+    out.initialize_audio()
+    assert entered.wait(timeout=5)
+    out.create_high_output(1, duration=0.001)  # 16 frames, after the held buffer
+    closing = threading.Thread(target=out.tear_down_audio)
+    closing.start()
+    deadline = time.monotonic() + 5
+    while not out._stop.is_set() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    release.set()
+    closing.join(timeout=10)
+    assert not closing.is_alive()
+    assert fake.pulses.tolist() == [0, 1]
