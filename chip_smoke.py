@@ -11,7 +11,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
                does an instantiation above the registers its layout has in
                ``fused.KERNEL_REGISTERS`` (the figure ``cta_choice`` counts
                CTAs an SM by), or a resident fp32 one from samples on the
-               CUDA cores outside 104-120.
+               CUDA cores outside 104-120; a framed GEMM slot-form
+               instantiation above ``fg.SLOT_REGISTERS`` for its frames a
+               lane (the figure ``slot_tiling`` counts CTAs an SM by).
   3. kernel  — the kernel against its plain PyTorch version and the
                unfused path, on the card, for every configuration of
                fixtures.fused_cases (10 s streams, a short one, log and dB
@@ -45,13 +47,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
                60 s inputs: the resampler's framing for 48k->44.1k,
                44.1k->48k, 96k->44.1k, 32k->44.1k and 22.05k->44.1k (hop 1),
                and the six framings of the JAX package's framed GEMM tests
-               with a zero-padded tail and a dense random G; and the
-               resampler's framing of one 5 s channel at 48k->11.025k and
-               96k->44.1k (the band launch); each line gives the launch
-               taken, the rows of G a column tile sums over and the
-               kernel's device time. Every case again with a NaN, an Inf
-               and a -Inf in the samples: NaN and Inf in the same places as
-               in the plain version.
+               with a zero-padded tail and a dense random G; the
+               resampler's framing of one 60 s channel at 192k->11.025k
+               (the long launch's slot form); and of one 5 s channel at
+               48k->11.025k and 96k->44.1k (the band launch); each line
+               gives the launch taken (the band launch, or the long
+               launch's slot or run form, each at least once), the rows of
+               G a column tile or quad sums over and the kernel's device
+               time. Every case again with a NaN, an Inf and a -Inf in the
+               samples: NaN and Inf in the same places as in the plain
+               version.
   10. corpus — the batched corpus scan, this slice's main path: 8 seeded
                2-channel 60 s chirp files at 44.1, 48 and 96 kHz (16 lanes,
                10 of them resampled on the card) through
@@ -208,8 +213,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
                in each layout that fits (``scripts/k1_stage_shares.py``);
                one K2's at the exact 192k -> 11.025k; one line with K2 on a
                5 s channel at ten rate pairs (kernel, plain, ``unfold @ g``,
-               bound, the launch taken). Then one line of each phase's host
-               wall.
+               bound, the launch taken); one line with K2 on a 60 s channel
+               at the six long-hop pairs (LONG_PAIRS: the slot form) with
+               the same numbers and the bound's share, each held against
+               its plain version (1e-4/1e-4, and with a NaN, an Inf and a
+               -Inf: NaN and Inf in the same places) and, without a row
+               split, bit for bit against the run form. Then one line of
+               each phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -348,6 +358,10 @@ GEOMETRY_SECONDS = 2.0
 # where the long launch lost most to unfold @ g and at the four into the
 # sample net's rate
 SHORT_SECONDS = 5.0
+# K2 on long channels: one 60 s channel at the six rate pairs where the long
+# launch's run form lost most to unfold @ g (the slot form's pairs)
+LONG_PAIRS = ((192000, 11025), (192000, 22050), (176400, 16000), (192000, 44100),
+              (96000, 22050), (176400, 32000))
 SHORT_PAIRS = ((48000, 11025), (192000, 11025), (44100, 8000), (22050, 8000), (96000, 11025),
                (96000, 22050), (48000, 44100), (96000, 44100), (192000, 44100), (8000, 44100))
 GEOMETRY_LANES = 4
@@ -425,27 +439,39 @@ def tile_of(spec, lanes: int, n: int, tier: str | None = None,
 
 def tiling_of(x: torch.Tensor, g: torch.Tensor, window: int, overlap: int, n_frames: int) -> str:
     """The framed GEMM kernel's launch for ``frames(x) @ g`` and the rows of
-    ``g`` its column tiles sum over, as its wrapper chooses them."""
+    ``g`` its column tiles (or, in the long launch's slot form, its column
+    quads) sum over, as its wrapper chooses them."""
     cut = fg.launch_tiling(x, g, window, overlap, n_frames)
-    bands = fg.column_bands(g, cut.cw)
+    bands = fg.quad_bands(g, cut.cg) if cut.slots else fg.column_bands(g, cut.cw)
     most = max(_round_up4(hi) - lo // 4 * 4 for lo, hi in bands)
     shown = ", ".join(f"[{lo}, {hi})" for lo, hi in bands[:3]) + (", ..." if len(bands) > 3 else "")
-    staged = (f"band launch, {cut.group} column tile(s) a CTA, their {cut.rows} rows of G staged "
-              + (f"frame by frame at stride {cut.stride}" if cut.stride != hop_length(window, overlap)
-                 else "as one run") if cut.band else "long launch, the frames' span staged")
-    return (f"launch: {staged}; {fg.launch_ctas(cut, n_frames)} CTAs of {cut.frames} frames "
-            f"({cut.fpt} a thread) and {cut.threads} threads, {cut.n_tiles} column tiles of "
-            f"{cut.cw}, {cut.ksplit} warps a unit, {cut.span_bytes} B shared, float4 samples "
-            f"{cut.vec}; rows of G per tile {shown}: at most {most} of {window}")
+    if cut.band:
+        staged = (f"band launch, {cut.group} column tile(s) a CTA, their {cut.rows} rows of G "
+                  f"staged " + (f"frame by frame at stride {cut.stride}"
+                                if cut.stride != hop_length(window, overlap) else "as one run"))
+    elif cut.slots:
+        staged = (f"long launch, slot form, each frame in a slot of {cut.stride} floats, two "
+                  f"blocks' slots at once, {cut.per_sm} CTA(s) an SM walking the blocks")
+    else:
+        staged = "long launch, run form, the frames' span staged"
+    return (f"launch: {staged}; {fg.launch_ctas(cut, n_frames, fg._sm_count(x.device))} CTAs of "
+            f"{cut.frames} frames ({cut.fpt} a thread) and {cut.threads} threads, {cut.n_tiles} "
+            f"{'groups of ' + str(cut.cg) + ' column quads' if cut.slots else 'column tiles of ' + str(cut.cw)}"
+            f", {cut.ksplit} warps a unit, {cut.span_bytes} B shared, float4 samples "
+            f"{cut.vec}; rows of G per {'quad' if cut.slots else 'tile'} {shown}: at most {most} "
+            f"of {window}")
 
 
 def launch_of(x: torch.Tensor, g: torch.Tensor, window: int, overlap: int, n_frames: int) -> str:
-    """The framed GEMM's launch in a few words: CTAs, frames a CTA, column
-    tile, row split."""
+    """The framed GEMM's launch in a few words: the launch (band, or the
+    long launch's slot or run form), CTAs, frames a CTA (a block, in the
+    slot form), column tile or group of quads, row split."""
     cut = fg.launch_tiling(x, g, window, overlap, n_frames)
-    return (f"{'band' if cut.band else 'long'} {fg.launch_ctas(cut, n_frames)} CTAs x "
-            f"{cut.frames} frames, tile {cut.cw}{f' x {cut.group}' if cut.band else ''}, "
-            f"row split {cut.ksplit}")
+    kind = "band" if cut.band else "long slots" if cut.slots else "long run"
+    cols = (f"{cut.cg} quads" if cut.slots else
+            f"tile {cut.cw}{f' x {cut.group}' if cut.band else ''}")
+    return (f"{kind} {fg.launch_ctas(cut, n_frames, fg._sm_count(x.device))} CTAs x "
+            f"{cut.frames} frames, {cols}, row split {cut.ksplit}")
 
 
 def _round_up4(v: int) -> int:
@@ -1006,6 +1032,13 @@ def phase_resample_kernel() -> float:
             x, in_rate, out_rate, device="cuda"
         )
         cases.append((rate_name(in_rate, out_rate), xin, g, w_len, overlap, frames))
+    # a long hop on a 60 s channel: the long launch's slot form
+    for in_rate, out_rate in LONG_PAIRS[:1]:
+        x = fixtures.chirp_audio(CORPUS_SECONDS, 94, rate=in_rate)
+        xin, g, w_len, overlap, frames, _ = resample.polyphase_framing(
+            x, in_rate, out_rate, device="cuda")
+        cases.append((f"{rate_name(in_rate, out_rate)} {CORPUS_SECONDS:g} s", xin, g, w_len,
+                      overlap, frames))
     # a short channel: the band launch
     for in_rate, out_rate in ((48000, 11025), (96000, 44100)):
         x = fixtures.chirp_audio(SHORT_SECONDS, 93, rate=in_rate)
@@ -1023,8 +1056,10 @@ def phase_resample_kernel() -> float:
         g = torch.from_numpy(rng.standard_normal((window, 24)).astype(np.float32)).cuda()
         frames = num_frames(noise.numel(), window, overlap) + 3  # a zero-padded tail
         cases.append((f"window {window} overlap {overlap}", noise, g, window, overlap, frames))
-    worst = 0.0
+    worst, forms = 0.0, set()
     for name, x, g, window, overlap, frames in cases:
+        cut = fg.launch_tiling(x, g, window, overlap, frames)
+        forms.add("band" if cut.band else "slots" if cut.slots else "run")
         before = fg.FRAMED_GEMM_LAUNCHES
         got = fg.framed_gemm(x, g, window, overlap, frames)
         torch.cuda.synchronize()
@@ -1063,6 +1098,8 @@ def phase_resample_kernel() -> float:
             f"places; kernel {ms:.4f} ms device; {tiling_of(x, g, window, overlap, frames)} ok",
             flush=True,
         )
+    if forms != {"band", "slots", "run"}:
+        raise AssertionError(f"phase 9 held the framed GEMM in {sorted(forms)} only")
     return worst
 
 
@@ -1309,7 +1346,7 @@ def held(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: 
     np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
     np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
     finite = np.isfinite(w)
-    return float(np.abs(g - w)[finite].max()) if finite.any() else 0.0
+    return float(np.abs(g[finite] - w[finite]).max()) if finite.any() else 0.0
 
 
 def phase_tiers() -> dict:
@@ -2920,9 +2957,70 @@ def phase_geometry(card_line: str) -> dict:
         flush=True,
     )
     short = short_channel_times(card_line)
+    long = long_channel_times(card_line)
     return {"worst": worst, "k2": k2_worst, "times": times, "k2_times": (k2, k2_least),
-            "short": short, "band_launches": band_launches,
+            "short": short, "long": long, "band_launches": band_launches,
             "wire_equal": {w: layouts[f"wire bit equal {w}"] for w in ("int16", "mulaw8")}}
+
+
+def long_channel_times(card_line: str) -> dict:
+    """K2 on one 60 s channel at each of LONG_PAIRS: against its plain
+    version (1e-4/1e-4, and with a NaN, an Inf and a -Inf in the samples,
+    NaN and Inf in the same places), without a row split bit for bit the
+    run form's result, and device ms of the kernel, its plain version and
+    ``unfold @ g`` beside the bound and the launch; one line. Returns the
+    kernel's launches here, its worst error and, per pair, (kernel, plain)
+    ms, bound and library ms."""
+    out, parts, launches, worst = {}, [], 0, 0.0
+    for in_rate, out_rate in LONG_PAIRS:
+        x = np.random.default_rng(6).uniform(
+            -0.7, 0.7, int(CORPUS_SECONDS * in_rate)).astype(np.float32)
+        xin, g, w_len, overlap, blocks, _ = resample.polyphase_framing(
+            x, in_rate, out_rate, device="cuda")
+        name = rate_name(in_rate, out_rate)
+        cut = fg.launch_tiling(xin, g, w_len, overlap, blocks)
+        if not cut.slots:
+            raise AssertionError(f"K2 {name} on {CORPUS_SECONDS:g} s: not the slot form ({cut})")
+        plain = fg.framed_gemm_reference(xin, g, w_len, overlap, blocks)
+        before = fg.FRAMED_GEMM_LAUNCHES
+        worst = max(worst, held(fg.framed_gemm(xin, g, w_len, overlap, blocks), plain, 1e-4,
+                                1e-4, f"K2 {name}"))
+        bad = xin.clone()
+        for at, v in zip((xin.numel() // 7, xin.numel() // 2, xin.numel() - w_len // 2),
+                         (float("nan"), float("inf"), float("-inf"))):
+            bad[at] = v
+        a = fg.framed_gemm(bad, g, w_len, overlap, blocks)
+        b = fg.framed_gemm_reference(bad, g, w_len, overlap, blocks)
+        worst = max(worst, held(a, b, 1e-4, 1e-4, f"K2 {name} non-finite"))
+        if not torch.equal(a.isinf(), b.isinf()) or not 0 < int(b.isnan().sum()) < b.numel() // 2:
+            raise AssertionError(f"K2 {name}: Inf in other places, or no NaN")
+        launches += fg.FRAMED_GEMM_LAUNCHES - before
+        # without a row split the slot form sums the run form's rows in its order
+        one = cut._replace(ksplit=1, threads=32 * (cut.threads // 32 // cut.ksplit))
+        run = next(c for c in (fg._tiling(w_len, g.shape[1], hop_length(w_len, overlap), f)
+                               for f in (fg.FRAMES_PER_THREAD, fg.NARROW_FRAMES)) if c)
+        run = run._replace(ksplit=1, threads=32 * (run.threads // 32 // run.ksplit))
+        if not torch.equal(fg._launch(xin, g, w_len, overlap, blocks, one),
+                           fg._launch(xin, g, w_len, overlap, blocks, run)):
+            raise AssertionError(f"K2 {name}: the slot form is not the run form's bit for bit")
+        hop = hop_length(w_len, overlap)
+        need = (blocks - 1) * hop + w_len
+        xpad = torch.cat([xin, xin.new_zeros(max(0, need - xin.numel()))])[:need]
+        ms = [event_ms(fn, samples=GEOMETRY_TIMES[0], batch=GEOMETRY_TIMES[1])[0] for fn in (
+            lambda: fg.framed_gemm(xin, g, w_len, overlap, blocks),
+            lambda: fg.framed_gemm_reference(xin, g, w_len, overlap, blocks),
+            lambda: xpad.unfold(0, w_len, hop) @ g)]
+        least = framed_bound(xin, g, blocks)
+        out[name] = ((ms[0], ms[1]), least, ms[2])
+        parts.append(f"{name} kernel {ms[0]:.4f} / plain {ms[1]:.4f} / unfold @ g {ms[2]:.4f} "
+                     f"({ms[0] / ms[2]:.2f} x) / bound {least[0]:.4f} ms ({least[1]}, "
+                     f"{least[0] / ms[0]:.0%} of it), {launch_of(xin, g, w_len, overlap, blocks)}")
+    print(f"phase 22 times [{card_line}]: K2 on one {CORPUS_SECONDS:g} s channel, device ms, "
+          f"median of {GEOMETRY_TIMES[0]} x {GEOMETRY_TIMES[1]} calls; each against its plain "
+          f"version max_abs {worst:.3g} (1e-4/1e-4, with a NaN, an Inf and a -Inf NaN and Inf "
+          f"in the same places) and, without a row split, bit for bit the run form: "
+          + "; ".join(parts), flush=True)
+    return {"launches": launches, "worst": worst, "times": out}
 
 
 def short_channel_times(card_line: str) -> dict:
@@ -2957,6 +3055,44 @@ def short_channel_times(card_line: str) -> dict:
     return out
 
 
+def phase_build() -> None:
+    """Phase 2: build every kernel source at once and hold ptxas' report
+    (see the note at the head of this file)."""
+    names = ("fused_detector", "framed_gemm")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.build, names))
+    for name, (_, seconds, log) in zip(names, builds):
+        kernels = ptxas_report(log)
+        if not kernels or any(spill != 0 for _, _, spill in kernels):
+            raise AssertionError(f"{name}.cu: ptxas reports spills or nothing: {log[-2000:]}")
+        # cta_choice counts each instantiation's CTAs an SM by the registers
+        # fused.KERNEL_REGISTERS gives its layout; the resident fp32 ones on
+        # the CUDA cores keep two CTAs of 256 threads an SM
+        fp32 = [regs for kernel, regs, _ in kernels if kernel.endswith("fp32 samples")]
+        over = [(kernel, regs) for kernel, regs, _ in kernels
+                if name == "fused_detector" and regs > fused.KERNEL_REGISTERS[register_key(kernel)]]
+        # the framed GEMM's slot form counts CTAs an SM by
+        # fg.SLOT_REGISTERS, one figure for each frames-a-lane instantiation
+        slot_over = [(kernel, regs) for kernel, regs, _ in kernels
+                     if (m := re.search(r"slot_kernelILb[01]ELi(\d)E", kernel))
+                     and regs > fg.SLOT_REGISTERS[int(m.group(1))]]
+        if name == "framed_gemm" and (slot_over or not any("slot_kernel" in k for k, _, _ in kernels)):
+            raise AssertionError(f"framed_gemm.cu: slot form instantiations above "
+                                 f"fg.SLOT_REGISTERS {fg.SLOT_REGISTERS}, or none: {slot_over}")
+        if name == "fused_detector" and (len(fp32) != 3 or not all(
+                104 <= r <= fused.KERNEL_REGISTERS["resident"] for r in fp32) or over):
+            raise AssertionError(
+                f"the resident fp32 instantiations use {fp32} registers (104-"
+                f"{fused.KERNEL_REGISTERS['resident']}); above their layout's "
+                f"fused.KERNEL_REGISTERS: {over}")
+        print(
+            f"phase 2 build: {name}.cu in {seconds:.2f} s; registers: "
+            f"{'; '.join(f'{kernel} {regs}' for kernel, regs, _ in kernels)}; spill bytes 0 "
+            f"over {len(kernels)} kernels ok",
+            flush=True,
+        )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2987,31 +3123,7 @@ def run_phases(marks, mark) -> int:
         flush=True,
     )
 
-    names = ("fused_detector", "framed_gemm")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        builds = list(pool.map(_build.build, names))
-    for name, (_, seconds, log) in zip(names, builds):
-        kernels = ptxas_report(log)
-        if not kernels or any(spill != 0 for _, _, spill in kernels):
-            raise AssertionError(f"{name}.cu: ptxas reports spills or nothing: {log[-2000:]}")
-        # cta_choice counts each instantiation's CTAs an SM by the registers
-        # fused.KERNEL_REGISTERS gives its layout; the resident fp32 ones on
-        # the CUDA cores keep two CTAs of 256 threads an SM
-        fp32 = [regs for kernel, regs, _ in kernels if kernel.endswith("fp32 samples")]
-        over = [(kernel, regs) for kernel, regs, _ in kernels
-                if name == "fused_detector" and regs > fused.KERNEL_REGISTERS[register_key(kernel)]]
-        if name == "fused_detector" and (len(fp32) != 3 or not all(
-                104 <= r <= fused.KERNEL_REGISTERS["resident"] for r in fp32) or over):
-            raise AssertionError(
-                f"the resident fp32 instantiations use {fp32} registers (104-"
-                f"{fused.KERNEL_REGISTERS['resident']}); above their layout's "
-                f"fused.KERNEL_REGISTERS: {over}")
-        print(
-            f"phase 2 build: {name}.cu in {seconds:.2f} s; registers: "
-            f"{'; '.join(f'{kernel} {regs}' for kernel, regs, _ in kernels)}; spill bytes 0 "
-            f"over {len(kernels)} kernels ok",
-            flush=True,
-        )
+    phase_build()
 
     mark("1-2")
     max_abs_err = phase_kernel()
@@ -3123,6 +3235,9 @@ def run_phases(marks, mark) -> int:
               max(resample_err, geometry["k2"]), (kernel[0], plain[0]), least, library[0]),
         entry("framed_gemm band launch 48k->11.025k 5 s", FRAMED_SOURCE, REPLACES_FRAMED,
               band_launches, geometry["k2"], *geometry["short"]["48k->11.025k"]),
+        entry("framed_gemm long launch slots 192k->11.025k 60 s", FRAMED_SOURCE,
+              REPLACES_FRAMED, geometry["long"]["launches"], geometry["long"]["worst"],
+              *geometry["long"]["times"]["192k->11.025k"]),
         entry("fused_detector_frames", KERNEL_SOURCE, REPLACES_FRAMES,
               mesh_counts["frames"] + sweep["K1b"], max(new_err["frames"], worst["K1b"]),
               new_times["frames"], new_times["frames"][2]),

@@ -7,10 +7,13 @@ For each channel length of ``SECONDS`` and each pair of
 ``max_denominator``), it resamples one channel of seeded noise and times,
 with CUDA events, the median of three batches of 20 calls each of the
 kernel, its plain version and ``unfold @ g``, beside the bound
-(``chip_smoke.framed_bound``) and the launch the kernel took (long or band,
-CTAs, frames a CTA, column tile and group, row split). One JSON line a pair and length, the card's name and
-power limit in each, then one line a length with the pairs where the
-kernel is slower than the library call.
+(``chip_smoke.framed_bound``) and the launch the kernel took (the band
+launch, or the long launch's slot or run form; CTAs, frames a CTA or a
+block, column tile and group or quads a warp, row split). One JSON line a
+pair and length, the card's name and power limit in each, then one line a
+length with the pairs where the kernel is slower than the library call.
+On long channels (``60``) it checks the long launch at the high input
+rates, where the slot form takes over from the run form.
 
 Run from the root of the repo, on a machine with one CUDA card:
 

@@ -23,8 +23,10 @@
 // card's SMs at all, and the latency of the first loads is the cost.
 //
 // What the design does about it.
-//   * Columns go in tiles of `cw` = 4 * cg neighbouring columns (32 for a
-//     wide product). For each tile the wrapper finds, once per G, the row
+//   * The band launch and the long launch's run form (the slot form's
+//     column quads below): columns go in tiles of `cw` = 4 * cg
+//     neighbouring columns (32 for a wide product). For each tile the
+//     wrapper finds, once per G, the row
 //     range [lo, lo + rows) outside which the tile's columns are all zero,
 //     and the sum runs over that range only: ~57 of 181 rows at 48k ->
 //     44.1k. A dense G gives [0, window) and nothing is skipped.
@@ -46,14 +48,35 @@
 //     in the order of the rows.
 //   * Two launches, chosen by the wrapper from the frame count and the
 //     card's SMs (tiling in kernels/framed_gemm.py):
-//     - the long launch (a 60 s channel): the grid cuts the frames only. A
-//       CTA stages the contiguous span of its frames once for all column
-//       tiles, (frames - 1) * hop + window samples, and its warps take the
-//       units of all tiles in turn. kF = 8, or 4 where one unit's span would
-//       not fit in shared memory (a long hop: 2560 at 192k -> 11.025k).
-//       CTAs are small (one unit of frames, 4 warps at the resampler's
-//       shapes), so that several share an SM and one's staging hides behind
-//       another's sums; this needs at least two CTAs an SM.
+//     - the long launch (a 60 s channel) cuts the grid by frames only, in
+//       one of two forms.
+//       The slot form, where a frame's window rounded up to an odd multiple
+//       of 4 floats (`stride`) is at most a few hops and G's bands are deep
+//       or its columns few (192k -> 11.025k: window 1254, hop 923). Each
+//       frame is staged on its own, in a slot of `stride` floats, by
+//       cp.async (16 bytes a lane where the frame starts on 16 bytes, else
+//       a float a lane, realigned), so that every read of four rows of a
+//       frame is one aligned float4 and 8 frames' reads fall on distinct
+//       banks; the overlap of neighbouring frames is staged twice (1.06-2
+//       x the samples in shared memory, none more from device memory). A
+//       CTA walks frame blocks (blockIdx.x, + gridDim.x, ...) with two
+//       buffers: the next block's copy is in flight while this one is
+//       summed, and the grid is the CTAs the card holds at once. A lane
+//       owns 4 adjacent columns (a quad) and kF frames; a warp is 8, 16 or
+//       32 frame lanes by 4, 2 or 1 quads, and sums only over its quads'
+//       bands (the rows of G holding a non-zero in the quad's columns,
+//       widened to the deepest band of the warp's quads, 1.15-1.23 x the
+//       non-zeros at the long hops against 2.6-3.1 x for the column
+//       tiles'). The quads' bands are laid out side by side a row, so a
+//       warp reads one 16 * cg-byte piece of G a row; G's next four rows
+//       are loaded while four are summed. The warp's sums are shuffled so
+//       that each store writes whole rows of its output tile.
+//       The run form elsewhere (short hops, shallow bands over many
+//       columns): a CTA stages the contiguous span of its frames once for
+//       all column tiles, (frames - 1) * hop + window samples, and its
+//       warps take the units of all tiles in turn; kF = 8, or 4 where one
+//       unit's span would not fit. CTAs are small (one unit of frames, 4
+//       warps at the resampler's shapes), so that several share an SM.
 //     - the band launch (where the long one leaves SMs idle: a channel of a
 //       few seconds; the wrapper's rule counts the long launch's CTAs
 //       against the SMs and the depth of the bands): the grid is
@@ -79,7 +102,9 @@
 //     past n) holds a NaN or an Inf. If it does, the CTA computes its frames
 //     from all of G's rows instead: 0 * NaN is NaN, so the dense product
 //     has NaN in every column of such a frame, and the result keeps that.
-//     The long launch checks the span as it stages it. The band launch
+//     The run form checks the span as it stages it; the slot form checks
+//     each block's slots in shared memory (v * 0 is NaN only for a NaN or
+//     an Inf), so a block whose slots hold one sums all rows. The band launch
 //     reads the whole span too, in one pass: it checks every sample and
 //     stores those of its band, so a sample outside the band still sends
 //     the CTA to the dense sums (from device memory, a path for bad input
@@ -87,8 +112,8 @@
 // Sums are fp32 FMAs over k in ascending order, no TF32, as
 // Precision.HIGHEST asks of the JAX kernel. A skipped row would have added
 // an exact zero, so without a row split the result does not depend on the
-// tiling: the band launch's frames equal the long launch's bit for bit
-// where both have ksplit 1. With a row split (ksplit > 1) each part sums
+// tiling: the band launch, the run form and the slot form give the same
+// frames bit for bit (up to the sign of a zero) where they have ksplit 1. With a row split (ksplit > 1) each part sums
 // its rows in ascending order and part 0 then adds parts 1, 2, ... to its
 // own in that order, the same order on every run; that rounds differently
 // from one unsplit sum. The TPU kernel's slab parts exist for its layout
@@ -105,6 +130,7 @@
 namespace {
 
 constexpr int kMaxWarps = 8;
+constexpr int kMaxSlotWarps = 16;  // the long launch's slot form
 constexpr int kMaxDevices = 64;
 constexpr int kWideFrames = 8;  // kF of every long-launch shape whose span fits
 constexpr int kNarrowFrames = 4;
@@ -133,6 +159,24 @@ struct Shape {
 
 __device__ __forceinline__ bool non_finite(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
+// One float, or zero where `bytes` is 0 (`src` is then not read).
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The band launch's staging: rows [lo, lo + rows) of each of the CTA's
@@ -420,13 +464,215 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
   framed_gemm_body<kVec, kSplit, kF, true>(x, n, g, band, ranges, n_frames, out, s);
 }
 
+// The slot form's staging of frame block `blk` into `dst`: warp w copies
+// frames w, w + warps, ... each into its slot of s.stride floats (16 bytes
+// a lane where the frame's first sample lies on 16 bytes and the slot ends
+// before x does, else a float a lane, zero past n); one commit group.
+__device__ __forceinline__ void stage_slots(const float* __restrict__ x, long long n,
+                                            long long blk, const Shape& s, float* dst) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long long first = s.gap + blk * s.frames * static_cast<long long>(s.hop);
+  for (int f = warp; f < s.frames; f += warps) {
+    const long long at = first + static_cast<long long>(f) * s.hop;
+    const float* src = x + at;
+    float* d = dst + f * s.stride;
+    if (at + s.stride <= n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      for (int i = 4 * lane; i < s.stride; i += 128) cp_async16(d + i, src + i);
+    } else if (at + s.stride <= n) {
+#pragma unroll 4
+      for (int i = lane; i < s.stride; i += 32) cp_async4_zfill(d + i, src + i, 4);
+    } else {
+      for (int i = lane; i < s.stride; i += 32) {
+        const bool in = at + i < n;
+        cp_async4_zfill(d + i, in ? src + i : x, in ? 4 : 0);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The long launch's slot form (the note at the head of this file): a CTA
+// walks frame blocks blockIdx.x, + gridDim.x, ..., two buffers of
+// s.frames slots of s.stride floats, the next block's copy in flight while
+// this one is summed. band [groups, band_rows, 4 * cg] and ranges [quads,
+// 2] (first row, rows) are the column quads' bands, a group's cg quads side
+// by side in each row. kF: frames a lane.
+template <bool kSplit, int kF>
+__global__ void __launch_bounds__(kMaxSlotWarps * 32, 1)
+    framed_gemm_slot_kernel(const float* __restrict__ x, long long n,
+                            const float* __restrict__ g, const float* __restrict__ band,
+                            const int* __restrict__ ranges, long long n_frames,
+                            float* __restrict__ out, Shape s) {
+  extern __shared__ __align__(16) float xs[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int fpw = 32 / s.cg;  // lanes across frames; s.cg across column quads
+  const int fi = lane & (fpw - 1);
+  const int qi = lane / fpw;
+  const int n_quads = (s.m + kColsPerThread - 1) / kColsPerThread;
+  const int slots = s.frames * s.stride;  // floats of one buffer
+  const long long blocks = (n_frames + s.frames - 1) / s.frames;
+  const int ksplit = kSplit ? s.ksplit : 1;
+  const int items = s.n_tiles * ksplit;  // (group of quads, part of the rows)
+
+  long long blk = blockIdx.x;
+  if (blk < blocks) stage_slots(x, n, blk, s, xs);
+  for (int j = 0; blk < blocks; blk += gridDim.x, ++j) {
+    const float* cur = xs + (j & 1) * slots;
+    if (blk + gridDim.x < blocks) {
+      stage_slots(x, n, blk + gridDim.x, s, xs + ((j + 1) & 1) * slots);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // the non-finite rule on this block's slots: v * 0 is NaN for a NaN or
+    // an Inf and +-0 else, so `probe` ends NaN exactly where one is staged
+    float probe = 0.0f;
+    const float4* cur4 = reinterpret_cast<const float4*>(cur);
+    for (int i = threadIdx.x; i < slots / 4; i += blockDim.x) {
+      const float4 v = cur4[i];
+      probe = fmaf(v.x, 0.0f, probe);
+      probe = fmaf(v.y, 0.0f, probe);
+      probe = fmaf(v.z, 0.0f, probe);
+      probe = fmaf(v.w, 0.0f, probe);
+    }
+    const bool dense = __syncthreads_or(probe != probe);
+    const long long f0 = blk * s.frames;
+
+    for (int w = warp; w < (kSplit ? warps : items); w += warps) {
+      const int grp = w / ksplit;
+      const int part = w - grp * ksplit;
+      const int q = grp * s.cg + qi;  // this lane's quad: columns 4q .. 4q + 3
+      const bool live = q < n_quads;
+      const float* xf = cur + fi * s.stride;  // frame fi's slot; frame fi + r*fpw at r*xstep
+      const int xstep = fpw * s.stride;
+      float acc[kF][kColsPerThread];
+#pragma unroll
+      for (int r = 0; r < kF; ++r) {
+#pragma unroll
+        for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = 0.0f;
+      }
+      if (live && dense) {
+        // all rows of G, straight from the matrix
+        int gcol[kColsPerThread];
+#pragma unroll
+        for (int c = 0; c < kColsPerThread; ++c) gcol[c] = min(q * kColsPerThread + c, s.m - 1);
+        const int chunk = (s.window + ksplit - 1) / ksplit;
+        const int k_end = min(s.window, (part + 1) * chunk);
+        for (int k = part * chunk; k < k_end; ++k) {
+          float gv[kColsPerThread];
+#pragma unroll
+          for (int c = 0; c < kColsPerThread; ++c) gv[c] = __ldg(g + (long long)k * s.m + gcol[c]);
+#pragma unroll
+          for (int r = 0; r < kF; ++r) {
+            const float xv = xf[r * xstep + k];
+#pragma unroll
+            for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = fmaf(xv, gv[c], acc[r][c]);
+          }
+        }
+      } else if (live) {
+        const int lo = __ldg(ranges + 2 * q);
+        const int rows = __ldg(ranges + 2 * q + 1);  // a multiple of 4, the same across the warp
+        // row k of this quad's band at bq[k * cg]: a warp's quads side by side
+        const float4* bq =
+            reinterpret_cast<const float4*>(band) + (long long)grp * s.band_rows * s.cg + qi;
+        const float* xb = xf + lo;
+        const int chunk = ((rows + ksplit - 1) / ksplit + 3) / 4 * 4;
+        const int k_end = min(rows, (part + 1) * chunk);
+        int k = part * chunk;
+        // G's next four rows are loaded while these four are summed
+        float4 gn[4];
+        if (k < k_end) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) gn[t] = __ldg(bq + (k + t) * s.cg);
+        }
+        for (; k < k_end; k += 4) {
+          float4 gv[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) gv[t] = gn[t];
+          if (k + 4 < k_end) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) gn[t] = __ldg(bq + (k + 4 + t) * s.cg);
+          }
+#pragma unroll
+          for (int r = 0; r < kF; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(xb + r * xstep + k);
+            const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              acc[r][0] = fmaf(xv[t], gv[t].x, acc[r][0]);
+              acc[r][1] = fmaf(xv[t], gv[t].y, acc[r][1]);
+              acc[r][2] = fmaf(xv[t], gv[t].z, acc[r][2]);
+              acc[r][3] = fmaf(xv[t], gv[t].w, acc[r][3]);
+            }
+          }
+        }
+      }
+      if (kSplit) {
+        // the parts' sums meet in shared memory after both buffers and are
+        // added in the order of the rows by the warp of part 0
+        float* red = xs + 2 * slots;  // [warps][kF frames x 4 columns][32 lanes]
+        constexpr int kTile = kF * kColsPerThread;
+        if (part > 0) {
+#pragma unroll
+          for (int t = 0; t < kTile; ++t) {
+            red[(w * kTile + t) * 32 + lane] = acc[t / kColsPerThread][t % kColsPerThread];
+          }
+        }
+        __syncthreads();
+        if (part > 0) continue;
+        for (int p = 1; p < ksplit; ++p) {
+#pragma unroll
+          for (int t = 0; t < kTile; ++t) {
+            acc[t / kColsPerThread][t % kColsPerThread] += red[((w + p) * kTile + t) * 32 + lane];
+          }
+        }
+      }
+      // The warp's tile is fpw * kF frames x 4 * cg neighbouring columns;
+      // shuffled so that a store covers whole rows of it (32 / (4 * cg)
+      // rows of 16 * cg bytes), not one column of each lane's quad.
+      const int cols = kColsPerThread * s.cg;
+      const int col = lane % cols;
+      const int c = grp * cols + col;
+#pragma unroll
+      for (int r = 0; r < kF; ++r) {
+#pragma unroll
+        for (int part4 = 0; part4 < 4; ++part4) {
+          const int row = part4 * (32 / cols) + lane / cols;  // of fpw rows
+          const int src = row + fpw * (col / kColsPerThread);
+          const float v0 = __shfl_sync(0xffffffffu, acc[r][0], src);
+          const float v1 = __shfl_sync(0xffffffffu, acc[r][1], src);
+          const float v2 = __shfl_sync(0xffffffffu, acc[r][2], src);
+          const float v3 = __shfl_sync(0xffffffffu, acc[r][3], src);
+          const int e = col & 3;
+          const float v = e == 0 ? v0 : e == 1 ? v1 : e == 2 ? v2 : v3;
+          const long long f = f0 + row + r * fpw;
+          if (f < n_frames && c < s.m) out[f * s.m + c] = v;
+        }
+      }
+    }
+    // every warp is done with this buffer (and the row split's sums) before
+    // the next block's copy into it is issued
+    __syncthreads();
+  }
+}
+
 using KernelFn = void (*)(const float*, long long, const float*, const float*, const int*,
                           long long, float*, Shape);
 
-template <bool kVec, bool kSplit, int kF, bool kBand>
+// The three forms: the long launch's run and slots, the band launch.
+enum Form { kRun = 0, kBandForm = 1, kSlots = 2 };
+
+template <int kForm, bool kVec, bool kSplit, int kF>
 KernelFn kernel_of() {
-  if constexpr (kBand) {
+  if constexpr (kForm == kBandForm) {
     return framed_gemm_band_kernel<kVec, kSplit, kF>;
+  } else if constexpr (kForm == kSlots) {
+    return framed_gemm_slot_kernel<kSplit, kF>;
   } else {
     return framed_gemm_kernel<kVec, kSplit, kF>;
   }
@@ -441,7 +687,7 @@ size_t smem_bytes(const Shape& s, int threads) {
 
 // Shared memory above 48 KB has to be opted in to; the opt-in is a maximum,
 // raised once per kernel instantiation, device and size.
-template <bool kVec, bool kSplit, int kF, bool kBand>
+template <int kForm, bool kVec, bool kSplit, int kF>
 cudaError_t opt_in(int device, size_t smem) {
   static std::mutex mutex;
   static size_t granted[kMaxDevices] = {};
@@ -451,7 +697,7 @@ cudaError_t opt_in(int device, size_t smem) {
     return cudaSuccess;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel_of<kVec, kSplit, kF, kBand>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel_of<kForm, kVec, kSplit, kF>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
     granted[device] = smem;
@@ -459,28 +705,30 @@ cudaError_t opt_in(int device, size_t smem) {
   return err;
 }
 
-template <bool kVec, bool kSplit, int kF, bool kBand>
+template <int kForm, bool kVec, bool kSplit, int kF>
 int launch(const float* x, long long n, const float* g, const float* band,
            const int* ranges, long long n_frames, float* out, const Shape& s,
-           int threads, int device, cudaStream_t stream) {
+           int threads, long long ctas, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(s, threads);
-  const cudaError_t err = opt_in<kVec, kSplit, kF, kBand>(device, smem);
+  const cudaError_t err = opt_in<kForm, kVec, kSplit, kF>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long gx =
-      (n_frames + s.frames - 1) / s.frames * (kBand ? (s.n_tiles + s.group - 1) / s.group : 1);
-  kernel_of<kVec, kSplit, kF, kBand>()<<<static_cast<unsigned>(gx), threads, smem, stream>>>(
+  kernel_of<kForm, kVec, kSplit, kF>()<<<static_cast<unsigned>(ctas), threads, smem, stream>>>(
       x, n, g, band, ranges, n_frames, out, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBand, int kF>
+template <int kForm, int kF>
 int launch_vs(bool vec, int ksplit, const float* x, long long n, const float* g,
               const float* band, const int* ranges, long long n_frames, float* out,
-              const Shape& s, int threads, int device, cudaStream_t stream) {
+              const Shape& s, int threads, long long ctas, int device, cudaStream_t stream) {
 #define SD_LAUNCH(V, S) \
-  launch<V, S, kF, kBand>(x, n, g, band, ranges, n_frames, out, s, threads, device, stream)
-  return ksplit > 1 ? (vec ? SD_LAUNCH(true, true) : SD_LAUNCH(false, true))
-                    : (vec ? SD_LAUNCH(true, false) : SD_LAUNCH(false, false));
+  launch<kForm, V, S, kF>(x, n, g, band, ranges, n_frames, out, s, threads, ctas, device, stream)
+  if constexpr (kForm == kSlots) {  // slots are always read as float4
+    return ksplit > 1 ? SD_LAUNCH(true, true) : SD_LAUNCH(true, false);
+  } else {
+    return ksplit > 1 ? (vec ? SD_LAUNCH(true, true) : SD_LAUNCH(false, true))
+                      : (vec ? SD_LAUNCH(true, false) : SD_LAUNCH(false, false));
+  }
 #undef SD_LAUNCH
 }
 
@@ -498,33 +746,41 @@ const char* sd_framed_gemm_error_string(int err) {
 // wrapper's: `cg` threads of a warp across columns (1, 2, 4 or 8; a column
 // tile is 4 * cg columns), `ksplit` warps per unit (each sums a part of the
 // rows; above 1 the CTA must have exactly one warp per part of each unit),
-// `fpt` frames a thread (8 or 4; the band launch 2), `frames` frames per
-// CTA (a multiple of fpt * 32 / cg), `threads` per CTA (whole warps, at most
-// 256); `band` [tiles, band_rows, 4 * cg] and `ranges` [tiles, 2] (first
-// row, row count; counts are multiples of 4 and first rows too) are the
-// tiles' bands of g as the note at the head of this file lays them out,
-// device pointers. `band_launch` 0 takes the long launch (a CTA stages its
-// frames' span for all tiles); 1 the band launch (a CTA one tile of one
-// unit of frames, its band staged at `stride` floats a frame: `stride` ==
-// hop stages one run, else stride >= band_rows, a multiple of 4, needs
-// hop >= band_rows). `vec` reads staged samples as float4 along k: the long
-// launch needs hop % 4 == 0 for it, the band launch a stride % 4 == 0.
-// Returns cudaErrorInvalidValue for a geometry it cannot launch (among them
-// samples that do not fit in shared memory), else cudaGetLastError() after
-// the launch: 0 when the launch was taken.
+// `fpt` frames a thread, `frames` frames per CTA (a multiple of fpt * 32 /
+// cg), `threads` per CTA (whole warps); `band` and `ranges` (first row, row
+// count, both multiples of 4) are G's bands as the note at the head of this
+// file lays them out, device pointers. `band_launch` 0 takes the long
+// launch: with `stride` 0 its run form (`band` [tiles, band_rows, 4 * cg],
+// fpt 8 or 4, at most 256 threads; `vec` reads the run as float4 along k
+// and needs hop % 4 == 0), with `stride` > 0 its slot form (`band`
+// [groups, band_rows, 4 * cg], ranges [quads, 2], the rows of each group of cg
+// quads as deep; cg 1, 2 or 4, fpt 4, 2 or 1, frames fpt * 32 / cg, at
+// most 512 threads; a slot of `stride` floats, a multiple of 4 of at least
+// the window rounded up to 4, a frame; `ctas` CTAs walk the frame blocks).
+// `band_launch` 1 takes the band launch (`band` as the run form's, fpt 2, a
+// CTA one unit of frames of `group` tiles, their `stage_rows` rows staged
+// at `stride` floats a frame: `stride` == hop stages one run, else stride
+// >= stage_rows, a multiple of 4, needs hop >= stage_rows; `vec` needs a
+// stride % 4 == 0). Returns cudaErrorInvalidValue for a geometry it cannot
+// launch (among them samples that do not fit in shared memory), else
+// cudaGetLastError() after the launch: 0 when the launch was taken.
 int sd_framed_gemm(const float* x, long long n, const float* g, int window,
                    int m, int hop, int gap, long long n_frames, float* out,
                    const float* band, const int* ranges, int band_rows, int cg,
                    int ksplit, int fpt, int frames, int threads, int vec,
-                   int band_launch, int group, int stage_rows, int stride, int device,
-                   void* stream) {
+                   int band_launch, int group, int stage_rows, int stride, int ctas,
+                   int device, void* stream) {
+  const bool slots = band_launch == 0 && stride > 0;
   const bool fpt_ok = band_launch ? fpt == kTinyFrames
+                      : slots     ? fpt == 4 || fpt == 2 || fpt == 1
                                   : fpt == kWideFrames || fpt == kNarrowFrames;
+  const int max_warps = slots ? kMaxSlotWarps : kMaxWarps;
   if (window < 1 || m < 1 || hop < 1 || gap < 0 || n < 0 || n_frames < 1 ||
-      (cg != 1 && cg != 2 && cg != 4 && cg != 8) || band_rows < 0 ||
-      band_rows % 4 != 0 || threads < 32 || threads > kMaxWarps * 32 ||
+      (cg != 1 && cg != 2 && cg != 4 && cg != 8) || (slots && cg == 8) || band_rows < 0 ||
+      band_rows % 4 != 0 || threads < 32 || threads > max_warps * 32 ||
       threads % 32 != 0 || frames < 1 || ksplit < 1 || !fpt_ok ||
-      frames % (fpt * 32 / cg) != 0 || (band_launch != 0 && band_launch != 1)) {
+      frames % (fpt * 32 / cg) != 0 || (slots && frames != fpt * 32 / cg) ||
+      (band_launch != 0 && band_launch != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape s;
@@ -561,32 +817,39 @@ int sd_framed_gemm(const float* x, long long n, const float* g, int window,
       }
       staged = (long long)frames * stride;
     }
+  } else if (slots) {
+    if (stride % 4 != 0 || stride < (window + 3) / 4 * 4 || ctas < 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    staged = 2LL * frames * stride;  // two buffers
   } else if (vec && hop % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (span > INT_MAX || staged > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   s.span = static_cast<int>(span);
-  s.stride = band_launch ? stride : 0;
+  s.stride = band_launch || slots ? stride : 0;
   s.staged = static_cast<int>(staged);
   if (static_cast<long long>(smem_bytes(s, threads)) > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((n_frames + frames - 1) / frames * ((s.n_tiles + s.group - 1) / s.group) > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long long blocks = (n_frames + frames - 1) / frames;
+  const long long grid =
+      slots ? (ctas < blocks ? ctas : blocks) : blocks * ((s.n_tiles + s.group - 1) / s.group);
+  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
-  if (band_launch) {
-    return launch_vs<true, kTinyFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out, s,
-                                        threads, device, st);
+#define SD_ARGS v, ksplit, x, n, g, band, ranges, n_frames, out, s, threads, grid, device, st
+  if (band_launch) return launch_vs<kBandForm, kTinyFrames>(SD_ARGS);
+  if (slots) {
+    return fpt == 4 ? launch_vs<kSlots, 4>(SD_ARGS)
+           : fpt == 2 ? launch_vs<kSlots, 2>(SD_ARGS)
+                      : launch_vs<kSlots, 1>(SD_ARGS);
   }
-  return fpt == kWideFrames
-             ? launch_vs<false, kWideFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out, s,
-                                             threads, device, st)
-             : launch_vs<false, kNarrowFrames>(v, ksplit, x, n, g, band, ranges, n_frames, out,
-                                               s, threads, device, st);
+  return fpt == kWideFrames ? launch_vs<kRun, kWideFrames>(SD_ARGS)
+                            : launch_vs<kRun, kNarrowFrames>(SD_ARGS);
+#undef SD_ARGS
 }
 
 }  // extern "C"

@@ -312,15 +312,23 @@ def test_framed_gemm_tiling_fits_every_rate_pair(max_denominator):
         g, _, w_len, overlap = polyphase_plan(frac.numerator, frac.denominator)
         hop = hop_length(w_len, overlap)
         cut = tfg.tiling(w_len, g.shape[1], hop)
+        if cut.slots:  # two blocks of one unit of frames, a slot of `stride` floats each
+            assert cut.frames == cut.fpt * 32 // cut.cg
+            assert cut.span_bytes == 2 * 4 * cut.frames * cut.stride <= tfg.SMEM_LIMIT
+        # the run form takes every pair too
+        cut = tfg._run_tiling(w_len, g.shape[1], hop)
         unit = cut.fpt * 32 // cut.cg
         assert cut.frames % unit == 0 and cut.span_bytes <= tfg.SMEM_LIMIT
         assert cut.span_bytes == 4 * (-(-((cut.frames - 1) * hop + w_len + 8) // 4) * 4)
         if cut.fpt != tfg.FRAMES_PER_THREAD:
             narrow.append((in_rate, out_rate))
     assert narrow == ([] if max_denominator == 1000 else [(192000, 11025)])
-    cut = tfg.tiling(2891, 147, 2560)
+    cut = tfg._run_tiling(2891, 147, 2560)
     assert (cut.fpt, cut.frames, cut.cg, cut.n_tiles) == (tfg.NARROW_FRAMES, 16, 8, 5)
     assert cut.span_bytes == 4 * 41300  # (15 * 2560 + 2891 + 8) floats, in 16-byte chunks
+    # the slot form at the exact ratio: one frame a lane, 8 frames a block
+    cut = tfg.tiling(2891, 147, 2560)
+    assert cut.slots and (cut.fpt, cut.frames, cut.stride) == (1, 8, 2892)
 
 
 @pytest.mark.cuda
