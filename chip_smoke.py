@@ -128,7 +128,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
                inits) on a 60 s labeled file (``make_labeled_audio``) with
                ``--device cuda``: rc 0, features, params and Adam state on
                the card before and after the epochs (a spy on the epoch
-               loop), the net file loading back to the exported config;
+               loop), the epoch graph taken (``trainer.EPOCH_GRAPHS``: a
+               capture, one replay per epoch trained), every net's Adam
+               count equal to the optimizer steps the spy counted, the
+               run's initial state not advanced, the net file loading back
+               to the exported config;
                the trained net through ``cli --method fused`` (K1a must
                launch) against ``--method matmul``, CSVs equal, more than
                80 % of the detections within 0.1 s of a labeled interval;
@@ -136,18 +140,31 @@ Phases, each printing one line (any failure raises and exits non-zero):
                (rtol=1e-5, atol=1e-6, labels equal) and one epoch of
                ``_make_restart_epoch`` from the same inits (rtol=1e-4,
                atol=1e-5); a 16-channel ensemble through ``train.main`` (50
-               epochs) whose 16 nets go through ``cli --batched --method
-               fused`` (K1e must launch) against matmul on a 16-channel
-               file; ``train`` on a 4-shard data mesh and ``train_ensemble``
-               on a 4-shard channel mesh against unsharded (2 epochs,
-               rtol=1e-4, atol=1e-5); a run interrupted after 1 epoch and
-               resumed to 2 against 2 uninterrupted, through the CLI (net
-               files byte for byte) and on the data mesh (bit for bit).
-  17. times  — device (CUDA events) and host ms of one optimizer step at
-               the CLI defaults, the 300-epoch run's steps per second, one
-               epoch's wall, the walls of phase 16's CLI runs and the
-               ensemble's, and the device's busy share over 3 epochs
-               (``torch.profiler``, CUDA activity).
+               epochs; its graph taken and counts checked as above) whose
+               16 nets go through ``cli --batched --method fused`` (K1e must
+               launch) against matmul on a 16-channel file; ``train`` on a
+               4-shard data mesh and ``train_ensemble`` on a 4-shard
+               channel mesh against unsharded (2 epochs, rtol=1e-4,
+               atol=1e-5); the ``phase 16 train graph`` line: from the
+               initial states of the CLI run and of the ensemble, 3 epochs
+               of the epoch graph against the plain per-step loop
+               (``epoch.plain``) on the card, and shard 0 of the ensemble
+               on a 4-shard channel mesh (a graph a shard) against the
+               plain loop on its channels: params, Adam moments and count,
+               losses bit for bit, or else within rtol=1e-6, atol=1e-7 with
+               the largest difference printed; a second graph call bit for
+               bit the first; each graph's pool in MiB; a run interrupted
+               after 1 epoch and resumed to 2 against 2 uninterrupted,
+               through the CLI (net files byte for byte) and on the data
+               mesh (bit for bit).
+  17. times  — the plain per-step loop against the epoch graph on phase
+               16's epoch: device (CUDA events) ms a step, the host enqueue
+               of a plain step and of an epoch call, one epoch's wall and
+               steps per second, the device's busy share over 3 epochs
+               (``torch.profiler``, CUDA activity), and ``train.main`` at
+               the CLI defaults cut to 30 epochs a route, in turns; then
+               the walls and steps per second of phase 16's main-path runs
+               (the CLI's 300 epochs, the ensemble's).
   18. capture — this slice's capture path, every count from 0: ``monitor
                --list-devices`` rc 0; 256 channels through ``--input alsa
                --output alsa`` and ``--input pulse --output pulse`` over fake
@@ -329,6 +346,13 @@ TRAIN_SECONDS = 60.0
 ENSEMBLE_CHANNELS = 16
 ENSEMBLE_EPOCHS = 50
 SHORT_EPOCHS = 2
+# the epoch graph against the plain per-step loop: epochs from one state,
+# and the tolerance of the comparison should the two not agree bit for bit
+GRAPH_EPOCHS = 3
+GRAPH_TOL = (1e-6, 1e-7)
+# train.main at the CLI defaults cut to this many epochs, once a route in
+# turns (phase 17's side-by-side walls)
+TRAIN_AB_EPOCHS = 30
 # the capture slice: phase 7's audio captured for 6 s (under the 10 s rings,
 # so nothing overflows) in reads of 2205 frames, which divide 6 s at 44.1 kHz
 # (the PulseAudio simple API reads whole buffers)
@@ -685,6 +709,7 @@ def reset_counts() -> None:
     fused.LAYOUT_LAUNCHES = {layout: 0 for layout in fused.LAYOUT_LAUNCHES}
     fg.FRAMED_GEMM_LAUNCHES = 0
     fg.LAUNCH_KINDS = {kind: 0 for kind in fg.LAUNCH_KINDS}
+    trainer.EPOCH_GRAPHS = {"captures": 0, "replays": 0}
 
 
 def program_launches(wire: str) -> int:
@@ -1788,8 +1813,10 @@ def labeled_files(tmp: str, name: str, seed: int) -> tuple[np.ndarray, list, str
 class TrainSpy:
     """Inside ``with``: records, for each run of the trainer's epoch loop,
     the devices of its data, parameters and optimizer state before and after
-    the epochs, the optimizer steps it ran and its wall to the last step's
-    completion; and every config the train CLI exported."""
+    the epochs, the optimizer steps it ran, its wall to the last step's
+    completion, the epoch function with the arguments of its first call
+    (the run's initial state and first index rows) and the Adam counts it
+    ended with; and every config the train CLI exported."""
 
     def __enter__(self):
         self.runs, self.exported = [], []
@@ -1797,9 +1824,10 @@ class TrainSpy:
 
         def loop(settings, epoch_fn, data, epoch_indices, params, opt_state, *rest):
             run = {"before": {t.device.type for t in pmesh._leaves((data, params, opt_state))},
-                   "steps": 0}
+                   "steps": 0, "epochs": settings.epochs}
 
             def counted(*args):
+                run.setdefault("first", (epoch_fn, args))
                 run["steps"] += args[-1].shape[0]
                 return epoch_fn(*args)
 
@@ -1809,6 +1837,7 @@ class TrainSpy:
             torch.cuda.synchronize()
             run["wall"] = time.perf_counter() - t0
             run["after"] = {t.device.type for t in pmesh._leaves((params, opt_state))}
+            run["count"] = set(opt_state[0].tolist())
             self.runs.append(run)
             return params, opt_state
 
@@ -1860,6 +1889,52 @@ def bit_equal(got, want, what: str) -> None:
             raise AssertionError(f"{what}: not bit for bit equal")
 
 
+def same_bits(got, want) -> bool:
+    return all(
+        g.shape == w.shape and g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+        for g, w in zip(pmesh._leaves(got), pmesh._leaves(want), strict=True))
+
+
+def graph_against_plain(got, want, what: str) -> str:
+    """The epoch graph's result against the plain per-step loop's: "bit for
+    bit", or else every tensor held at GRAPH_TOL and the largest
+    difference named."""
+    if same_bits(got, want):
+        return "bit for bit"
+    worst = held_trees(got, want, *GRAPH_TOL, what)
+    return f"not bit for bit, max abs {worst:.3g} (rtol={GRAPH_TOL[0]:g}, atol={GRAPH_TOL[1]:g})"
+
+
+def graph_route(run: dict, what: str) -> str:
+    """The checks of a main-path training run on the card: the epoch graph
+    captured and replayed once an epoch trained, the Adam count of every
+    net equal to the optimizer steps, and the run's initial state, held by
+    the spy, not advanced by the run."""
+    graphs = dict(trainer.EPOCH_GRAPHS)
+    if graphs["captures"] < 1 or graphs["replays"] != run["epochs"]:
+        raise AssertionError(f"{what}: epoch graphs {graphs} for {run['epochs']} epochs")
+    if run["count"] != {run["steps"]}:
+        raise AssertionError(f"{what}: Adam counts {run['count']} for {run['steps']} steps")
+    if set(run["first"][1][1][0].tolist()) != {0}:
+        raise AssertionError(f"{what}: the epoch advanced its caller's state")
+    return (f"epoch graphs {graphs['captures']} captured, {graphs['replays']} replays for "
+            f"{run['epochs']} epochs, Adam count {run['steps']} on every net")
+
+
+def graph_check(run: dict, epochs: int, what: str) -> tuple[str, str]:
+    """A main-path run's epoch function, from the state of its first call,
+    over its first ``epochs`` epochs: the graph against the plain per-step
+    loop (``epoch.plain``), and a second graph call bit for bit the first.
+    Returns (the comparison, the graph's pool in MiB)."""
+    epoch_fn, (params, opt_state, feats, labels, idx) = run["first"]
+    rows = idx[: epochs * epoch_fn.steps]
+    got = epoch_fn(params, opt_state, feats, labels, rows)
+    bit_equal(epoch_fn(params, opt_state, feats, labels, rows), got, f"{what}: a second call")
+    verdict = graph_against_plain(got, epoch_fn.plain(params, opt_state, feats, labels, rows), what)
+    pools = [g.pool_bytes / 2**20 for g in epoch_fn.graphs.values()]
+    return verdict, "/".join(f"{p:.1f}" for p in pools)
+
+
 def phase_train(tmp: str) -> dict:
     """Phase 16, the training slice's main path; returns what phase 17
     times."""
@@ -1884,11 +1959,12 @@ def phase_train(tmp: str) -> dict:
     steps = settings.epochs * (len(feats) // settings.batch_size)
     if run["steps"] != steps:
         raise AssertionError(f"{run['steps']} optimizer steps for {steps}")
+    cli_graphs = graph_route(run, "the train CLI")
     print(
         f"phase 16 train main path: train.main at the CLI defaults (300 epochs, batch 256, lr "
         f"3e-3, 4 inits) on a {TRAIN_SECONDS:g} s labeled file ({len(feats)} evaluations, "
         f"{int(labels.sum())} positive, {feats.nbytes} B of features): rc 0 in {cli_wall:.2f} s, "
-        f"{run['steps']} optimizer steps; features, params and Adam state on "
+        f"{run['steps']} optimizer steps; {cli_graphs}; features, params and Adam state on "
         f"{'/'.join(sorted(run['before']))} before and after the epochs; the net file loads "
         f"back to the exported config (threshold {exported.thresholds[0]:.4f}) ok",
         flush=True,
@@ -1952,12 +2028,14 @@ def phase_train(tmp: str) -> dict:
     chans = [labeled_files(tmp, f"chan{c}", 100 + c) for c in range(ENSEMBLE_CHANNELS)]
     template = os.path.join(tmp, "chan_net_{ch}.txt")
     pairs = [a for _, _, w, l in chans for a in ("-a", w, "-l", l)]
+    reset_counts()
     with TrainSpy() as ens_spy:
         ens_wall = run_train(pairs + ["-o", template, "--epochs", str(ENSEMBLE_EPOCHS),
                                       "--device", "cuda", "--quiet"])
     ens_run = ens_spy.runs[0]
     if ens_run["before"] != {"cuda"} or ens_run["after"] != {"cuda"}:
         raise AssertionError(f"the ensemble's state was on {ens_spy.runs}")
+    ens_graphs = graph_route(ens_run, "the ensemble")
     wide = os.path.join(tmp, "sixteen.wav")
     write_wav(wide, np.stack([a for a, *_ in chans], 1), NET_RATE, dtype="float32")
     nets = [template.replace("{ch}", str(c)) for c in range(ENSEMBLE_CHANNELS)]
@@ -1973,7 +2051,8 @@ def phase_train(tmp: str) -> dict:
         raise AssertionError(f"ensemble: K1e launches {k1e}, hit rates {rates}")
     print(
         f"phase 16 train: {ENSEMBLE_CHANNELS}-channel ensemble through train.main ({ENSEMBLE_EPOCHS} "
-        f"epochs, {ens_run['steps']} steps, {ens_wall:.2f} s), its {ENSEMBLE_CHANNELS} nets through "
+        f"epochs, {ens_run['steps']} steps, {ens_wall:.2f} s; {ens_graphs}), its "
+        f"{ENSEMBLE_CHANNELS} nets through "
         f"cli --batched --method fused vs matmul on one {ENSEMBLE_CHANNELS}-channel file: "
         f"{len(ens_fused)} detection lines, columns 1-3 identical, outputs max diff "
         f"{ens_worst:.3g}; hits within 0.1 s per channel {min(rates):.3f}-{max(rates):.3f}; "
@@ -2000,6 +2079,43 @@ def phase_train(tmp: str) -> dict:
         f"epochs): params max abs {dp_err:.3g}, thresholds {t_sharded:.6f} / {t_whole:.6f}; "
         f"train_ensemble ({ENSEMBLE_CHANNELS} channels) on a {MESH_SHARDS}-shard channel mesh vs "
         f"unsharded: max abs {cp_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        flush=True,
+    )
+
+    # the epoch graphs against the plain per-step loop, from the main-path
+    # runs' initial states: the CLI's restart epoch, the 16-channel
+    # ensemble's, and shard 0 of that ensemble on a 4-shard channel mesh
+    # (each shard its own graph, replayed on its own stream)
+    restart, restart_pool = graph_check(run, GRAPH_EPOCHS, "the restart epoch graph")
+    ens_vs, ens_pool = graph_check(ens_run, GRAPH_EPOCHS, "the ensemble epoch graph")
+    ens_fn, (e_params, e_state, e_feats, e_labels, e_idx) = ens_run["first"]
+    e_rows = e_idx[: GRAPH_EPOCHS * ens_fn.steps]
+    mesh_fn = trainer.make_ensemble_epoch(
+        trainer._build_net_spec(settings), settings.learning_rate, n_init=settings.n_init,
+        mesh=pmesh.make_mesh(MESH_SHARDS, axis="channel"), steps=ens_fn.steps)
+    reset_counts()
+    sharded_graph = mesh_fn(e_params, e_state, e_feats, e_labels, e_rows)
+    shard_graphs = dict(trainer.EPOCH_GRAPHS)
+    if shard_graphs != {"captures": MESH_SHARDS, "replays": MESH_SHARDS * GRAPH_EPOCHS}:
+        raise AssertionError(f"the channel mesh's epoch graphs: {shard_graphs}")
+    per = ENSEMBLE_CHANNELS // MESH_SHARDS
+    nets = slice(0, per * settings.n_init)
+    shard0 = ens_fn.plain(pmesh._tree_map(lambda t: t[nets], e_params),
+                          pmesh._tree_map(lambda t: t[nets], e_state),
+                          e_feats[:per], e_labels[:per], e_rows[:, :per])
+    shard_vs = graph_against_plain(
+        (pmesh._tree_map(lambda t: t[nets], sharded_graph[0]),
+         pmesh._tree_map(lambda t: t[nets], sharded_graph[1]), sharded_graph[2][:, nets]),
+        shard0, "shard 0 of the channel mesh")
+    print(
+        f"phase 16 train graph: the epoch graph against the plain per-step loop on the card, "
+        f"from each main-path run's initial state over {GRAPH_EPOCHS} epochs (params, Adam "
+        f"moments and count, losses): the CLI's restart epoch ({settings.n_init} inits, batch "
+        f"{settings.batch_size}, {settings.n_features} features, {run['first'][0].steps} steps) "
+        f"{restart}, graph pool {restart_pool} MiB; the {ENSEMBLE_CHANNELS}-channel ensemble "
+        f"({ens_fn.steps} steps) {ens_vs}, pool {ens_pool} MiB; shard 0 of {MESH_SHARDS} on a "
+        f"channel mesh ({shard_graphs['captures']} graphs, {shard_graphs['replays']} replays) "
+        f"{shard_vs}; a second graph call bit for bit the first ok",
         flush=True,
     )
 
@@ -2033,33 +2149,21 @@ def phase_train(tmp: str) -> dict:
         flush=True,
     )
     return {"epoch": (epoch_fn, *start["cuda"]), "cli_wall": cli_wall, "run": run,
-            "ens_wall": ens_wall, "ens_run": ens_run, "n_evals": len(feats)}
+            "ens_wall": ens_wall, "ens_run": ens_run, "n_evals": len(feats),
+            "argv": ["-a", wav, "-l", csv, "--device", "cuda", "--quiet"], "tmp": tmp}
 
 
-def phase_train_times(t: dict, card_line: str) -> None:
-    """Phase 17: the optimizer step, the epoch and the CLI runs of phase 16,
-    and the device's busy share over a few epochs."""
-    epoch_fn, params, opt_state, feats, labels, idx = t["epoch"]
-    # 4 steps a sample, so that the host enqueues them inside the ~30 ms the
-    # stream is held and the events time only the device's work
-    step_device, step_host = event_ms(
-        lambda: epoch_fn(params, opt_state, feats, labels, idx[:1]), batch=4)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        epoch_fn(params, opt_state, feats, labels, idx)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    # the device's busy share: the union of its kernel and copy intervals
-    # over the wall of 3 epochs, CUDA activity only (no host-side tracing)
+def busy_share(fn, steps: int) -> str:
+    """The device's busy share over 3 calls of ``fn`` (3 epochs of ``steps``
+    steps): the union of its kernel and copy intervals over their wall, CUDA
+    activity only (no host-side tracing)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            epoch_fn(params, opt_state, feats, labels, idx)
+            fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -2068,21 +2172,89 @@ def phase_train_times(t: dict, card_line: str) -> None:
     for lo, hi in spans:
         busy_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    steps = 3 * idx.shape[0]
-    busy = (f"{100 * busy_us / window_us:.2f} % ({len(spans) / steps:.1f} device intervals and "
+    steps *= 3
+    return (f"{100 * busy_us / window_us:.2f} % ({len(spans) / steps:.1f} device intervals and "
             f"{busy_us / 1e3 / steps:.4f} ms of device activity a step)" if spans
             else "not measured (the profiler recorded no device activity)")
+
+
+@contextlib.contextmanager
+def plain_epochs():
+    """Inside ``with``: every epoch function of the trainer runs its plain
+    per-step loop, on the card too (a measurement's baseline)."""
+    call = trainer._Epoch.__call__
+    trainer._Epoch.__call__ = trainer._Epoch.plain
+    try:
+        yield
+    finally:
+        trainer._Epoch.__call__ = call
+
+
+def phase_train_times(t: dict, card_line: str) -> None:
+    """Phase 17: the plain per-step loop and the epoch graph side by side on
+    phase 16's epoch (a step's device ms, an epoch call's host enqueue and
+    wall, steps per second, the device's busy share over 3 epochs) and on
+    ``train.main`` at the CLI defaults cut to TRAIN_AB_EPOCHS epochs, in
+    turns; the walls of phase 16's main-path runs, which took the graph."""
+    epoch_fn, params, opt_state, feats, labels, idx = t["epoch"]
+    steps = idx.shape[0]
+    routes = {"plain": epoch_fn.plain, "graph": epoch_fn}
+    m = {}
+    for name, fn in routes.items():
+        def call(fn=fn, rows=idx):
+            return fn(params, opt_state, feats, labels, rows)
+
+        if name == "plain":
+            # 4 steps a sample, so that the host enqueues them inside the ~30
+            # ms the stream is held and the events time only the device's work
+            device, host = event_ms(lambda: call(rows=idx[:1]), batch=4)
+            m[name, "step host"] = host
+        else:
+            device, _ = event_ms(call, batch=1)
+            device /= steps
+        m[name, "step device"] = device
+        enqueue, walls = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        m[name, "enqueue"] = statistics.median(enqueue) * 1e3
+        m[name, "wall"] = statistics.median(walls)
+        m[name, "busy"] = busy_share(call, steps)
+    cli = {}
+    for name in ("plain", "graph", "graph", "plain"):
+        with TrainSpy() as spy, (plain_epochs() if name == "plain" else contextlib.nullcontext()):
+            wall = run_train(t["argv"] + ["-o", os.path.join(t["tmp"], f"ab_{name}.txt"),
+                                          "--epochs", str(TRAIN_AB_EPOCHS)])
+        cli.setdefault(name, []).append((wall, spy.runs[0]["steps"] / spy.runs[0]["wall"]))
     run, ens = t["run"], t["ens_run"]
+
+    def both(key, fmt):
+        return " / ".join(format(m[name, key], fmt) for name in routes)
+
     print(
-        f"phase 17 times [{card_line}]: one optimizer step (4 inits, batch 256, 290 features), "
-        f"median of 21 x 4: {step_device:.4f} ms device, {step_host:.4f} ms host enqueue; "
-        f"the 300-epoch run's epoch loop {run['wall']:.3f} s for {run['steps']} steps = "
-        f"{run['steps'] / run['wall']:.1f} steps/s; one epoch ({idx.shape[0]} steps) to "
-        f"completion, median of 3: {statistics.median(walls):.4f} s; train.main on the "
-        f"{TRAIN_SECONDS:g} s file (read, features, fit, 300 epochs, export): "
-        f"{t['cli_wall']:.3f} s; the {ENSEMBLE_CHANNELS}-channel ensemble's train.main "
-        f"{t['ens_wall']:.3f} s, its epoch loop {ens['wall']:.3f} s for {ens['steps']} steps = "
-        f"{ens['steps'] / ens['wall']:.1f} steps/s; device busy over 3 epochs {busy}",
+        f"phase 17 times [{card_line}]: plain per-step loop / epoch graph, phase 16's epoch "
+        f"(4 inits, batch 256, 290 features, {steps} steps): a step {both('step device', '.4f')} ms "
+        f"device (medians of 21 x 4 steps / of 21 epochs over their steps); the plain loop's "
+        f"host enqueue {m['plain', 'step host']:.4f} ms a step; one epoch call's host enqueue "
+        f"{both('enqueue', '.3f')} ms, to completion {both('wall', '.4f')} s (medians of 3) = "
+        f"{steps / m['plain', 'wall']:.1f} / {steps / m['graph', 'wall']:.1f} steps/s; device "
+        f"busy over 3 epochs {m['plain', 'busy']} / {m['graph', 'busy']}; train.main at the CLI "
+        f"defaults cut to {TRAIN_AB_EPOCHS} epochs, plain, graph, graph, plain: "
+        + "; ".join(f"{name} " + ", ".join(f"{w:.3f} s ({r:.1f} steps/s)" for w, r in cli[name])
+                    for name in routes),
+        flush=True,
+    )
+    print(
+        f"phase 17 times [{card_line}]: the main path's graph runs: train.main on the "
+        f"{TRAIN_SECONDS:g} s file (read, features, fit, 300 epochs, export) {t['cli_wall']:.3f} s, "
+        f"its epoch loop {run['wall']:.3f} s for {run['steps']} steps = "
+        f"{run['steps'] / run['wall']:.1f} steps/s; the {ENSEMBLE_CHANNELS}-channel ensemble's "
+        f"train.main {t['ens_wall']:.3f} s, its epoch loop {ens['wall']:.3f} s for "
+        f"{ens['steps']} steps = {ens['steps'] / ens['wall']:.1f} steps/s",
         flush=True,
     )
 

@@ -14,17 +14,22 @@ K weight inits train side by side on a leading axis of every layer tensor
 ``C * K`` of them, channel-major. A step is the loss of every init on one
 batch (the forward pass broadcast over the stacked axis), autograd on the
 stacked layer tensors (the summed loss has each init's gradient in its own
-slice), and one elementwise Adam update in optax's order of operations. Where the
-JAX package runs a whole epoch as one device program (``lax.scan`` over the
-steps), this package dispatches every step from Python; the batches are
-still gathered on the device from the resident feature array, with one
-``[S, bs]`` index tensor uploaded per chunk of epochs.
+slice), and one elementwise Adam update in optax's order of operations,
+written in place into the layer tensors and the Adam state. Where the JAX
+package runs a whole epoch as one device program (``lax.scan`` over the
+steps), this package captures one epoch of steps in a CUDA graph on the
+card and replays it once an epoch; the batches are gathered on the device
+from the resident feature array, with one ``[S, bs]`` index tensor
+uploaded per chunk of epochs. On the CPU the steps run one by one from
+Python (the epoch's plain version, ``epoch.plain``).
 
 With a :class:`~syllable_detector_tpu_torch.parallel.mesh.Mesh` on the data
 axis, each step's batch columns split over the shards, each shard computes
 its gradients on its own stream, the gradients and losses are averaged in
-shard order (the JAX package's ``pmean``) and one update is applied. On the
-channel axis of an ensemble, each shard trains its own whole channels.
+shard order (the JAX package's ``pmean``) and one update is applied; these
+steps are still dispatched one by one from Python, on the card too. On the
+channel axis of an ensemble, each shard trains its own whole channels,
+replaying its own epoch graph on its own device and stream.
 
 Tensors are made on ``device`` (default ``"cuda"``, which raises without a
 card); ``device="cpu"`` runs on the CPU.
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+from collections import OrderedDict
 from dataclasses import asdict, dataclass
 
 import numpy as np
@@ -358,16 +364,19 @@ def _adam_init(layers, count_shape=()) -> tuple:
     )
 
 
-def _adam_update(layers, grads, opt_state, lr: float):
-    """One optax.adam step, elementwise over the stacked nets, in optax's
+def _adam_update(layers, grads, opt_state, lr: float) -> None:
+    """One optax.adam step, elementwise over the stacked nets, IN PLACE:
+    the layer tensors, both moments and the int32 ``count`` of
+    ``opt_state = (count, mu, nu)`` are updated where they lie, so a
+    captured epoch reads and writes the same tensors every step. optax's
     order of operations: moments ``(1-b)*g**k + b*m``, bias corrections
     ``1 - b**count`` in float32 per net, ``m_hat / (sqrt(v_hat) + eps)``
     scaled by ``-lr`` and added. ``torch.optim.Adam`` folds the corrections
     in another order and drifts from optax in the last bits. Each operation
     runs over all layer tensors at once (``torch._foreach_*``: one launch
-    for the list on a card, where the step is bound by launches)."""
+    for the list on a card)."""
     count, mu, nu = opt_state
-    count = count + 1
+    count.add_(1)
     c = count.to(torch.float32)
     bc1 = 1 - torch.pow(_B1, c)
     bc2 = 1 - torch.pow(_B2, c)
@@ -378,23 +387,28 @@ def _adam_update(layers, grads, opt_state, lr: float):
     keys = [(i, k) for i, layer in enumerate(layers) for k in layer]
     p = [layers[i][k] for i, k in keys]
     g = [grads[i][k] for i, k in keys]
-    m = torch._foreach_add(
-        torch._foreach_mul(g, 1 - _B1), torch._foreach_mul([mu[i][k] for i, k in keys], _B1))
-    v = torch._foreach_add(
-        torch._foreach_mul(torch._foreach_mul(g, g), 1 - _B2),
-        torch._foreach_mul([nu[i][k] for i, k in keys], _B2))
-    m_hat = torch._foreach_div(m, [per_net(bc1, t) for t in m])
-    v_hat = torch._foreach_div(v, [per_net(bc2, t) for t in v])
-    denom = torch._foreach_add(torch._foreach_sqrt(v_hat), _EPS)
-    p = torch._foreach_add(p, torch._foreach_mul(torch._foreach_div(m_hat, denom), -lr))
+    m = [mu[i][k] for i, k in keys]
+    v = [nu[i][k] for i, k in keys]
+    g_part = torch._foreach_mul(g, 1 - _B1)
+    torch._foreach_mul_(m, _B1)
+    torch._foreach_add_(m, g_part)
+    g2_part = torch._foreach_mul(g, g)
+    torch._foreach_mul_(g2_part, 1 - _B2)
+    torch._foreach_mul_(v, _B2)
+    torch._foreach_add_(v, g2_part)
+    update = torch._foreach_div(m, [per_net(bc1, t) for t in m])
+    denom = torch._foreach_div(v, [per_net(bc2, t) for t in v])
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, _EPS)
+    torch._foreach_div_(update, denom)
+    torch._foreach_mul_(update, -lr)
+    torch._foreach_add_(p, update)
 
-    def tree(values):
-        out = [{} for _ in layers]
-        for (i, k), t in zip(keys, values):
-            out[i][k] = t
-        return out
 
-    return tree(p), (count, tree(m), tree(v))
+def _clone_state(params, opt_state) -> tuple:
+    """Copies of ``params`` and ``opt_state = (count, mu, nu)``, which an
+    in-place step may then advance."""
+    return _tree_map(torch.clone, params), tuple(_tree_map(torch.clone, opt_state))
 
 
 def adam_state_from_optax(state, device="cuda") -> tuple:
@@ -416,12 +430,13 @@ def train_step(net_spec: NetSpec, params, opt_state, feats, labels, lr=1e-3):
     """One Adam step on the layer weights of one net (processing params
     frozen) -> (params, opt_state, loss before the step). ``opt_state`` is
     ``(count, mu, nu)`` (see :func:`adam_state_from_optax`)."""
+    params, opt_state = _clone_state(params, opt_state)
     value, grads = _value_and_grads(
         lambda layers: _loss_fn(net_spec, dict(params, layers=layers), feats, labels),
         params["layers"],
     )
-    layers, opt_state = _adam_update(params["layers"], grads, opt_state, lr)
-    return dict(params, layers=layers), opt_state, value
+    _adam_update(params["layers"], grads, opt_state, lr)
+    return params, opt_state, value
 
 
 def _stacked_apply(net_spec: NetSpec, params, x, lead: int = 1):
@@ -458,12 +473,138 @@ def _stacked_loss(net_spec: NetSpec, params, feats, labels, lead: int = 1):
 
 
 def _stacked_step(net_spec: NetSpec, lr: float, params, opt_state, feats, labels):
+    """One Adam step of the stacked nets on the batch ``feats`` / ``labels``,
+    written in place into ``params["layers"]`` and ``opt_state`` -> the
+    losses before the step ``[*stack]``."""
     values, grads = _value_and_grads(
         lambda layers: _stacked_loss(net_spec, dict(params, layers=layers), feats, labels),
         params["layers"],
     )
-    layers, opt_state = _adam_update(params["layers"], grads, opt_state, lr)
-    return dict(params, layers=layers), opt_state, values
+    _adam_update(params["layers"], grads, opt_state, lr)
+    return values
+
+
+# the epoch graphs captured and replayed since the counts were last set to
+# 0, kept beside the kernels' launch counts (``chip_smoke.py`` reads them)
+EPOCH_GRAPHS = {"captures": 0, "replays": 0}
+# graphs an epoch function keeps, least recently used dropped first: one per
+# shape and data, so each shard of a mesh, with its own data, holds its own
+_GRAPHS_KEPT = 8
+# steps run before a capture: autograd's first run and the allocator's
+# blocks for a step happen outside the graph
+_WARM_STEPS = 3
+
+
+def _assign(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the same
+    structure, leaf by leaf (by key, whatever order the dicts hold)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _assign(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            _assign(d, s)
+    else:
+        dst.copy_(src)
+
+
+class _EpochGraph:
+    """One epoch of ``S`` optimizer steps captured as one CUDA graph.
+
+    The graph reads fixed buffers: its own copy of the state, which each
+    step updates in place, the index rows ``idx [S, ...]`` and the caller's
+    ``feats`` and ``labels`` (held here, so their memory stays theirs while
+    the graph may read it); it writes the losses into ``values [S, nets]``.
+    ``pool_bytes`` is the device memory its private pool reserved."""
+
+    def __init__(self, step, params, opt_state, feats, labels, idx):
+        device = feats.device
+        self.data = (feats, labels)
+        self.params, self.opt_state = _clone_state(params, opt_state)
+        self.idx = idx.clone()
+        stream = torch.cuda.Stream(device)
+        # warm up on a side stream, on the graph's own copy of the state:
+        # the caller's state does not advance
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for row in self.idx[:_WARM_STEPS]:
+                step(self.params, self.opt_state, feats, labels, row)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.values = torch.stack(
+                [step(self.params, self.opt_state, feats, labels, row) for row in self.idx]
+            )
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        EPOCH_GRAPHS["captures"] += 1
+
+    def run(self, params, opt_state, idx) -> tuple:
+        """The epochs of ``idx [k*S, ...]`` from ``(params, opt_state)``:
+        the state copied into the graph's buffers (a caller only ever holds
+        copies of them), then per epoch its rows copied into the index
+        buffer and one replay, on the current stream -> (copies of the
+        state, values [k*S, nets])."""
+        _assign((self.params, self.opt_state), (params, opt_state))
+        steps = len(self.idx)
+        values = self.values.new_empty((len(idx), *self.values.shape[1:]))
+        for first in range(0, len(idx), steps):
+            self.idx.copy_(idx[first : first + steps])
+            self.graph.replay()
+            EPOCH_GRAPHS["replays"] += 1
+            values[first : first + steps].copy_(self.values)
+        return (*_clone_state(self.params, self.opt_state), values)
+
+
+class _Epoch:
+    """``epoch(params, opt_state, feats, labels, idx) -> (params, opt_state,
+    values [rows, nets])``: the rows of ``idx`` are optimizer steps, each
+    ``step(params, opt_state, feats, labels, idx[s]) -> values`` updating
+    the state in place; ``steps`` rows make an epoch (None: a call's rows).
+    The inputs are never changed, so two calls from one state give one
+    result.
+
+    The tensors' device chooses the route. On a CUDA device the first call
+    for a key (the epoch's steps, the index rows' shape, every state
+    tensor's shape and type, the data's address, shape, strides and type,
+    the device) captures one epoch in an :class:`_EpochGraph`; every call
+    replays it once an epoch. Elsewhere the steps run one by one
+    (:meth:`plain`). A capture or replay that fails raises."""
+
+    def __init__(self, step, steps: int | None = None):
+        self.step, self.steps = step, steps
+        self.graphs: OrderedDict = OrderedDict()
+
+    def plain(self, params, opt_state, feats, labels, idx) -> tuple:
+        """The per-step loop: the epoch's plain version, dispatched from
+        Python step by step."""
+        params, opt_state = _clone_state(params, opt_state)
+        values = [self.step(params, opt_state, feats, labels, row) for row in idx]
+        return params, opt_state, torch.stack(values)
+
+    def __call__(self, params, opt_state, feats, labels, idx) -> tuple:
+        steps = self.steps or len(idx)
+        if len(idx) % steps:
+            raise ValueError(f"{len(idx)} index rows are not whole epochs of {steps} steps")
+        if feats.device.type != "cuda":
+            return self.plain(params, opt_state, feats, labels, idx)
+        key = (
+            steps,
+            tuple(idx.shape[1:]),
+            tuple((tuple(t.shape), t.dtype) for t in _leaves((params, opt_state))),
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in (feats, labels)),
+            feats.device,
+        )
+        with torch.cuda.device(feats.device):
+            graph = self.graphs.pop(key, None)
+            if graph is None:
+                graph = _EpochGraph(self.step, params, opt_state, feats, labels, idx[:steps])
+            self.graphs[key] = graph
+            while len(self.graphs) > _GRAPHS_KEPT:
+                self.graphs.popitem(last=False)
+            return graph.run(params, opt_state, idx)
 
 
 def _make_restart_epoch(
@@ -471,13 +612,19 @@ def _make_restart_epoch(
     lr: float,
     mesh: Mesh | None = None,
     data_axis: str = "data",
+    steps: int | None = None,
 ):
     """One EPOCH (or a chunk of epochs) of K stacked weight inits sharing
     every batch: ``epoch(params, opt_state, feats, labels, idx) -> (params,
-    opt_state, values [S, K])``, with ``feats [n, D]`` and ``labels [n]``
-    resident on the device and ``idx [S, bs]`` an int32 tensor there. Each
-    row of ``idx`` is one step: its batch is gathered on the device, and
-    every step is dispatched from Python.
+    opt_state, values [rows, K])``, with ``feats [n, D]`` and ``labels
+    [n]`` resident on the device and ``idx [rows, bs]`` an int32 tensor
+    there. Each row of ``idx`` is one step, its batch gathered on the
+    device; ``steps`` rows make an epoch (None: a call's rows).
+
+    Without ``mesh`` the epoch is an :class:`_Epoch`: on a card each epoch
+    is one replay of a CUDA graph of its steps, the counterpart of the JAX
+    package's one ``lax.scan`` program an epoch; on the CPU the steps run
+    one by one (``epoch.plain``, the trainer's plain version).
 
     With ``mesh`` (one-dimensional: its axis is the data axis, whatever
     ``data_axis``, which the JAX signature names, says), each step's batch
@@ -486,22 +633,24 @@ def _make_restart_epoch(
     call; shards on one device share it) and computes its gradients on its
     own stream; gradients and losses are averaged in shard order and one
     update is applied on shard 0's device, where the parameters live.
+    This route still dispatches every step from Python, on the card too:
+    a step's gradients cross devices before its update.
     """
+    if mesh is None:
+        def step(params, opt_state, feats, labels, rows):
+            return _stacked_step(
+                net_spec, lr, params, opt_state,
+                feats.index_select(0, rows), labels.index_select(0, rows),
+            )
+
+        return _Epoch(step, steps)
 
     def epoch(params, opt_state, feats, labels, idx):
-        values = []
-        if mesh is None:
-            for idx_s in idx:
-                params, opt_state, v = _stacked_step(
-                    net_spec, lr, params, opt_state,
-                    feats.index_select(0, idx_s), labels.index_select(0, idx_s),
-                )
-                values.append(v)
-            return params, opt_state, torch.stack(values)
-
+        params, opt_state = _clone_state(params, opt_state)
         shards = len(mesh.devices)
         local = idx.shape[1] // shards
         replicas = {dev: (feats.to(dev), labels.to(dev)) for dev in set(mesh.devices)}
+        values = []
         for idx_s in idx:
             def body(i, dev, idx_s=idx_s):
                 f, l = replicas[dev]
@@ -521,8 +670,7 @@ def _make_restart_epoch(
                 {k: _psum(mesh, [p[1][j][k] for p in parts]) / shards for k in layer}
                 for j, layer in enumerate(params["layers"])
             ]
-            layers, opt_state = _adam_update(params["layers"], grads, opt_state, lr)
-            params = dict(params, layers=layers)
+            _adam_update(params["layers"], grads, opt_state, lr)
             values.append(v)
         return params, opt_state, torch.stack(values)
 
@@ -802,13 +950,14 @@ def train(
                 f"use a smaller mesh or more data"
             )
         bs = (bs // n_dev) * n_dev or n_dev
+    steps = n // bs  # one epoch = this many steps
     epoch_fn = _make_restart_epoch(
         net_spec,
         settings.learning_rate,
         mesh=mesh,
         data_axis=mesh.axis_names[0] if mesh is not None else "data",
+        steps=steps,
     )
-    steps = n // bs  # one epoch = this many steps
 
     rng = np.random.default_rng(settings.seed)
 
@@ -856,13 +1005,18 @@ def make_ensemble_epoch(
     n_init: int = 1,
     mesh: Mesh | None = None,
     channel_axis: str = "channel",
+    steps: int | None = None,
 ):
     """One EPOCH (or a chunk of epochs) of a CHANNEL-STACKED ensemble of
     independent nets: ``epoch(params, opt_state, feats_all, labs_all, idx)
-    -> (params, opt_state, values [S, C*K])`` with ``feats_all [C, n_max,
-    D]`` and ``labs_all [C, n_max]`` resident on the device and ``idx [S, C,
-    bs]`` an int32 tensor there; each step gathers every channel's batch
-    rows on the device.
+    -> (params, opt_state, values [rows, C*K])`` with ``feats_all [C, n_max,
+    D]`` and ``labs_all [C, n_max]`` resident on the device and ``idx
+    [rows, C, bs]`` an int32 tensor there; each step gathers every
+    channel's batch rows on the device, and ``steps`` rows make an epoch
+    (None: a call's rows). On a card each epoch is one replay of a CUDA
+    graph of its steps (the per-step row offsets and the gather of the
+    channels' rows captured with them); on the CPU the steps run one by
+    one (see :class:`_Epoch`).
 
     The parameters carry a flat leading ``C * n_init`` axis on every
     tensor (channel-major: flat index ``c*K + k``); every init of a
@@ -871,36 +1025,43 @@ def make_ensemble_epoch(
     exactly C*K independent optimizers. With ``mesh``, the channels split
     over the ``channel_axis`` shards, each shard training its whole
     channels (all K inits together) through the whole call on its own
-    stream, with no communication between shards.
+    device and stream, with its own epoch graph there, and with no
+    communication between shards.
     """
     K = max(1, n_init)
 
-    def local_epoch(params, opt_state, feats_all, labs_all, idx):
+    def step(params, opt_state, feats_all, labs_all, idx_s):
         c, n_max = labs_all.shape
-        flat_feats = feats_all.reshape(c * n_max, feats_all.shape[2])
-        flat_labs = labs_all.reshape(c * n_max)
-        offsets = (torch.arange(c, device=idx.device) * n_max)[:, None]
+        rows = (idx_s + (torch.arange(c, device=idx_s.device) * n_max)[:, None]).reshape(-1)
+        fb = feats_all.reshape(c * n_max, -1).index_select(0, rows).reshape(c, -1, feats_all.shape[2])
+        lb = labs_all.reshape(c * n_max).index_select(0, rows).reshape(c, -1)
 
-        def loss(layers, fb, lb):
+        def loss(layers):
             folded = _tree_map(
                 lambda x: x.reshape(c, K, *x.shape[1:]), dict(params, layers=layers)
             )
             # every init of a channel broadcasts over the channel's batch
             return _stacked_loss(net_spec, folded, fb[:, None], lb[:, None], lead=2).reshape(-1)
 
-        values = []
-        for idx_s in idx:
-            rows = (idx_s + offsets).reshape(-1)
-            fb = flat_feats.index_select(0, rows).reshape(c, -1, flat_feats.shape[1])
-            lb = flat_labs.index_select(0, rows).reshape(c, -1)
-            v, grads = _value_and_grads(lambda layers: loss(layers, fb, lb), params["layers"])
-            layers, opt_state = _adam_update(params["layers"], grads, opt_state, lr)
-            params = dict(params, layers=layers)
-            values.append(v)
-        return params, opt_state, torch.stack(values)
+        values, grads = _value_and_grads(loss, params["layers"])
+        _adam_update(params["layers"], grads, opt_state, lr)
+        return values
 
+    local_epoch = _Epoch(step, steps)
     if mesh is None:
         return local_epoch
+    # each shard's channels on its device, where that is not the data's:
+    # kept from call to call, so that the shard's graph reads one address
+    placed = {}
+
+    def shard_data(i, dev, feats, labels):
+        if feats.device == dev:
+            return feats, labels
+        if i not in placed or placed[i][0].shape != feats.shape:
+            placed[i] = (torch.empty_like(feats, device=dev), torch.empty_like(labels, device=dev))
+        placed[i][0].copy_(feats)
+        placed[i][1].copy_(labels)
+        return placed[i]
 
     def epoch(params, opt_state, feats_all, labs_all, idx):
         shards = int(mesh.shape[channel_axis])
@@ -912,8 +1073,7 @@ def make_ensemble_epoch(
             return local_epoch(
                 _tree_map(lambda t: t[nets].to(dev), params),
                 _tree_map(lambda t: t[nets].to(dev), opt_state),
-                feats_all[chans].to(dev),
-                labs_all[chans].to(dev),
+                *shard_data(i, dev, feats_all[chans], labs_all[chans]),
                 idx[:, chans].to(dev),
             )
 
@@ -992,18 +1152,18 @@ def train_ensemble(
             )
     params = stack_params(per_params)
     opt_state = _adam_init(params["layers"], (C * K,))  # per-init state
+    ns = [len(f) for f in features_list]
+    bs = min(settings.batch_size, min(ns))
+    # an epoch covers the LONGEST channel once; shorter channels wrap
+    steps_per_epoch = max(1, max(ns) // bs)
     epoch_fn = make_ensemble_epoch(
         net_spec,
         settings.learning_rate,
         n_init=K,
         mesh=mesh,
         channel_axis=channel_axis,
+        steps=steps_per_epoch,
     )
-
-    ns = [len(f) for f in features_list]
-    bs = min(settings.batch_size, min(ns))
-    # an epoch covers the LONGEST channel once; shorter channels wrap
-    steps_per_epoch = max(1, max(ns) // bs)
     n_max = max(ns)
     feats_all = torch.zeros((C, n_max, settings.n_features), dtype=torch.float32, device=device)
     labs_all = torch.zeros((C, n_max), dtype=torch.float32, device=device)

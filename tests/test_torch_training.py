@@ -8,10 +8,13 @@ parity, the optimizer state) are carried from the JAX trainer to the port
 NumPy's ``default_rng`` in both packages. Tolerances, stated per test:
 features rtol=1e-5, atol=1e-6 with labels equal; single steps rtol=1e-5,
 atol=1e-6; whole epochs and runs rtol=1e-4, atol=1e-5, the same best init
-and thresholds within 1e-5.
+and thresholds within 1e-5. The in-place Adam step is held bit for bit
+against the out-of-place step it replaced, kept here as its reference.
 """
 
+import ast
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +37,7 @@ from syllable_detector_tpu.training import trainer as jt
 from syllable_detector_tpu.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.config.model_format import dumps_config, save_config
 from syllable_detector_tpu_torch.models.detector import Detector
-from syllable_detector_tpu_torch.models.neural_net import params_from_numpy
+from syllable_detector_tpu_torch.models.neural_net import params_from_numpy, stack_params
 from syllable_detector_tpu_torch.parallel.mesh import make_mesh
 from syllable_detector_tpu_torch.training import checkpoint as pc
 from syllable_detector_tpu_torch.training import trainer as pt
@@ -242,6 +245,262 @@ def test_train_step_matches_jax():
         assert_trees_close(port_state[1:], (adam.mu, adam.nu), 1e-5, 1e-6)
     for a, b in zip(host(port["process_inputs"]), frozen):
         np.testing.assert_array_equal(a, b)
+
+
+def old_adam_update(layers, grads, opt_state, lr):
+    """The port's Adam step before it wrote in place: new tensors for the
+    layers, the moments and the count, the same operations in the same
+    order (the in-place step's reference)."""
+    count, mu, nu = opt_state
+    count = count + 1
+    c = count.to(torch.float32)
+    bc1 = 1 - torch.pow(pt._B1, c)
+    bc2 = 1 - torch.pow(pt._B2, c)
+
+    def per_net(bc, t):
+        return bc.reshape(bc.shape + (1,) * (t.dim() - bc.dim()))
+
+    keys = [(i, k) for i, layer in enumerate(layers) for k in layer]
+    p = [layers[i][k] for i, k in keys]
+    g = [grads[i][k] for i, k in keys]
+    m = torch._foreach_add(
+        torch._foreach_mul(g, 1 - pt._B1), torch._foreach_mul([mu[i][k] for i, k in keys], pt._B1))
+    v = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(g, g), 1 - pt._B2),
+        torch._foreach_mul([nu[i][k] for i, k in keys], pt._B2))
+    m_hat = torch._foreach_div(m, [per_net(bc1, t) for t in m])
+    v_hat = torch._foreach_div(v, [per_net(bc2, t) for t in v])
+    denom = torch._foreach_add(torch._foreach_sqrt(v_hat), pt._EPS)
+    p = torch._foreach_add(p, torch._foreach_mul(torch._foreach_div(m_hat, denom), -lr))
+
+    def tree(values):
+        out = [{} for _ in layers]
+        for (i, k), t in zip(keys, values):
+            out[i][k] = t
+        return out
+
+    return tree(p), (count, tree(m), tree(v))
+
+
+def old_stacked_step(net_spec, lr, params, opt_state, feats, labels):
+    values, grads = pt._value_and_grads(
+        lambda layers: pt._stacked_loss(net_spec, dict(params, layers=layers), feats, labels),
+        params["layers"],
+    )
+    layers, opt_state = old_adam_update(params["layers"], grads, opt_state, lr)
+    return dict(params, layers=layers), opt_state, values
+
+
+def bits(tree):
+    """Every tensor of a tree as raw bytes, in ``jax.tree.leaves`` order."""
+    return [a.tobytes() for a in host(tree)]
+
+
+def port_state(channels, hidden, K, seed):
+    """K torch-drawn inits for each channel's features in ``channels``,
+    stacked channel-major on the port's leading axis, each channel's
+    processing chain fit on its features; and their zero Adam state."""
+    gen = torch.Generator().manual_seed(seed)
+    nets = []
+    for f in channels:
+        _, (p_in, p_out) = processing(f)
+        nets += [{"layers": pt.init_layer_params(gen, [f.shape[1], *hidden, 1], device="cpu"),
+                  "process_inputs": p_in, "process_outputs": p_out} for _ in range(K)]
+    params = stack_params(nets)
+    return params, pt._adam_init(params["layers"], (len(nets),))
+
+
+@pytest.mark.parametrize("hidden", [(4,), (8, 4)], ids=["4", "8-4"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_inplace_step_is_the_old_step_bit_for_bit(K, hidden):
+    """Six in-place ``_stacked_step`` calls against the out-of-place step
+    they replaced, from one state and on the same batches: losses, layer
+    tensors, moments and the int32 count bit for bit equal after every
+    step."""
+    _, ps = settings_pair(hidden=hidden)
+    rng = np.random.default_rng(11 + K)
+    feats = rng.standard_normal((80, ps.n_features)).astype(np.float32)
+    labels = torch.from_numpy((feats[:, 1] > 0).astype(np.float32))
+    params, opt_state = port_state([feats], hidden, K, seed=K)
+    spec = pt._build_net_spec(ps)
+    old = (params, opt_state)
+    new = pt._clone_state(params, opt_state)
+    feats = torch.from_numpy(feats)
+    for _ in range(6):
+        rows = torch.from_numpy(rng.integers(0, 80, 16))
+        *old, want = old_stacked_step(spec, 3e-3, *old, feats[rows], labels[rows])
+        got = pt._stacked_step(spec, 3e-3, *new, feats[rows], labels[rows])
+        assert bits(got) == bits(want)
+        assert new[1][0].dtype == torch.int32
+        assert bits(new) == bits(old)
+    assert new[1][0].tolist() == [6] * K
+
+
+def ensemble_case(C=3, K=2, bs=8, steps=4, seed=21):
+    """(features, labels) of C channels of unequal length, and a draw of
+    ``[steps, C, bs]`` index rows within each channel's length."""
+    rng = np.random.default_rng(seed)
+    ns = [bs * steps + 9 * c for c in range(C)]
+    d = pt.TrainSettings().n_features
+    feats = [rng.standard_normal((n, d)).astype(np.float32) for n in ns]
+    labels = [(f[:, c] > 0).astype(np.float32) for c, f in enumerate(feats)]
+
+    def idx():
+        return np.stack([np.take(rng.permutation(n), np.arange(steps * bs), mode="wrap")
+                         .reshape(steps, bs) for n in ns], axis=1).astype(np.int32)
+
+    feats_all = np.zeros((C, max(ns), d), np.float32)
+    labs_all = np.zeros((C, max(ns)), np.float32)
+    for c in range(C):
+        feats_all[c, : ns[c]], labs_all[c, : ns[c]] = feats[c], labels[c]
+    return feats, feats_all, labs_all, idx
+
+
+@pytest.mark.parametrize("kind", ["restart", "ensemble"])
+def test_epoch_is_functional(kind):
+    """A call of the epoch function leaves its inputs unchanged, two calls
+    from one state give the same bits, and a call of two epochs equals two
+    calls of one. On the CPU the call is its plain per-step loop and
+    captures no graph; index rows that are not whole epochs raise."""
+    _, ps = settings_pair(hidden=(3,))
+    spec = pt._build_net_spec(ps)
+    if kind == "restart":
+        rng = np.random.default_rng(4)
+        feats = rng.standard_normal((64, ps.n_features)).astype(np.float32)
+        labels = (feats[:, 0] > 0).astype(np.float32)
+        params, opt_state = port_state([feats], (3,), 3, seed=2)
+        epoch = pt._make_restart_epoch(spec, 2e-3, steps=4)
+        data = (torch.from_numpy(feats), torch.from_numpy(labels))
+        idx = torch.from_numpy(np.stack([rng.permutation(64)[:64].reshape(4, 16)
+                                         for _ in range(2)]).reshape(8, 16).astype(np.int32))
+    else:
+        feats, feats_all, labs_all, draw = ensemble_case()
+        params, opt_state = port_state(feats, (3,), 2, seed=3)
+        epoch = pt.make_ensemble_epoch(spec, 2e-3, n_init=2, steps=4)
+        data = (torch.from_numpy(feats_all), torch.from_numpy(labs_all))
+        idx = torch.from_numpy(np.concatenate([draw(), draw()]))
+    inputs = bits((params, opt_state, *data, idx))
+    before = dict(pt.EPOCH_GRAPHS)
+    first = epoch(params, opt_state, *data, idx)
+    assert bits((params, opt_state, *data, idx)) == inputs
+    assert bits(epoch(params, opt_state, *data, idx)) == bits(first)
+    assert bits(epoch.plain(params, opt_state, *data, idx)) == bits(first)
+    one = epoch(params, opt_state, *data, idx[:4])
+    two = epoch(*one[:2], *data, idx[4:])
+    assert bits(two[:2]) == bits(first[:2])
+    assert bits(torch.cat([one[2], two[2]])) == bits(first[2])
+    assert tuple(first[2].shape) == (8, 3 if kind == "restart" else 6)
+    assert set(first[1][0].tolist()) == {8}
+    assert pt.EPOCH_GRAPHS == before
+    with pytest.raises(ValueError, match="not whole epochs of 4 steps"):
+        epoch(params, opt_state, *data, idx[:6])
+
+
+def test_ensemble_epoch_matches_jax():
+    """``make_ensemble_epoch`` (3 channels of unequal length, 2 inits each)
+    against the JAX ``make_ensemble_epoch``: one JAX epoch, then params and
+    the per-init Adam state carried to the port, then three epochs side by
+    side on the same index rows, the last two in one call of the port:
+    rtol=1e-4, atol=1e-5 after each (params, moments, the [S, C*K] losses),
+    counts equal."""
+    js, ps = settings_pair(hidden=(3,))
+    feats, feats_all, labs_all, draw = ensemble_case()
+    nets = []
+    for c, f in enumerate(feats):
+        (j_in, j_out), _ = processing(f)
+        for k in range(2):
+            nets.append({"layers": jt.init_layer_params(jax.random.PRNGKey(10 * c + k),
+                                                        [js.n_features, 3, 1]),
+                         "process_inputs": j_in, "process_outputs": j_out})
+    stacked = jstack(nets)
+    lr = 2e-3
+    opt_state = jax.vmap(optax.adam(lr).init)(stacked["layers"])
+    jepoch = jt.make_ensemble_epoch(jt._build_net_spec(js), lr, n_init=2)
+    pepoch = pt.make_ensemble_epoch(pt._build_net_spec(ps), lr, n_init=2, steps=4)
+    fj, lj = jnp.asarray(feats_all), jnp.asarray(labs_all)
+    fp, lp = torch.from_numpy(feats_all), torch.from_numpy(labs_all)
+    stacked, opt_state, _ = jepoch(stacked, opt_state, fj, lj, jnp.asarray(draw()))
+    port = params_from_numpy(jax.tree.map(np.asarray, stacked), "cpu")
+    port_state = pt.adam_state_from_optax(jax.tree.map(np.asarray, opt_state), "cpu")
+    assert port_state[0].tolist() == [4] * 6
+
+    def check(got, want, state):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+        assert_trees_close(port, stacked, 1e-4, 1e-5)
+        assert_trees_close(state[1:], (opt_state[0].mu, opt_state[0].nu), 1e-4, 1e-5)
+        np.testing.assert_array_equal(state[0].numpy(), np.asarray(opt_state[0].count))
+
+    i = draw()
+    stacked, opt_state, want = jepoch(stacked, opt_state, fj, lj, jnp.asarray(i))
+    port, port_state, got = pepoch(port, port_state, fp, lp, torch.from_numpy(i))
+    assert tuple(got.shape) == want.shape == (4, 6)
+    check(got, want, port_state)
+    i = np.concatenate([draw(), draw()])
+    stacked, opt_state, want = jepoch(stacked, opt_state, fj, lj, jnp.asarray(i))
+    port, port_state, got = pepoch(port, port_state, fp, lp, torch.from_numpy(i))
+    check(got, want, port_state)
+
+
+def test_graph_route_has_no_fallback_or_switch():
+    """The epoch's route is chosen by the tensors' device alone: no
+    ``try`` in the epoch classes, the epoch makers or the loops that call
+    them (a failed capture or replay raises, nothing carries on eagerly);
+    no environment variable read anywhere in the trainer; and the epoch
+    call takes no argument beyond the state, the data and the index rows."""
+    src = inspect.getsource(pt)
+    tree = ast.parse(src)
+    route = {"_Epoch", "_EpochGraph", "_make_restart_epoch", "make_ensemble_epoch",
+             "_run_training_loop", "train", "train_ensemble", "_stacked_step", "_adam_update"}
+    nodes = [n for n in tree.body
+             if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name in route]
+    assert {n.name for n in nodes} == route
+    for node in nodes:
+        assert not [n for n in ast.walk(node) if isinstance(n, ast.Try)], node.name
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                and n.attr in ("environ", "getenv", "environb")]
+    assert "getenv" not in src and "environ" not in src
+    assert list(inspect.signature(pt._Epoch.__call__).parameters) == [
+        "self", "params", "opt_state", "feats", "labels", "idx"]
+    assert list(inspect.signature(pt._Epoch).parameters) == ["step", "steps"]
+
+
+@pytest.mark.cuda
+def test_graph_epoch_equals_plain_on_card():
+    """On the card: the restart and ensemble epochs' graphs against their
+    plain per-step loops from one state over three epochs (one capture and
+    three replays each), bit for bit or within rtol=1e-6, atol=1e-7; the
+    inputs unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the epoch graph is a CUDA graph)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, ps = settings_pair()
+    spec = pt._build_net_spec(ps)
+    rng = np.random.default_rng(8)
+    feats = rng.standard_normal((256, ps.n_features)).astype(np.float32)
+    labels = (feats[:, 0] > 0).astype(np.float32)
+    feats_e, feats_all, labs_all, draw = ensemble_case()
+    cases = [
+        (pt._make_restart_epoch(spec, 3e-3, steps=8), *port_state([feats], (4,), 4, seed=1),
+         (feats, labels), np.stack([rng.permutation(256)[:256].reshape(8, 32)
+                                    for _ in range(3)]).reshape(24, 32)),
+        (pt.make_ensemble_epoch(spec, 3e-3, n_init=2, steps=4),
+         *port_state(feats_e, (4,), 2, seed=3), (feats_all, labs_all),
+         np.concatenate([draw(), draw(), draw()])),
+    ]
+    for epoch, p, o, data, idx in cases:
+        p, o = pt._tree_map(lambda t: t.cuda(), p), tuple(pt._tree_map(lambda t: t.cuda(), o))
+        data = tuple(torch.from_numpy(a).cuda() for a in data)
+        idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+        inputs = bits(pt._tree_map(lambda t: t.cpu(), (p, o, *data, idx)))
+        before = dict(pt.EPOCH_GRAPHS)
+        got = epoch(p, o, *data, idx)
+        want = epoch.plain(p, o, *data, idx)
+        torch.cuda.synchronize()
+        assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + 1,
+                                   "replays": before["replays"] + 3}
+        assert bits(pt._tree_map(lambda t: t.cpu(), (p, o, *data, idx))) == inputs
+        assert_trees_close(pt._tree_map(lambda t: t.cpu(), got),
+                           pt._tree_map(lambda t: t.cpu(), want), 1e-6, 1e-7)
 
 
 def test_restart_epoch_matches_jax():
