@@ -143,9 +143,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
                epochs; its graph taken and counts checked as above) whose
                16 nets go through ``cli --batched --method fused`` (K1e must
                launch) against matmul on a 16-channel file; ``train`` on a
-               4-shard data mesh and ``train_ensemble`` on a 4-shard
+               4-shard data mesh of the one card (its epoch graph taken and
+               counts checked as above) and ``train_ensemble`` on a 4-shard
                channel mesh against unsharded (2 epochs, rtol=1e-4,
-               atol=1e-5); the ``phase 16 train graph`` line: from the
+               atol=1e-5), ``train`` on a one-shard data mesh bit for bit
+               unsharded (params and threshold), the 4-shard data mesh's
+               epoch from the CLI run's initial state over 3 epochs (one
+               capture, 3 replays) bit for bit its plain per-step loop,
+               every result on the card; the ``phase 16 train graph`` line: from the
                initial states of the CLI run and of the ensemble, 3 epochs
                of the epoch graph against the plain per-step loop
                (``epoch.plain``) on the card, and shard 0 of the ensemble
@@ -162,9 +167,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
                of a plain step and of an epoch call, one epoch's wall and
                steps per second, the device's busy share over 3 epochs
                (``torch.profiler``, CUDA activity), and ``train.main`` at
-               the CLI defaults cut to 30 epochs a route, in turns; then
-               the walls and steps per second of phase 16's main-path runs
-               (the CLI's 300 epochs, the ensemble's).
+               the CLI defaults cut to 30 epochs a route, in turns; the
+               same with ``--data-parallel`` (one shard a card), plain,
+               graph, graph, plain, each net file byte for byte that of the
+               same route without the flag on one card; then the walls and
+               steps per second of phase 16's main-path runs (the CLI's 300
+               epochs, the ensemble's).
   18. capture — this slice's capture path, every count from 0: ``monitor
                --list-devices`` rc 0; 256 channels through ``--input alsa
                --output alsa`` and ``--input pulse --output pulse`` over fake
@@ -2060,25 +2068,55 @@ def phase_train(tmp: str) -> dict:
         flush=True,
     )
 
-    # (f) sharded against unsharded, on MESH_SHARDS shards of the one card
+    # (f) sharded against unsharded, on MESH_SHARDS shards of the one card;
+    # the data mesh's epoch graph (one capture, one replay an epoch), and a
+    # one-shard data mesh bit for bit unsharded training
     short = dataclasses.replace(settings, epochs=SHORT_EPOCHS)
+    one_card = [torch.device("cuda", 0)]
     _, whole, t_whole = trainer.train(short, feats, labels, device="cuda")
-    _, sharded, t_sharded = trainer.train(
-        short, feats, labels, mesh=pmesh.make_mesh(MESH_SHARDS, axis="data"))
+    reset_counts()
+    with TrainSpy() as dp_spy:
+        _, sharded, t_sharded = trainer.train(
+            short, feats, labels, mesh=pmesh.make_mesh(MESH_SHARDS, axis="data", devices=one_card))
+    dp_route = graph_route(dp_spy.runs[0], "the data mesh")
     dp_err = held_trees(sharded, whole, 1e-4, 1e-5, "data-parallel vs unsharded")
+    _, one, t_one = trainer.train(
+        short, feats, labels, mesh=pmesh.make_mesh(1, axis="data", devices=one_card))
+    bit_equal(one, whole, "the one-shard data mesh against unsharded training")
+    if t_one != t_whole:
+        raise AssertionError(f"the one-shard data mesh's threshold {t_one} for {t_whole}")
+    # the data mesh's epoch graph against its plain per-step loop, from the
+    # CLI run's initial state over GRAPH_EPOCHS epochs of its index rows
+    cli_fn, (c_params, c_state, c_feats, c_labels, c_idx) = run["first"]
+    c_rows = c_idx[: GRAPH_EPOCHS * cli_fn.steps]
+    dp_fn = trainer._make_restart_epoch(
+        net_spec, settings.learning_rate,
+        mesh=pmesh.make_mesh(MESH_SHARDS, axis="data", devices=one_card), steps=cli_fn.steps)
+    reset_counts()
+    dp_graph = dp_fn(c_params, c_state, c_feats, c_labels, c_rows)
+    dp_counts = dict(trainer.EPOCH_GRAPHS)
+    if dp_counts != {"captures": 1, "replays": GRAPH_EPOCHS}:
+        raise AssertionError(f"the data mesh's epoch graphs: {dp_counts}")
+    bit_equal(dp_graph, dp_fn.plain(c_params, c_state, c_feats, c_labels, c_rows),
+              "the data mesh's epoch graph against its plain per-step loop")
+    dp_pool = "/".join(f"{g.pool_bytes / 2**20:.1f}" for g in dp_fn.graphs.values())
     ens_data = [trainer.features_and_labels(settings, a, iv, device="cuda") for a, iv, *_ in chans]
     ens_f, ens_l = [f for f, _ in ens_data], [l for _, l in ens_data]
     _, ens_whole, _ = trainer.train_ensemble(short, ens_f, ens_l, device="cuda")
     _, ens_sharded, _ = trainer.train_ensemble(
         short, ens_f, ens_l, mesh=pmesh.make_mesh(MESH_SHARDS, axis="channel"))
     cp_err = held_trees(ens_sharded, ens_whole, 1e-4, 1e-5, "channel-parallel vs unsharded")
-    if not sharded["layers"][0]["w"].is_cuda or not ens_sharded[0]["layers"][0]["w"].is_cuda:
+    if not all(t.is_cuda for t in pmesh._leaves((sharded, one, dp_graph, ens_sharded))):
         raise AssertionError("the sharded results are not on the card")
     print(
         f"phase 16 train: train on a {MESH_SHARDS}-shard data mesh vs unsharded ({SHORT_EPOCHS} "
-        f"epochs): params max abs {dp_err:.3g}, thresholds {t_sharded:.6f} / {t_whole:.6f}; "
-        f"train_ensemble ({ENSEMBLE_CHANNELS} channels) on a {MESH_SHARDS}-shard channel mesh vs "
-        f"unsharded: max abs {cp_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        f"epochs; {dp_route}): params max abs {dp_err:.3g}, thresholds {t_sharded:.6f} / "
+        f"{t_whole:.6f}; on a one-shard data mesh params and threshold bit for bit unsharded; "
+        f"the {MESH_SHARDS}-shard data mesh's epoch from the CLI run's initial state over "
+        f"{GRAPH_EPOCHS} epochs ({dp_counts['captures']} capture, {dp_counts['replays']} "
+        f"replays, pool {dp_pool} MiB) bit for bit its plain per-step loop; train_ensemble "
+        f"({ENSEMBLE_CHANNELS} channels) on a {MESH_SHARDS}-shard channel mesh vs unsharded: "
+        f"max abs {cp_err:.3g} (rtol=1e-4, atol=1e-5); results on the card ok",
         flush=True,
     )
 
@@ -2132,7 +2170,7 @@ def phase_train(tmp: str) -> dict:
     with open(outs["full"]) as a, open(outs["resumed"]) as b:
         if a.read() != b.read():
             raise AssertionError("the resumed CLI run's net differs from the uninterrupted one's")
-    mesh = pmesh.make_mesh(MESH_SHARDS, axis="data")
+    mesh = pmesh.make_mesh(MESH_SHARDS, axis="data", devices=one_card)
     part = dataclasses.replace(settings, epochs=SHORT_EPOCHS - 1)
     mesh_ckpt = os.path.join(tmp, "mesh_ckpt")
     trainer.train(part, feats, labels, mesh=mesh, checkpoint_dir=mesh_ckpt, checkpoint_every=1)
@@ -2180,8 +2218,9 @@ def busy_share(fn, steps: int) -> str:
 
 @contextlib.contextmanager
 def plain_epochs():
-    """Inside ``with``: every epoch function of the trainer runs its plain
-    per-step loop, on the card too (a measurement's baseline)."""
+    """Inside ``with``: every epoch function of the trainer (the data
+    mesh's too, on one card or several) runs its plain per-step loop, on
+    the card too (a measurement's baseline)."""
     call = trainer._Epoch.__call__
     trainer._Epoch.__call__ = trainer._Epoch.plain
     try:
@@ -2230,6 +2269,19 @@ def phase_train_times(t: dict, card_line: str) -> None:
             wall = run_train(t["argv"] + ["-o", os.path.join(t["tmp"], f"ab_{name}.txt"),
                                           "--epochs", str(TRAIN_AB_EPOCHS)])
         cli.setdefault(name, []).append((wall, spy.runs[0]["steps"] / spy.runs[0]["wall"]))
+    # train.main --data-parallel: one shard a card, so on one card the
+    # one-shard data mesh, whose nets must be those written without the flag
+    dp = {}
+    for name in ("plain", "graph", "graph", "plain"):
+        net = os.path.join(t["tmp"], f"ab_dp_{name}.txt")
+        with TrainSpy() as spy, (plain_epochs() if name == "plain" else contextlib.nullcontext()):
+            wall = run_train(t["argv"] + ["-o", net, "--epochs", str(TRAIN_AB_EPOCHS),
+                                          "--data-parallel"])
+        dp.setdefault(name, []).append((wall, spy.runs[0]["steps"] / spy.runs[0]["wall"]))
+        with open(net, "rb") as a, open(os.path.join(t["tmp"], f"ab_{name}.txt"), "rb") as b:
+            if torch.cuda.device_count() == 1 and a.read() != b.read():
+                raise AssertionError(f"train.main --data-parallel ({name}) wrote another net "
+                                     "than train.main without the flag")
     run, ens = t["run"], t["ens_run"]
 
     def both(key, fmt):
@@ -2246,6 +2298,16 @@ def phase_train_times(t: dict, card_line: str) -> None:
         f"defaults cut to {TRAIN_AB_EPOCHS} epochs, plain, graph, graph, plain: "
         + "; ".join(f"{name} " + ", ".join(f"{w:.3f} s ({r:.1f} steps/s)" for w, r in cli[name])
                     for name in routes),
+        flush=True,
+    )
+    print(
+        f"phase 17 times [{card_line}]: train.main --data-parallel ({torch.cuda.device_count()} "
+        f"shard(s), one a card) at the CLI defaults cut to {TRAIN_AB_EPOCHS} epochs, plain, "
+        f"graph, graph, plain: "
+        + "; ".join(f"{name} " + ", ".join(f"{w:.3f} s ({r:.1f} steps/s)" for w, r in dp[name])
+                    for name in routes)
+        + ("; each net file byte for byte that of the same route without the flag"
+           if torch.cuda.device_count() == 1 else ""),
         flush=True,
     )
     print(

@@ -25,11 +25,15 @@ Python (the epoch's plain version, ``epoch.plain``).
 
 With a :class:`~syllable_detector_tpu_torch.parallel.mesh.Mesh` on the data
 axis, each step's batch columns split over the shards, each shard computes
-its gradients on its own stream, the gradients and losses are averaged in
-shard order (the JAX package's ``pmean``) and one update is applied; these
-steps are still dispatched one by one from Python, on the card too. On the
-channel axis of an ensemble, each shard trains its own whole channels,
-replaying its own epoch graph on its own device and stream.
+its gradients, the gradients and losses are summed in shard order and
+divided by the shard count (the JAX package's ``pmean``) and one update is
+applied. Where every shard lies on one card, that step is the step of the
+epoch graph, one replay an epoch. Across cards, a step's gradients cross
+cards before its update, so each step is a replay a card of a graph of its
+shards' gradients, peer copies to shard 0's card, and one replay there of a
+graph of the sum and the update. On the channel axis of an ensemble, each
+shard trains its own whole channels, replaying its own epoch graph on its
+own device and stream.
 
 Tensors are made on ``device`` (default ``"cuda"``, which raises without a
 card); ``device="cpu"`` runs on the CPU.
@@ -472,16 +476,37 @@ def _stacked_loss(net_spec: NetSpec, params, feats, labels, lead: int = 1):
     return torch.mean((preds - labels) ** 2, dim=-1)
 
 
+def _batch_grads(net_spec: NetSpec, params, feats, labels):
+    """(losses ``[*stack]``, gradients shaped as ``params["layers"]``) of
+    the stacked nets on the batch ``feats`` / ``labels``."""
+    return _value_and_grads(
+        lambda layers: _stacked_loss(net_spec, dict(params, layers=layers), feats, labels),
+        params["layers"],
+    )
+
+
 def _stacked_step(net_spec: NetSpec, lr: float, params, opt_state, feats, labels):
     """One Adam step of the stacked nets on the batch ``feats`` / ``labels``,
     written in place into ``params["layers"]`` and ``opt_state`` -> the
     losses before the step ``[*stack]``."""
-    values, grads = _value_and_grads(
-        lambda layers: _stacked_loss(net_spec, dict(params, layers=layers), feats, labels),
-        params["layers"],
-    )
+    values, grads = _batch_grads(net_spec, params, feats, labels)
     _adam_update(params["layers"], grads, opt_state, lr)
     return values
+
+
+def _pmean_update(mesh: Mesh, lr: float, params, opt_state, parts):
+    """The data mesh's update from every shard's ``(losses, gradients)``,
+    in shard order: each summed on shard 0's device in shard order
+    (:func:`~syllable_detector_tpu_torch.parallel.mesh._psum`) and divided
+    by the shard count, the JAX package's ``pmean``; one Adam step in place
+    -> the mean losses."""
+    shards = len(parts)
+    grads = [
+        {k: _psum(mesh, [p[1][j][k] for p in parts]) / shards for k in layer}
+        for j, layer in enumerate(params["layers"])
+    ]
+    _adam_update(params["layers"], grads, opt_state, lr)
+    return _psum(mesh, [p[0] for p in parts]) / shards
 
 
 # the epoch graphs captured and replayed since the counts were last set to
@@ -508,6 +533,28 @@ def _assign(dst, src) -> None:
         dst.copy_(src)
 
 
+def _capture(warm, body, device) -> tuple:
+    """``body()`` captured as a CUDA graph on ``device`` -> (the graph,
+    what ``body`` returned during the capture, the bytes its private pool
+    reserved). ``warm()`` runs first, on the capture's side stream, so that
+    autograd's first run and the allocator's blocks happen outside the
+    graph; both read and write only fixed tensors, which each replay then
+    reads and writes again, on the device's current stream."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            warm()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = body()
+        return graph, out, torch.cuda.memory_reserved(device) - reserved
+
+
 class _EpochGraph:
     """One epoch of ``S`` optimizer steps captured as one CUDA graph.
 
@@ -518,27 +565,19 @@ class _EpochGraph:
     ``pool_bytes`` is the device memory its private pool reserved."""
 
     def __init__(self, step, params, opt_state, feats, labels, idx):
-        device = feats.device
         self.data = (feats, labels)
         self.params, self.opt_state = _clone_state(params, opt_state)
         self.idx = idx.clone()
-        stream = torch.cuda.Stream(device)
-        # warm up on a side stream, on the graph's own copy of the state:
-        # the caller's state does not advance
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for row in self.idx[:_WARM_STEPS]:
-                step(self.params, self.opt_state, feats, labels, row)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.values = torch.stack(
+        # the warm-up runs on the graph's own copy of the state: the
+        # caller's state does not advance
+        self.graph, self.values, self.pool_bytes = _capture(
+            lambda: [step(self.params, self.opt_state, feats, labels, row)
+                     for row in self.idx[:_WARM_STEPS]],
+            lambda: torch.stack(
                 [step(self.params, self.opt_state, feats, labels, row) for row in self.idx]
-            )
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            ),
+            feats.device,
+        )
         EPOCH_GRAPHS["captures"] += 1
 
     def run(self, params, opt_state, idx) -> tuple:
@@ -569,13 +608,18 @@ class _Epoch:
     The tensors' device chooses the route. On a CUDA device the first call
     for a key (the epoch's steps, the index rows' shape, every state
     tensor's shape and type, the data's address, shape, strides and type,
-    the device) captures one epoch in an :class:`_EpochGraph`; every call
-    replays it once an epoch. Elsewhere the steps run one by one
+    the device) captures one epoch in an :class:`_EpochGraph`
+    (:meth:`_graph`); every call replays it once an epoch. Elsewhere the
+    steps run one by one
     (:meth:`plain`). A capture or replay that fails raises."""
 
     def __init__(self, step, steps: int | None = None):
         self.step, self.steps = step, steps
         self.graphs: OrderedDict = OrderedDict()
+
+    def _graph(self, params, opt_state, feats, labels, idx):
+        """The graph of one epoch of ``idx`` rows from this state and data."""
+        return _EpochGraph(self.step, params, opt_state, feats, labels, idx)
 
     def plain(self, params, opt_state, feats, labels, idx) -> tuple:
         """The per-step loop: the epoch's plain version, dispatched from
@@ -600,11 +644,174 @@ class _Epoch:
         with torch.cuda.device(feats.device):
             graph = self.graphs.pop(key, None)
             if graph is None:
-                graph = _EpochGraph(self.step, params, opt_state, feats, labels, idx[:steps])
+                graph = self._graph(params, opt_state, feats, labels, idx[:steps])
             self.graphs[key] = graph
             while len(self.graphs) > _GRAPHS_KEPT:
                 self.graphs.popitem(last=False)
             return graph.run(params, opt_state, idx)
+
+
+def _cards(mesh: Mesh) -> list:
+    """The mesh's devices with their shards, ``[(device, [shard, ...])]``,
+    in the order of each device's first shard: shard 0's first."""
+    cards: dict = {}
+    for i, dev in enumerate(mesh.devices):
+        cards.setdefault(dev, []).append(i)
+    return list(cards.items())
+
+
+def _flat_views(flat: torch.Tensor, like) -> list:
+    """Views of the 1-D ``flat``, end to end, shaped as the tensors of the
+    list of dicts ``like``."""
+    views, offset = [], 0
+    for layer in like:
+        views.append({})
+        for k, t in layer.items():
+            views[-1][k] = flat[offset : offset + t.numel()].view(t.shape)
+            offset += t.numel()
+    return views
+
+
+class _CardGraphs:
+    """A data mesh's optimizer step on several cards as CUDA graphs, one
+    call's epochs replayed step by step from fixed buffers.
+
+    Card 0 (shard 0's) holds the state: the layer tensors as views of one
+    flat buffer, the frozen processing parameters and the Adam state. Every
+    other card holds a replica of them, and its own copy of the features
+    and labels, made once and refilled each call (card 0 reads the
+    caller's). Each card's graph takes its shards' batch columns from the
+    epoch's index rows at a step counter on the device and writes each
+    shard's losses and gradients into one row of a fixed ``[its shards,
+    K + params]`` buffer. A step is: a replay a card; a peer copy of each
+    other card's buffer to card 0; a replay on card 0 of a graph of
+    :func:`_pmean_update` over every shard's row in shard order, which also
+    writes the mean losses at its own counter; a peer copy of the updated
+    layers into each other card's replica: ``3 * cards - 1`` host calls a
+    step. The peer copies order the cards' streams (PyTorch's copy between
+    devices waits for both devices' current streams)."""
+
+    def __init__(self, net_spec: NetSpec, lr: float, mesh: Mesh, cards: list,
+                 params, opt_state, feats, labels, idx):
+        dev0 = cards[0][0]
+        if feats.device != dev0:
+            raise ValueError(f"the data lies on {feats.device}, not on shard 0's {dev0}")
+        shards = sum(len(mine) for _, mine in cards)
+        local = idx.shape[1] // shards
+        self.cards, self.local, self.steps = cards, local, len(idx)
+        layers = params["layers"]
+        flat = torch.cat([t.reshape(-1) for t in _leaves(layers)]).to(dev0)
+        self.flats = [flat] + [flat.to(dev, copy=True) for dev, _ in cards[1:]]
+        self.params = [
+            {k: _flat_views(f, layers) if k == "layers"
+             else _tree_map(lambda t, dev=dev: t.to(dev, copy=True), v)
+             for k, v in params.items()}
+            for (dev, _), f in zip(cards, self.flats)
+        ]
+        self.opt_state = tuple(_tree_map(lambda t: t.to(dev0, copy=True), opt_state))
+        self.data = [(feats, labels)] + [
+            (feats.to(dev, copy=True), labels.to(dev, copy=True)) for dev, _ in cards[1:]
+        ]
+        nets = tuple(self.opt_state[0].shape)
+        width = self.opt_state[0].numel() + flat.numel()
+        self.parts = [torch.zeros((len(mine), width), device=dev) for dev, mine in cards]
+        self.landing = [self.parts[0]] + [torch.zeros_like(p, device=dev0) for p in self.parts[1:]]
+        self.rows = [torch.zeros((self.steps, len(mine) * local), dtype=idx.dtype, device=dev)
+                     for dev, mine in cards]
+        # each card's step counter, and card 0's for the update
+        self.counters = [torch.zeros(1, dtype=torch.long, device=dev) for dev, _ in cards]
+        self.counters.append(torch.zeros(1, dtype=torch.long, device=dev0))
+        self.values = torch.zeros((self.steps, *nets), device=dev0)
+        for c in range(len(cards)):
+            self.rows[c].copy_(self._card_rows(c, idx))
+        where = {i: (c, j) for c, (_, mine) in enumerate(cards) for j, i in enumerate(mine)}
+        order = [where[i] for i in range(shards)]
+
+        def grads(c):
+            p, (f, l) = self.params[c], self.data[c]
+            row = self.rows[c].index_select(0, self.counters[c])[0]
+            for j in range(len(cards[c][1])):
+                cols = row[j * local : (j + 1) * local]
+                v, g = _batch_grads(net_spec, p, f.index_select(0, cols), l.index_select(0, cols))
+                torch.cat([v.reshape(-1)] + [t.reshape(-1) for t in _leaves(g)],
+                          out=self.parts[c][j])
+            self.counters[c].add_(1)
+
+        def update():
+            rows = [self.landing[c][j] for c, j in order]
+            n = self.opt_state[0].numel()
+            v = _pmean_update(mesh, lr, self.params[0], self.opt_state,
+                              [(r[:n].view(nets), _flat_views(r[n:], layers)) for r in rows])
+            self.values.index_copy_(0, self.counters[-1], v.unsqueeze(0))
+            self.counters[-1].add_(1)
+
+        def warm(fn, counter):
+            for _ in range(_WARM_STEPS):
+                counter.zero_()
+                fn()
+
+        self.graphs, pools = [], 0
+        for c, (dev, _) in enumerate(cards):
+            graph, _, pool = _capture(lambda c=c: warm(lambda: grads(c), self.counters[c]),
+                                      lambda c=c: grads(c), dev)
+            self.graphs.append(graph)
+            pools += pool
+        self.update, _, pool = _capture(lambda: warm(update, self.counters[-1]), update, dev0)
+        self.pool_bytes = pools + pool
+        EPOCH_GRAPHS["captures"] += len(self.graphs) + 1
+
+    def _card_rows(self, c: int, idx: torch.Tensor) -> torch.Tensor:
+        """Card ``c``'s shards' batch columns of every row of ``idx``, in
+        shard order, on its device."""
+        local = self.local
+        dev, mine = self.cards[c]
+        return torch.cat([idx[:, i * local : (i + 1) * local] for i in mine], 1).to(dev)
+
+    def run(self, params, opt_state, idx) -> tuple:
+        """The epochs of ``idx [k*S, bs]`` from ``(params, opt_state)``, as
+        :meth:`_EpochGraph.run`: the state copied into card 0's buffers and
+        the replicas, the caller's data (card 0's) into the other cards'
+        copies, then each epoch's rows into the cards' row buffers with the
+        counters at 0 and its steps replayed -> (copies of the state,
+        values [k*S, K])."""
+        _assign((self.params[0], self.opt_state), (params, opt_state))
+        for c in range(1, len(self.cards)):
+            _assign(self.params[c], self.params[0])
+            _assign(self.data[c], self.data[0])
+        rows = [self._card_rows(c, idx) for c in range(len(self.cards))]
+        values = self.values.new_empty((len(idx), *self.values.shape[1:]))
+        for first in range(0, len(idx), self.steps):
+            for c in range(len(self.cards)):
+                self.rows[c].copy_(rows[c][first : first + self.steps])
+            for counter in self.counters:
+                counter.zero_()
+            for _ in range(self.steps):
+                for graph in self.graphs:
+                    graph.replay()
+                for c in range(1, len(self.cards)):
+                    self.landing[c].copy_(self.parts[c])
+                self.update.replay()
+                for c in range(1, len(self.cards)):
+                    self.flats[c].copy_(self.flats[0])
+                EPOCH_GRAPHS["replays"] += len(self.graphs) + 1
+            values[first : first + self.steps].copy_(self.values)
+        return (*_clone_state(self.params[0], self.opt_state), values)
+
+
+class _CardsEpoch(_Epoch):
+    """The data mesh's epoch where its shards lie on several cards: an
+    :class:`_Epoch` whose ``step`` (the plain version, run step by step:
+    each shard's batch on its card, on the shard's stream) is replaced on
+    the card by the step graphs of :class:`_CardGraphs`, captured at the
+    first call for a key and replayed step by step."""
+
+    def __init__(self, step, steps, net_spec: NetSpec, lr: float, mesh: Mesh):
+        super().__init__(step, steps)
+        self.net_spec, self.lr, self.mesh = net_spec, lr, mesh
+
+    def _graph(self, params, opt_state, feats, labels, idx):
+        return _CardGraphs(self.net_spec, self.lr, self.mesh, _cards(self.mesh),
+                           params, opt_state, feats, labels, idx)
 
 
 def _make_restart_epoch(
@@ -628,13 +835,16 @@ def _make_restart_epoch(
 
     With ``mesh`` (one-dimensional: its axis is the data axis, whatever
     ``data_axis``, which the JAX signature names, says), each step's batch
-    columns split over the shards; each shard gathers its rows from its own
-    replica of the features (a copy per device of the mesh, made once per
-    call; shards on one device share it) and computes its gradients on its
-    own stream; gradients and losses are averaged in shard order and one
-    update is applied on shard 0's device, where the parameters live.
-    This route still dispatches every step from Python, on the card too:
-    a step's gradients cross devices before its update.
+    columns split over the shards, shard i taking the i-th ``bs / shards``
+    of them; each shard's losses and gradients are summed on shard 0's
+    device in shard order and divided by the shard count, and one update
+    is applied there, where the parameters live. Where every shard lies on
+    one device, the shards run one after another on the caller's stream,
+    reading the caller's tensors, and the epoch is an :class:`_Epoch` of
+    that step: one graph replay an epoch on a card, the JAX package's
+    ``shard_map`` of one ``lax.scan``. Across cards it is a
+    :class:`_CardsEpoch`: a step's gradients cross cards before its
+    update, so each step replays graphs (:class:`_CardGraphs`).
     """
     if mesh is None:
         def step(params, opt_state, feats, labels, rows):
@@ -645,36 +855,32 @@ def _make_restart_epoch(
 
         return _Epoch(step, steps)
 
-    def epoch(params, opt_state, feats, labels, idx):
-        params, opt_state = _clone_state(params, opt_state)
-        shards = len(mesh.devices)
-        local = idx.shape[1] // shards
-        replicas = {dev: (feats.to(dev), labels.to(dev)) for dev in set(mesh.devices)}
-        values = []
-        for idx_s in idx:
-            def body(i, dev, idx_s=idx_s):
-                f, l = replicas[dev]
-                cols = idx_s[i * local : (i + 1) * local].to(dev)
-                mine = _tree_map(lambda t: t.to(dev), params)
-                return _value_and_grads(
-                    lambda layers: _stacked_loss(
-                        net_spec, dict(mine, layers=layers),
-                        f.index_select(0, cols), l.index_select(0, cols),
-                    ),
-                    mine["layers"],
-                )
+    shards = len(mesh.devices)
+    if len(set(mesh.devices)) == 1:
+        def one_device_step(params, opt_state, feats, labels, row):
+            local = len(row) // shards
+            parts = []
+            for i in range(shards):
+                cols = row[i * local : (i + 1) * local]
+                parts.append(_batch_grads(
+                    net_spec, params, feats.index_select(0, cols), labels.index_select(0, cols)))
+            return _pmean_update(mesh, lr, params, opt_state, parts)
 
-            parts = _on_shards(mesh, body)
-            v = _psum(mesh, [p[0] for p in parts]) / shards
-            grads = [
-                {k: _psum(mesh, [p[1][j][k] for p in parts]) / shards for k in layer}
-                for j, layer in enumerate(params["layers"])
-            ]
-            _adam_update(params["layers"], grads, opt_state, lr)
-            values.append(v)
-        return params, opt_state, torch.stack(values)
+        return _Epoch(one_device_step, steps)
 
-    return epoch
+    def cards_step(params, opt_state, feats, labels, row):
+        local = len(row) // shards
+
+        def body(i, dev):
+            cols = row[i * local : (i + 1) * local]
+            return _batch_grads(
+                net_spec, _tree_map(lambda t: t.to(dev), params),
+                feats.index_select(0, cols).to(dev), labels.index_select(0, cols).to(dev),
+            )
+
+        return _pmean_update(mesh, lr, params, opt_state, _on_shards(mesh, body))
+
+    return _CardsEpoch(cards_step, steps, net_spec, lr, mesh)
 
 
 def _save_train_state(directory: str, epoch: int, params, opt_state) -> None:

@@ -356,6 +356,18 @@ def test_cli_trains_a_detecting_net(labeled, tmp_path):
     assert hits / len(detections) > 0.8, (hits, len(detections))
 
 
+def test_cli_data_parallel_on_one_device_writes_the_unsharded_net(labeled, tmp_path):
+    """``--data-parallel`` with one device (one CPU shard with ``--device
+    cpu``, as on a one-card machine) writes the unsharded net file byte for
+    byte."""
+    _, wav, lab, _, _ = labeled
+    base = ["-a", wav, "-l", lab, "--epochs", "8", "--quiet", "--device", "cpu"]
+    nets = [tmp_path / "whole.txt", tmp_path / "mesh.txt"]
+    assert run_main(ptrain.main, base + ["-o", str(nets[0])])[0] == 0
+    assert run_main(ptrain.main, base + ["-o", str(nets[1]), "--data-parallel"])[0] == 0
+    assert nets[1].read_bytes() == nets[0].read_bytes()
+
+
 def test_cli_ensemble_channel_parallel(tmp_path):
     """Two pairs train two nets through ``--channel-parallel`` (one CPU
     shard with ``--device cpu``), each exported under the {ch} template

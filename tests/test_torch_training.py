@@ -38,7 +38,7 @@ from syllable_detector_tpu.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.config.model_format import dumps_config, save_config
 from syllable_detector_tpu_torch.models.detector import Detector
 from syllable_detector_tpu_torch.models.neural_net import params_from_numpy, stack_params
-from syllable_detector_tpu_torch.parallel.mesh import make_mesh
+from syllable_detector_tpu_torch.parallel.mesh import Mesh, make_mesh
 from syllable_detector_tpu_torch.training import checkpoint as pc
 from syllable_detector_tpu_torch.training import trainer as pt
 
@@ -450,7 +450,8 @@ def test_graph_route_has_no_fallback_or_switch():
     src = inspect.getsource(pt)
     tree = ast.parse(src)
     route = {"_Epoch", "_EpochGraph", "_make_restart_epoch", "make_ensemble_epoch",
-             "_run_training_loop", "train", "train_ensemble", "_stacked_step", "_adam_update"}
+             "_run_training_loop", "train", "train_ensemble", "_stacked_step", "_adam_update",
+             "_capture", "_CardGraphs", "_CardsEpoch", "_pmean_update", "_batch_grads"}
     nodes = [n for n in tree.body
              if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name in route]
     assert {n.name for n in nodes} == route
@@ -462,14 +463,18 @@ def test_graph_route_has_no_fallback_or_switch():
     assert list(inspect.signature(pt._Epoch.__call__).parameters) == [
         "self", "params", "opt_state", "feats", "labels", "idx"]
     assert list(inspect.signature(pt._Epoch).parameters) == ["step", "steps"]
+    # ``_Epoch.__call__`` runs whichever graph ``_graph`` built alike
+    for graph in (pt._EpochGraph, pt._CardGraphs):
+        assert list(inspect.signature(graph.run).parameters) == [
+            "self", "params", "opt_state", "idx"]
 
 
 @pytest.mark.cuda
 def test_graph_epoch_equals_plain_on_card():
-    """On the card: the restart and ensemble epochs' graphs against their
-    plain per-step loops from one state over three epochs (one capture and
-    three replays each), bit for bit or within rtol=1e-6, atol=1e-7; the
-    inputs unchanged."""
+    """On the card: the restart, ensemble and 4-shard data-mesh epochs'
+    graphs against their plain per-step loops from one state over three
+    epochs (one capture and three replays each), bit for bit or within
+    rtol=1e-6, atol=1e-7; the inputs unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the epoch graph is a CUDA graph)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -486,6 +491,10 @@ def test_graph_epoch_equals_plain_on_card():
         (pt.make_ensemble_epoch(spec, 3e-3, n_init=2, steps=4),
          *port_state(feats_e, (4,), 2, seed=3), (feats_all, labs_all),
          np.concatenate([draw(), draw(), draw()])),
+        (pt._make_restart_epoch(spec, 3e-3, mesh=make_mesh(4, axis="data", devices=["cuda:0"]),
+                                steps=8), *port_state([feats], (4,), 4, seed=1),
+         (feats, labels), np.stack([rng.permutation(256)[:256].reshape(8, 32)
+                                    for _ in range(3)]).reshape(24, 32)),
     ]
     for epoch, p, o, data, idx in cases:
         p, o = pt._tree_map(lambda t: t.cuda(), p), tuple(pt._tree_map(lambda t: t.cuda(), o))
@@ -501,6 +510,31 @@ def test_graph_epoch_equals_plain_on_card():
         assert bits(pt._tree_map(lambda t: t.cpu(), (p, o, *data, idx))) == inputs
         assert_trees_close(pt._tree_map(lambda t: t.cpu(), got),
                            pt._tree_map(lambda t: t.cpu(), want), 1e-6, 1e-7)
+
+
+@pytest.mark.cuda
+def test_card_graphs_equal_plain_on_cards():
+    """On two cards or more: the data mesh of two shards a card, its step
+    graphs against its plain per-step loop from one state over two epochs
+    bit for bit (or within rtol=1e-6, atol=1e-7), one capture a card and
+    one for the update, each replayed once a step; the results on card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (the gradients cross cards)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, params, opt_state, feats, labels, idx = mesh_case(K=4, n=256, bs=64)
+    n = torch.cuda.device_count()
+    mesh = make_mesh(2 * n, axis="data")
+    epoch = pt._make_restart_epoch(spec, 3e-3, mesh=mesh, steps=4)
+    state = pt._tree_map(lambda t: t.cuda(), (params, opt_state, feats, labels, idx))
+    before = dict(pt.EPOCH_GRAPHS)
+    got = epoch(*state)
+    want = epoch.plain(*state)
+    torch.cuda.synchronize()
+    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + n + 1,
+                               "replays": before["replays"] + (n + 1) * len(idx)}
+    assert {t.device for t in pt._leaves(got)} == {mesh.devices[0]}
+    assert_trees_close(pt._tree_map(lambda t: t.cpu(), got),
+                       pt._tree_map(lambda t: t.cpu(), want), 1e-6, 1e-7)
 
 
 def test_restart_epoch_matches_jax():
@@ -619,6 +653,188 @@ def test_data_parallel_matches_jax_and_unsharded(data, monkeypatch):
     with pytest.raises(ValueError) as got:
         pt.train(ps, feats[:3], labels[:3], mesh=mesh)
     assert str(got.value) == str(want.value)
+
+
+def test_one_shard_data_mesh_is_unsharded_bit_for_bit(data, monkeypatch):
+    """``train`` on a one-shard data mesh: the parameters and threshold of
+    unsharded training bit for bit (the sum of one shard's part is that
+    part, and a division by 1 is exact), and so the final stack of every
+    init and its Adam state."""
+    _, _, feats, labels = data
+    _, ps = settings_pair(epochs=12)
+    states = []
+    real = pt._run_training_loop
+
+    def spy(*args, **kwargs):
+        states.append(real(*args, **kwargs))
+        return states[-1]
+
+    monkeypatch.setattr(pt, "_run_training_loop", spy)
+    _, whole, t_whole = pt.train(ps, feats, labels, device="cpu")
+    _, one, t_one = pt.train(ps, feats, labels, mesh=make_mesh(1, axis="data", devices=["cpu"]))
+    assert bits(one) == bits(whole) and t_one == t_whole
+    assert bits(states[1]) == bits(states[0])
+
+
+def mesh_case(K=3, n=96, bs=32, seed=6):
+    """A state of K inits, data of ``n`` rows, and two epochs of ``[n // bs,
+    bs]`` index rows."""
+    _, ps = settings_pair(hidden=(3,))
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n, ps.n_features)).astype(np.float32)
+    labels = (feats[:, 1] > 0).astype(np.float32)
+    params, opt_state = port_state([feats], (3,), K, seed=seed)
+    idx = np.concatenate([rng.permutation(n)[: n // bs * bs].reshape(-1, bs) for _ in range(2)])
+    return (pt._build_net_spec(ps), params, opt_state, torch.from_numpy(feats),
+            torch.from_numpy(labels), torch.from_numpy(idx.astype(np.int32)))
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_data_mesh_step_is_the_shard_order_mean(K):
+    """Three steps of the 4-shard CPU data mesh, bit for bit three steps
+    written out here: each shard's ``_value_and_grads`` on its quarter of
+    the row's columns, losses and gradients summed in shard order and
+    divided by 4, then ``_adam_update``. The sum in the reverse order gives
+    other bits, so the order is what the comparison holds."""
+    spec, params, opt_state, feats, labels, idx = mesh_case(K)
+    mesh = make_mesh(4, axis="data", devices=["cpu"])
+    epoch = pt._make_restart_epoch(spec, 2e-3, mesh=mesh, steps=1)
+    got_state, want_state = pt._clone_state(params, opt_state), pt._clone_state(params, opt_state)
+    reverse_differs = False
+    for row in idx[:3]:
+        got = epoch.step(*got_state, feats, labels, row)
+        p, o = want_state
+        parts = [pt._value_and_grads(
+            lambda layers, cols=cols: pt._stacked_loss(
+                spec, dict(p, layers=layers), feats[cols.long()], labels[cols.long()]),
+            p["layers"]) for cols in row.view(4, -1)]
+
+        def mean(tensors):
+            total = tensors[0]
+            for t in tensors[1:]:
+                total = total + t
+            return total / 4
+
+        grads = [{k: mean([q[1][j][k] for q in parts]) for k in layer}
+                 for j, layer in enumerate(p["layers"])]
+        reverse = [{k: mean([q[1][j][k] for q in parts[::-1]]) for k in layer}
+                   for j, layer in enumerate(p["layers"])]
+        reverse_differs |= bits(reverse) != bits(grads)
+        pt._adam_update(p["layers"], grads, o, 2e-3)
+        assert bits(got) == bits(mean([q[0] for q in parts]))
+        assert bits(got_state) == bits(want_state)
+    assert reverse_differs
+    assert got_state[1][0].tolist() == [3] * K
+
+
+def test_mesh_epoch_routes():
+    """A data mesh whose shards lie on one device gives the plain
+    :class:`_Epoch` of the mesh step, carrying the epoch's ``steps`` (on a
+    card, one graph replay an epoch); shards on several cards give a
+    ``_CardsEpoch``, its cards in the order of their first shard."""
+    spec = pt._build_net_spec(settings_pair()[1])
+    for devices, shards in ((["cpu"], 4), (["cpu"], 1), (["cuda:0"], 4), (["cuda:0"], 1)):
+        epoch = pt._make_restart_epoch(
+            spec, 1e-3, mesh=make_mesh(shards, axis="data", devices=devices), steps=7)
+        assert type(epoch) is pt._Epoch and epoch.steps == 7
+    cards = [torch.device("cuda", i) for i in range(4)]
+    mesh = make_mesh(8, axis="data", devices=cards)
+    epoch = pt._make_restart_epoch(spec, 1e-3, mesh=mesh, steps=7)
+    assert type(epoch) is pt._CardsEpoch and epoch.steps == 7 and epoch.mesh == mesh
+    assert pt._cards(mesh) == [(cards[i], [i, i + 4]) for i in range(4)]
+
+
+def test_resumed_data_mesh_run_is_bit_for_bit(data, tmp_path):
+    """``train`` on a 4-shard data mesh, interrupted after 3 of 5 epochs
+    (a checkpoint every epoch) and resumed: the parameters and threshold
+    of the uninterrupted run bit for bit."""
+    _, _, feats, labels = data
+    _, ps = settings_pair(epochs=5)
+    mesh = make_mesh(4, axis="data", devices=["cpu"])
+    _, full, t_full = pt.train(ps, feats, labels, mesh=mesh)
+    d = str(tmp_path / "ckpt")
+    pt.train(dataclasses.replace(ps, epochs=3), feats, labels, mesh=mesh, checkpoint_dir=d,
+             checkpoint_every=1)
+    _, resumed, t_resumed = pt.train(ps, feats, labels, mesh=mesh, checkpoint_dir=d,
+                                     checkpoint_every=1)
+    assert bits(resumed) == bits(full) and t_resumed == t_full
+
+
+class EagerGraph:
+    """Stands in for a CUDA graph on the CPU: each replay runs the body."""
+
+    def __init__(self, body):
+        self.replay = body
+
+
+def eager_capture(warm, body, device):
+    warm()
+    return EagerGraph(body), None, 0
+
+
+@pytest.mark.parametrize("devices", [("cpu", "cpu:0", "cpu", "cpu:0"),
+                                     ("cpu", "cpu:0", "cpu:0", "cpu:1")],
+                         ids=["round-robin", "uneven"])
+def test_card_graphs_host_logic(devices, monkeypatch):
+    """The multi-card route on CPU devices standing in for cards (``cpu``,
+    ``cpu:0`` and ``cpu:1`` are distinct devices to the mesh, and ``.to``
+    between them copies) and graphs that run their body at each replay.
+    Two epochs of the ``_CardsEpoch``'s per-step loop and of its step
+    graphs, bit for bit the one-device mesh epoch: so the cards' shards are
+    summed in shard order. The inputs are unchanged; one graph a card and
+    one for the update are captured, each replayed once a step; each card's
+    row buffer holds its shards' columns in shard order; the replicas hold
+    card 0's layers; the other cards' copies of the data are copies; the
+    results lie on card 0's device, in the caller's key order; a second
+    call reuses every buffer and gives the same bits. What only the card
+    checks: the capture itself,
+    the peer copies between cards and the order they impose on the
+    cards' streams."""
+    spec, params, opt_state, feats, labels, idx = mesh_case(K=2)
+    mesh = Mesh(tuple(torch.device(d) for d in devices), ("data",))
+    cards = pt._cards(mesh)
+    assert [mine for _, mine in cards] == ([[0, 2], [1, 3]] if devices[2] == "cpu"
+                                           else [[0], [1, 2], [3]])
+    epoch = pt._make_restart_epoch(spec, 2e-3, mesh=mesh, steps=3)
+    assert type(epoch) is pt._CardsEpoch
+    want = pt._make_restart_epoch(
+        spec, 2e-3, mesh=make_mesh(4, axis="data", devices=["cpu"]), steps=3
+    )(params, opt_state, feats, labels, idx)
+    inputs = bits((params, opt_state, feats, labels, idx))
+    before = dict(pt.EPOCH_GRAPHS)
+    assert bits(epoch(params, opt_state, feats, labels, idx)) == bits(want)
+    assert pt.EPOCH_GRAPHS == before
+    monkeypatch.setattr(pt, "_capture", eager_capture)
+    graphs = epoch._graph(params, opt_state, feats, labels, idx[:3])
+    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + len(cards) + 1,
+                               "replays": before["replays"]}
+    buffers = [t.data_ptr() for t in pt._leaves((graphs.flats, graphs.params, graphs.opt_state,
+                                                 graphs.data, graphs.parts, graphs.landing,
+                                                 graphs.rows, graphs.values))]
+    got = graphs.run(params, opt_state, idx)
+    assert bits((params, opt_state, feats, labels, idx)) == inputs
+    assert bits(got) == bits(want)
+    assert pt.EPOCH_GRAPHS["replays"] == before["replays"] + (len(cards) + 1) * len(idx)
+    local = idx.shape[1] // 4
+    for c, (_, mine) in enumerate(cards):
+        assert torch.equal(graphs.rows[c], torch.cat([idx[3:, i * local:(i + 1) * local]
+                                                      for i in mine], 1))
+        assert graphs.parts[c].shape[0] == len(mine)
+        assert torch.equal(graphs.flats[c], graphs.flats[0])
+        if c:
+            assert graphs.flats[c].data_ptr() != graphs.flats[0].data_ptr()
+            assert graphs.data[c][0].data_ptr() != feats.data_ptr()
+            assert torch.equal(graphs.data[c][0], feats)
+    assert graphs.data[0][0] is feats
+    assert {t.device for t in pt._leaves(got)} == {cards[0][0]}
+    assert list(got[0]) == list(params)  # the caller's key order, which leaf walks follow
+    assert bits(graphs.run(params, opt_state, idx)) == bits(want)
+    assert [t.data_ptr() for t in pt._leaves((
+        graphs.flats, graphs.params, graphs.opt_state, graphs.data, graphs.parts, graphs.landing,
+        graphs.rows, graphs.values))] == buffers
+    with pytest.raises(ValueError, match="not on shard 0's"):
+        pt._CardGraphs(spec, 2e-3, mesh, cards[1:] + cards[:1], params, opt_state,
+                       feats, labels, idx[:3])
 
 
 def test_channel_parallel_ensemble_matches_unsharded():
