@@ -91,7 +91,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
   13. mesh   — this slice's main path, every count from 0: phase 10's
                corpus through ``cli --batched --mesh --method fused`` (one
                shard per card) and through ``corpus.scan_corpus_files`` on a
-               4-shard mesh (4 lanes per shard, all on the one card), both
+               4-shard mesh (4 lanes per shard, round-robin over the cards:
+               all on the one card of a one-card machine), both
                CSVs equal to phase 10's line for line (outputs within
                4e-7); the scan's [16, 2^22] lanes with per-lane nets through
                ``sharded_fused_offline_outputs(layout="grid")`` and, under
@@ -103,7 +104,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
                shards for linear, log and dB scaling; the sharded detection
                counts against a count of the unsharded outputs; 16 lanes x 8
                sharded streaming steps against ``streaming_scan``. Every
-               result must live on the card.
+               result must live on the card, the mesh must span every
+               visible card, and the card current before the phase must be
+               current after every form. (Every form on one shard per card,
+               with times: scripts/mesh_cards.py.)
   14. dist_scan — two processes of ``python -m
                syllable_detector_tpu_torch.dist_scan`` on the card (gloo over
                127.0.0.1), phase 10's 8 files split 4 + 4: ``merged.csv``
@@ -1147,9 +1151,11 @@ def group_lines(lines: list[str], paths: list[str]) -> dict:
     return groups
 
 
-def phase_corpus(tmp: str) -> dict:
-    """The batched corpus scan and its comparisons; returns the main path's
-    launch counts and the arguments of its runs."""
+def corpus_fixture(tmp: str) -> tuple[list[str], list[str]]:
+    """(files, nets) of the corpus scan, written into ``tmp``: CORPUS_FILES
+    seeded two-channel chirp files at CORPUS_RATES, and 4 seeded nets whose
+    thresholds lie at least the kernel's atol from every output they give
+    on what they hear (the files resampled to NET_RATE on the card)."""
     files, heard = [], []
     for i in range(CORPUS_FILES):
         rate = CORPUS_RATES[i % len(CORPUS_RATES)]
@@ -1161,15 +1167,21 @@ def phase_corpus(tmp: str) -> dict:
                 x = resample.polyphase_resample(x, rate, NET_RATE, device="cuda").cpu().numpy()
             heard.append(x)
     heard = np.stack(heard, 1)
-    resampled_files = sum(CORPUS_RATES[i % len(CORPUS_RATES)] != NET_RATE for i in range(CORPUS_FILES))
-    # thresholds at least the kernel's atol from every output the nets give
-    # on what they hear (a wider margin leaves only the far tail of ~320 k
-    # outputs, and few detections)
+    # a wider margin than the kernel's atol leaves only the far tail of ~320 k
+    # outputs, and few detections
     nets = []
     for seed in range(4):
         cfg = fixtures.sample_geometry_config(seed)
         nets.append(os.path.join(tmp, f"corpus_net{seed}.txt"))
         save_config(fixtures.pick_thresholds(cfg, heard, margin=2e-4, device="cuda"), nets[-1])
+    return files, nets
+
+
+def phase_corpus(tmp: str) -> dict:
+    """The batched corpus scan and its comparisons; returns the main path's
+    launch counts and the arguments of its runs."""
+    files, nets = corpus_fixture(tmp)
+    resampled_files = sum(CORPUS_RATES[i % len(CORPUS_RATES)] != NET_RATE for i in range(CORPUS_FILES))
     audio = [a for f in files for a in ("-a", f)] + ["--device", "cuda"]
     one = ["-n", nets[0]] + audio
     four = [a for n in nets for a in ("-n", n)] + audio
@@ -1493,6 +1505,13 @@ def scan_lines(scan: dict, mesh) -> tuple[list[str], float]:
     return lines, time.perf_counter() - t0
 
 
+def same_device(home: int, what: str) -> None:
+    """Raise unless ``cuda:home`` is still the current card after ``what``."""
+    now = torch.cuda.current_device()
+    if now != home:
+        raise AssertionError(f"{what} left cuda:{now} current, not cuda:{home}")
+
+
 def long_stream() -> np.ndarray:
     """The 10-minute mono stream of the time-sharded form: the 60 s chirp
     fixture, each minute with its own seed."""
@@ -1503,8 +1522,10 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
     """Phase 13: the sharded paths, every count from 0; returns the launch
     counts of the run."""
     mesh = pmesh.make_mesh(n_shards=MESH_SHARDS)
-    if not all(d.type == "cuda" for d in mesh.devices):
-        raise AssertionError(f"the mesh is not on the card: {mesh}")
+    cards = {torch.device("cuda", i) for i in range(torch.cuda.device_count())}
+    if set(mesh.devices) != cards:
+        raise AssertionError(f"the mesh does not span the {len(cards)} card(s): {mesh}")
+    home = torch.cuda.current_device()
     reset_counts()
 
     # the corpus through cli --mesh (one shard per card) and a 4-shard mesh
@@ -1515,6 +1536,7 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
     after_cli = fused.BATCH_LAUNCHES
     mesh_lines, mesh_wall = scan_lines(scan, mesh)
     worst = max(worst, same_csv(mesh_lines, scan["batched"], "4-shard mesh scan"))
+    same_device(home, "the sharded corpus scan")
     if after_cli < 1 or fused.BATCH_LAUNCHES != after_cli + MESH_SHARDS:
         raise AssertionError(
             f"batched kernel launches: {after_cli} for cli --mesh, "
@@ -1543,6 +1565,7 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
     if slabs != MESH_SHARDS * 2:
         raise AssertionError(f"sharded grid: {slabs} slab launches, not {MESH_SHARDS * 2}")
     grid_err = held(got, flat, 0.0, 1e-6, "sharded grid vs flat")
+    same_device(home, "the sharded grid layout")
     report = []
     for tier, kw in TIER_KW.items():
         tiered = fused.fused_batch_offline_outputs(spec, plist, scan_xs, **kw)
@@ -1567,6 +1590,7 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
     for method, (rtol, atol) in (("matmul", (1e-4, 1e-5)), ("fused", (1e-3, 2e-4))):
         got = pmesh.time_sharded_offline_outputs(time_mesh, spec, params, x, method=method)
         report.append(f"{method} {held(got, whole, rtol, atol, f'time-sharded {method}'):.3g}")
+        same_device(home, f"the time-sharded {method} form")
     if fused.LAUNCHES != launches + MESH_SHARDS:
         raise AssertionError(f"time-sharded fused: {fused.LAUNCHES - launches} launches")
     by_frames = fused.fused_offline_outputs(spec, params, x, input_mode="frames")
@@ -1592,6 +1616,7 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
         got = pmesh.tensor_sharded_offline_outputs(mesh, s_spec, s_params, x60)
         want = detector.offline_outputs(s_spec, s_params, x60)
         report.append(f"{scaling} {held(got, want, rtol, atol, f'tensor-sharded {scaling}'):.3g}")
+        same_device(home, f"the tensor-sharded form ({scaling})")
     print(
         f"phase 13 mesh: tensor_sharded_offline_outputs over {MESH_SHARDS} shards on a "
         f"{CORPUS_SECONDS:g} s stream vs offline_outputs, max_abs: {', '.join(report)} "
@@ -1605,6 +1630,7 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
     xs = scan_xs[:, : 10 * NET_RATE].contiguous()
     shared = neural_net.stack_params([params] * lanes)
     counts = pmesh.sharded_detection_counts(mesh, spec, shared, xs)
+    same_device(home, "sharded_detection_counts")
     outs = pmesh.batch_offline_outputs(spec, shared, xs)
     want = int((outs >= torch.tensor(spec.thresholds, device="cuda")).sum())
     if not counts.is_cuda or counts.dtype != torch.int32 or int(counts[0]) != want or want <= 0:
@@ -1626,10 +1652,12 @@ def phase_mesh(tmp: str, scan: dict, scan_xs: torch.Tensor, card_line: str) -> d
         for lane in range(lanes)
     ])
     step_err = held(got, want_rows, 1e-4, 1e-5, "sharded_streaming_step")
+    same_device(home, "sharded_streaming_step")
     print(
         f"phase 13 mesh: sharded_detection_counts {counts.tolist()} equal to the count of the "
         f"unsharded outputs; sharded_streaming_step, {lanes} lanes x {steps} steps of {hops} "
-        f"hops, vs streaming_scan max_abs {step_err:.3g} (rtol=1e-4, atol=1e-5) ok",
+        f"hops, vs streaming_scan max_abs {step_err:.3g} (rtol=1e-4, atol=1e-5); the mesh spans "
+        f"{len(cards)} card(s), cuda:{home} current after every form ok",
         flush=True,
     )
     return {"frames": fused.FRAMES_LAUNCHES, "tiers": dict(fused.TIER_LAUNCHES),

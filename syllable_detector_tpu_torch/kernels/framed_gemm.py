@@ -578,14 +578,15 @@ def _launch(x: torch.Tensor, g: torch.Tensor, window: int, window_overlap: int,
     hop = hop_length(window, window_overlap)
     _, band, ranges, _ = _bands_of(g, cut.cg, cut.slots)
     out = torch.empty((n_frames, m), dtype=torch.float32, device=x.device)
-    err = lib.sd_framed_gemm(
-        x.data_ptr(), x.shape[0], g.data_ptr(), window, m, hop, gap, n_frames,
-        out.data_ptr(), band.data_ptr(), ranges.data_ptr(), band.shape[1], cut.cg,
-        cut.ksplit, cut.fpt, cut.frames, cut.threads, int(cut.vec), int(cut.band), cut.group,
-        cut.rows, cut.stride, launch_ctas(cut, n_frames, _sm_count(x.device)),
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the library makes x's card current; the guard gives the caller's back
+    with torch.cuda.device(x.device):
+        err = lib.sd_framed_gemm(
+            x.data_ptr(), x.shape[0], g.data_ptr(), window, m, hop, gap, n_frames,
+            out.data_ptr(), band.data_ptr(), ranges.data_ptr(), band.shape[1], cut.cg,
+            cut.ksplit, cut.fpt, cut.frames, cut.threads, int(cut.vec), int(cut.band),
+            cut.group, cut.rows, cut.stride, launch_ctas(cut, n_frames, _sm_count(x.device)),
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"framed GEMM kernel launch failed (window {window}, {m} columns, hop {hop}, "

@@ -1387,19 +1387,20 @@ def _launch(
             return t.data_ptr()
         return t.data_ptr() + lane0 * t.stride(0) * t.element_size()
 
-    device = xs.device.index if xs.device.index is not None else torch.cuda.current_device()
     scale = MULAW_INV127 if wire == "mulaw8" else INT16_SCALE
-    err = lib.sd_fused_detector(
-        at(xs, False), WIRE_CODES[wire], lanes, xs.stride(0), n, n_evals,
-        cs.data_ptr(), at(folded.w1), at(bank) if conv_passes else None,
-        at(folded.c1), at(folded.mids_flat), at(folded.out_a), at(folded.out_c),
-        at(out, False), int(folded.per_lane),
-        *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), frames,
-        dft_passes, conv_passes, int(frames_input), col_group,
-        len(widths), c_widths, c_transfers, layers.data_ptr(),
-        float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
-        device, torch.cuda.current_stream(xs.device).cuda_stream,
-    )
+    # the library makes xs's card current; the guard gives the caller's back
+    with torch.cuda.device(xs.device):
+        err = lib.sd_fused_detector(
+            at(xs, False), WIRE_CODES[wire], lanes, xs.stride(0), n, n_evals,
+            cs.data_ptr(), at(folded.w1), at(bank) if conv_passes else None,
+            at(folded.c1), at(folded.mids_flat), at(folded.out_a), at(folded.out_c),
+            at(out, False), int(folded.per_lane),
+            *geometry, SCALING_CODES[spec.scaling], int(folded.has_l2), frames,
+            dft_passes, conv_passes, int(frames_input), col_group,
+            len(widths), c_widths, c_transfers, layers.data_ptr(),
+            float(scale), float(MULAW_LN1MU), float(MULAW_INV_MU),
+            xs.device.index, torch.cuda.current_stream(xs.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(
             "fused detector kernel launch failed: "

@@ -8,6 +8,7 @@ must report the same global detection count. A subprocess timeout turns a
 hung rendezvous into a failure.
 """
 
+import os
 import re
 import socket
 import subprocess
@@ -26,9 +27,12 @@ from syllable_detector_tpu_torch.cli import main as port_main
 from syllable_detector_tpu_torch.dist_scan import shard_paths
 from test_torch_cli import blocked_run, run
 
+# one thread here and in every child: a product's bits depend on how many
+# threads share it, and the CSVs are compared line for line
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}
 
 
 @pytest.mark.parametrize(
@@ -79,7 +83,8 @@ def run_ranks(nets, paths, out_dir, procs=2, extra=()):
              "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(procs),
              "--process-id", str(rank), "--device", "cpu", "-o", str(out_dir),
              *common, *extra],
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=REPO, env=ONE_THREAD, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
         )
         for rank in range(procs)
     ]
@@ -149,6 +154,7 @@ def test_dist_scan_runs_with_jax_blocked(corpus, tmp_path):
             "-a", paths[0], "-a", paths[1], "--method", "fused"]
     script = (
         "import torch\n"
+        "torch.set_num_threads(1)\n"
         "from syllable_detector_tpu_torch import dist_scan, parallel, cli\n"
         f"assert dist_scan.main({argv!r}) == 0\n"
         f"assert cli.main(['-n', {nets[0]!r}, '-a', {paths[0]!r}, '--batched', '--mesh',\n"
