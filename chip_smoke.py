@@ -247,8 +247,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
                the same numbers and the bound's share, each held against
                its plain version (1e-4/1e-4, and with a NaN, an Inf and a
                -Inf: NaN and Inf in the same places) and, without a row
-               split, bit for bit against the run form. Then one line of
-               each phase's host wall.
+               split, bit for bit against the run form.
+  23. exchange — the data-parallel trainer's gradient exchange
+               (``kernels/peer_exchange.py``, ``csrc/peer_exchange.cu``) at
+               the train CLI's row (4 inits of 290 -> 4 -> 1: 4680 floats):
+               4 sources, every one on cuda:0 (their buffers apart), and, on
+               a machine with several cards, one source a card; counts from
+               0; 6 steps, each every source's push and then every card's
+               wait (so nothing spins), the slots, flags and copied-out rows
+               bit for bit the plain versions' on the same inputs and the
+               rows in shard order; a wait for a step no source pushed, with
+               a 2 ms bound, sets its error word and ``check`` raises; the
+               push's and the wait's device time on cuda:0 beside their
+               plain versions and their byte bounds. Then one line of each
+               phase's host wall.
 
 The line before the last is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -286,6 +298,7 @@ from syllable_detector_tpu_torch import train as train_cli
 from syllable_detector_tpu_torch.config.model_format import dumps_config, load_config, save_config
 from syllable_detector_tpu_torch.kernels import _build
 from syllable_detector_tpu_torch.kernels import fused_detector as fused
+from syllable_detector_tpu_torch.kernels import peer_exchange
 from syllable_detector_tpu_torch.models import detector
 from syllable_detector_tpu_torch.models import neural_net
 from syllable_detector_tpu_torch.models.detector_bank import (
@@ -318,6 +331,10 @@ REPLACES_FRAMED = "syllable_detector_tpu/kernels/framed_gemm.py:56"
 REPLACES_FRAMES = "syllable_detector_tpu/kernels/fused_detector.py:1169"
 REPLACES_TIERS = "syllable_detector_tpu/kernels/fused_detector.py:1193"
 REPLACES_SLABBED = "syllable_detector_tpu/kernels/fused_detector.py:1378"
+# the exchange is no port of a TPU kernel: it takes the place of the pmean
+# inside the JAX trainer's data-parallel step
+EXCHANGE_SOURCE = "syllable_detector_tpu_torch/csrc/peer_exchange.cu"
+REPLACES_PMEAN = "syllable_detector_tpu/training/trainer.py:346"
 # the fused entries' keywords of each precision tier, and the tolerance of a
 # tier's kernel against its plain version
 TIER_KW = {tier: case[0] for tier, case in fixtures.TIER_CASES.items()}
@@ -402,6 +419,11 @@ SHORT_PAIRS = ((48000, 11025), (192000, 11025), (44100, 8000), (22050, 8000), (9
                (96000, 22050), (48000, 44100), (96000, 44100), (192000, 44100), (8000, 44100))
 GEOMETRY_LANES = 4
 GEOMETRY_TIMES = (3, 5)
+# phase 23: the exchange's sources (the 4-card data mesh of one shard a
+# card), its steps, and the bound of the wait that must time out
+EXCHANGE_SOURCES = 4
+EXCHANGE_STEPS = 6
+EXCHANGE_TIMEOUT_NS = 2_000_000
 
 
 def card() -> str:
@@ -720,6 +742,7 @@ def reset_counts() -> None:
     fused.GRID_LAUNCHES = 0
     fused.LAYOUT_LAUNCHES = {layout: 0 for layout in fused.LAYOUT_LAUNCHES}
     fg.FRAMED_GEMM_LAUNCHES = 0
+    peer_exchange.LAUNCHES = {kernel: 0 for kernel in peer_exchange.LAUNCHES}
     fg.LAUNCH_KINDS = {kind: 0 for kind in fg.LAUNCH_KINDS}
     trainer.EPOCH_GRAPHS = {"captures": 0, "replays": 0}
 
@@ -1851,8 +1874,8 @@ class TrainSpy:
     the devices of its data, parameters and optimizer state before and after
     the epochs, the optimizer steps it ran, its wall to the last step's
     completion, the epoch function with the arguments of its first call
-    (the run's initial state and first index rows) and the Adam counts it
-    ended with; and every config the train CLI exported."""
+    (the run's initial state and first index rows), the state it ended
+    with and its Adam counts; and every config the train CLI exported."""
 
     def __enter__(self):
         self.runs, self.exported = [], []
@@ -1874,6 +1897,7 @@ class TrainSpy:
             run["wall"] = time.perf_counter() - t0
             run["after"] = {t.device.type for t in pmesh._leaves((params, opt_state))}
             run["count"] = set(opt_state[0].tolist())
+            run["final"] = (params, opt_state)
             self.runs.append(run)
             return params, opt_state
 
@@ -3317,10 +3341,143 @@ def short_channel_times(card_line: str) -> dict:
     return out
 
 
+def exchange_width(settings) -> int:
+    """Floats in one shard's row of the data mesh's exchange at
+    ``settings``: every init's loss, then every layer's weights and
+    biases."""
+    sizes = [settings.n_features, *settings.hidden, 1]
+    return settings.n_init * (1 + sum(a * b + b for a, b in zip(sizes, sizes[1:])))
+
+
+class Exchange:
+    """The buffers of one exchange among ``devices``, one source a device
+    (one shard each): each card's slots, flags, copied-out rows, step base
+    and error word."""
+
+    def __init__(self, devices, width: int):
+        n = len(devices)
+        self.devices = devices
+        self.slots = [torch.zeros((2, n, width), device=d) for d in devices]
+        self.flags = [torch.zeros(n, dtype=torch.long, device=d) for d in devices]
+        self.ready = [torch.zeros((n, width), device=d) for d in devices]
+        self.base = [torch.zeros(1, dtype=torch.long, device=d) for d in devices]
+        self.errors = [torch.zeros(1, dtype=torch.int32, device=d) for d in devices]
+        self.shard_of = [torch.tensor([c], dtype=torch.int32, device=d)
+                         for c, d in enumerate(devices)]
+
+    def step(self, rows, offset: int, push, wait) -> list:
+        """Every source's push of its ``rows[c]`` at step base + ``offset``,
+        then every card's wait -> each card's copied-out rows."""
+        for c, dev in enumerate(self.devices):
+            with torch.cuda.device(dev):
+                push(rows[c], self.shard_of[c], self.slots, self.flags, c, self.base[c], offset)
+        for c, dev in enumerate(self.devices):
+            with torch.cuda.device(dev):
+                wait(self.flags[c], self.slots[c], self.ready[c], self.base[c], offset,
+                     self.errors[c])
+        return [r.clone() for r in self.ready]
+
+
+def plain_wait(flags, slots, ready, base, offset, error) -> None:
+    """The wait's plain version, called as the kernel's wrapper is (it sets
+    no error word: it raises at once)."""
+    peer_exchange.wait_reference(flags, slots, ready, base, offset)
+
+
+def phase_exchange(card_line: str) -> dict:
+    """Phase 23 (see the note at the head of this file) -> the launches, the
+    worst difference from the plain versions and, per kernel, (ms, plain ms)
+    and its bound."""
+    width = exchange_width(trainer.TrainSettings())
+    layouts = {"every source on cuda:0": [torch.device("cuda", 0)] * EXCHANGE_SOURCES}
+    if torch.cuda.device_count() > 1:
+        layouts["one source a card"] = [torch.device("cuda", i)
+                                        for i in range(torch.cuda.device_count())]
+    gen = torch.Generator().manual_seed(23)
+    reset_counts()
+    worst = 0.0
+    for name, devices in layouts.items():
+        peer_exchange.enable_peers(devices)
+        rows = [torch.randn((EXCHANGE_STEPS, 1, width), generator=gen).to(d) for d in devices]
+        kernel, plain = Exchange(devices, width), Exchange(devices, width)
+        for s in range(EXCHANGE_STEPS):
+            got = kernel.step([r[s] for r in rows], s, peer_exchange.push, peer_exchange.wait)
+            want = plain.step([r[s] for r in rows], s, peer_exchange.push_reference,
+                              plain_wait)
+            gathered = torch.cat([r[s].cpu() for r in rows])
+            for g, w in zip(got, want, strict=True):
+                if not (torch.equal(g.cpu(), w.cpu()) and torch.equal(g.cpu(), gathered)):
+                    raise AssertionError(f"exchange, {name}, step {s}: the copied-out rows are "
+                                         "not the plain version's, in shard order")
+        peer_exchange.check(kernel.errors)
+        for got, want in ((kernel.slots, plain.slots), (kernel.flags, plain.flags)):
+            for g, w in zip(got, want, strict=True):
+                worst = max(worst, float((g.cpu().double() - w.cpu().double()).abs().max()))
+                if not torch.equal(g.cpu(), w.cpu()):
+                    raise AssertionError(f"exchange, {name}: slots or flags differ from the "
+                                         "plain version's")
+        print(f"phase 23 exchange {name}: {len(devices)} sources x {width} floats a row, "
+              f"{EXCHANGE_STEPS} steps (push all, then wait on every card): slots, flags (all "
+              f"{EXCHANGE_STEPS}) and copied-out rows bit for bit the plain versions', rows in "
+              f"shard order ok", flush=True)
+    launches = dict(peer_exchange.LAUNCHES)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"exchange launches {launches}")
+
+    # a wait for a step no source has pushed must time out and raise
+    late = Exchange(layouts["every source on cuda:0"], width)
+    t0 = time.perf_counter()
+    peer_exchange.wait(late.flags[0], late.slots[0], late.ready[0], late.base[0], 0,
+                       late.errors[0], timeout_ns=EXCHANGE_TIMEOUT_NS)
+    try:
+        peer_exchange.check(late.errors)
+    except RuntimeError as e:
+        timed_out = f"{e} after {(time.perf_counter() - t0) * 1e3:.1f} ms of host"
+    else:
+        raise AssertionError("a wait for a step no source pushed did not time out")
+
+    # device times on cuda:0: a push from every source at steps always new,
+    # then waits for a step that has landed (copy-out only)
+    on0 = layouts["every source on cuda:0"]
+    rows = [torch.randn((1, width), generator=gen).to(on0[0]) for _ in on0]
+    times = {}
+    for route, push, wait in (("kernel", peer_exchange.push, peer_exchange.wait),
+                              ("plain", peer_exchange.push_reference, plain_wait)):
+        ex, offsets = Exchange(on0, width), iter(range(1 << 30))
+
+        def pushes(ex=ex, push=push, offsets=offsets):
+            offset = next(offsets)
+            for c in range(len(on0)):
+                push(rows[c], ex.shard_of[c], ex.slots, ex.flags, c, ex.base[c], offset)
+
+        def waits(ex=ex, wait=wait):
+            for c in range(len(on0)):
+                wait(ex.flags[c], ex.slots[c], ex.ready[c], ex.base[c], 0, ex.errors[c])
+
+        times[route, "push"] = event_ms(pushes)[0] / len(on0)
+        times[route, "wait"] = event_ms(waits)[0] / len(on0)
+        peer_exchange.check(ex.errors)
+    row_bytes = width * 4
+    bounds = {"push": bound(0.0, row_bytes * (1 + len(on0))),
+              "wait": bound(0.0, 2 * row_bytes * len(on0))}
+    print(f"phase 23 exchange: a wait for a step no source pushed, bound "
+          f"{EXCHANGE_TIMEOUT_NS / 1e6:g} ms: raised ({timed_out}); launches {launches}", flush=True)
+    print(f"phase 23 times [{card_line}]: on cuda:0, medians of 21 x 10 calls, each over "
+          f"{len(on0)} sources: a push (one {row_bytes}-byte row into {len(on0)} slots and "
+          f"flags) {times['kernel', 'push']:.4f} ms, plain {times['plain', 'push']:.4f} ms, "
+          f"bound {bounds['push'][0]:.6f} ms ({bounds['push'][1]}); a wait on a landed step "
+          f"(flags, then [{len(on0)}, {width}] copied out) {times['kernel', 'wait']:.4f} ms, "
+          f"plain {times['plain', 'wait']:.4f} ms, bound {bounds['wait'][0]:.6f} ms "
+          f"({bounds['wait'][1]})", flush=True)
+    return {"launches": launches, "worst": worst,
+            **{kernel: ((times["kernel", kernel], times["plain", kernel]), bounds[kernel])
+               for kernel in ("push", "wait")}}
+
+
 def phase_build() -> None:
     """Phase 2: build every kernel source at once and hold ptxas' report
     (see the note at the head of this file)."""
-    names = ("fused_detector", "framed_gemm")
+    names = ("fused_detector", "framed_gemm", "peer_exchange")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.build, names))
     for name, (_, seconds, log) in zip(names, builds):
@@ -3464,6 +3621,8 @@ def run_phases(marks, mark) -> int:
     print(f"phase 22 launches: {sweep}; by layout {fused.LAYOUT_LAUNCHES}; K2 by launch "
           f"{fg.LAUNCH_KINDS} ok", flush=True)
     mark("22")
+    exchange = phase_exchange(card_line)
+    mark("23")
     print(
         "phase walls (host clock, each to its last line): "
         + ", ".join(f"{label} {t - prev:.1f} s"
@@ -3521,6 +3680,9 @@ def run_phases(marks, mark) -> int:
                 KERNEL_SOURCE, REPLACES if w == "single" else REPLACES_FLAT, t[0], t[1],
                 (t[2], t[3]), t[4])
           for w, t in tuned.items()),
+        *(entry(f"peer_exchange {kernel}", EXCHANGE_SOURCE, REPLACES_PMEAN,
+                exchange["launches"][kernel], exchange["worst"], *exchange[kernel])
+          for kernel in ("push", "wait")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,12 +28,13 @@ axis, each step's batch columns split over the shards, each shard computes
 its gradients, the gradients and losses are summed in shard order and
 divided by the shard count (the JAX package's ``pmean``) and one update is
 applied. Where every shard lies on one card, that step is the step of the
-epoch graph, one replay an epoch. Across cards, a step's gradients cross
-cards before its update, so each step is a replay a card of a graph of its
-shards' gradients, peer copies to shard 0's card, and one replay there of a
-graph of the sum and the update. On the channel axis of an ensemble, each
-shard trains its own whole channels, replaying its own epoch graph on its
-own device and stream.
+epoch graph, one replay an epoch. Across cards, each card's epoch is one
+graph, replayed once an epoch: in each step the cards gather every shard's
+gradients into each card's buffer (a hand-written kernel,
+``kernels/peer_exchange.py``, inside the graph), and each card sums them in
+shard order and updates its own replica. On the channel axis of an
+ensemble, each shard trains its own whole channels, replaying its own epoch
+graph on its own device and stream.
 
 Tensors are made on ``device`` (default ``"cuda"``, which raises without a
 card); ``device="cpu"`` runs on the CPU.
@@ -41,6 +42,7 @@ card); ``device="cpu"`` runs on the CPU.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from collections import OrderedDict
@@ -55,6 +57,7 @@ from syllable_detector_tpu_torch.config.model_format import (
     SyllableDetectorConfig,
     first_output_sample,
 )
+from syllable_detector_tpu_torch.kernels import peer_exchange
 from syllable_detector_tpu_torch.models.detector import WINDOW
 from syllable_detector_tpu_torch.models.neural_net import (
     NetSpec,
@@ -533,26 +536,48 @@ def _assign(dst, src) -> None:
         dst.copy_(src)
 
 
+def _capture_cards(warms, phases, devices) -> list:
+    """Each card's ``phases`` (callables, run in order) captured as one CUDA
+    graph on its card of ``devices`` -> ``[(the graph, what its phases
+    returned during the capture, the bytes its private pool reserved)]``, card
+    by card. Each card's ``warms`` run first, on its capture's side stream,
+    so that autograd's first run, each kernel's first load and the
+    allocator's blocks happen outside the graph. They run phase by phase
+    across the cards, as the graphs' steps do: a card's warm-up may wait on
+    another's, and a kernel's first load may wait for its card's work, so
+    each phase is launched only once every card has launched the phases its
+    work waits on. The phases read and write only fixed tensors, which each
+    replay then reads and writes again, on the card's current stream."""
+    streams = []
+    for dev in devices:  # what the caller made on each card comes first
+        torch.cuda.synchronize(dev)
+        streams.append(torch.cuda.Stream(dev))
+    for k in range(max(map(len, warms))):
+        for warm, dev, stream in zip(warms, devices, streams, strict=True):
+            if k < len(warm):
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    warm[k]()
+    for dev, stream in zip(devices, streams):
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+    captured = []
+    for body, dev, stream in zip(phases, devices, streams, strict=True):
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                outs = [phase() for phase in body]
+            captured.append((graph, outs, torch.cuda.memory_reserved(dev) - reserved))
+    return captured
+
+
 def _capture(warm, body, device) -> tuple:
-    """``body()`` captured as a CUDA graph on ``device`` -> (the graph,
-    what ``body`` returned during the capture, the bytes its private pool
-    reserved). ``warm()`` runs first, on the capture's side stream, so that
-    autograd's first run and the allocator's blocks happen outside the
-    graph; both read and write only fixed tensors, which each replay then
-    reads and writes again, on the device's current stream."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            warm()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            out = body()
-        return graph, out, torch.cuda.memory_reserved(device) - reserved
+    """``body()`` captured as a CUDA graph on ``device``, after ``warm()``
+    (see :func:`_capture_cards`) -> (the graph, what ``body`` returned
+    during the capture, the bytes its private pool reserved)."""
+    (graph, (out,), pool), = _capture_cards([[warm]], [[body]], [device])
+    return graph, out, pool
 
 
 class _EpochGraph:
@@ -672,93 +697,109 @@ def _flat_views(flat: torch.Tensor, like) -> list:
     return views
 
 
-class _CardGraphs:
-    """A data mesh's optimizer step on several cards as CUDA graphs, one
-    call's epochs replayed step by step from fixed buffers.
+class _CardsEpochGraph:
+    """A data mesh's epoch on several cards as one CUDA graph a card, each
+    replayed once an epoch, with the gradient exchange inside it: the JAX
+    package's ``shard_map`` of one ``lax.scan`` with the ``pmean`` inside.
 
-    Card 0 (shard 0's) holds the state: the layer tensors as views of one
-    flat buffer, the frozen processing parameters and the Adam state. Every
-    other card holds a replica of them, and its own copy of the features
-    and labels, made once and refilled each call (card 0 reads the
-    caller's). Each card's graph takes its shards' batch columns from the
-    epoch's index rows at a step counter on the device and writes each
-    shard's losses and gradients into one row of a fixed ``[its shards,
-    K + params]`` buffer. A step is: a replay a card; a peer copy of each
-    other card's buffer to card 0; a replay on card 0 of a graph of
-    :func:`_pmean_update` over every shard's row in shard order, which also
-    writes the mean losses at its own counter; a peer copy of the updated
-    layers into each other card's replica: ``3 * cards - 1`` host calls a
-    step. The peer copies order the cards' streams (PyTorch's copy between
-    devices waits for both devices' current streams)."""
+    Every card holds a replica of the state (the parameters and the Adam
+    state) and, but card 0 (shard 0's, which reads the caller's), its own
+    copy of the features and labels, made once and refilled each call. A
+    step on card c, unrolled in its graph, is two phases:
 
-    def __init__(self, net_spec: NetSpec, lr: float, mesh: Mesh, cards: list,
+    1. grads and push: each of its shards' losses and gradients from its
+       batch columns of the step's index row into one row of a fixed
+       ``[its shards, K + params]`` buffer; :func:`peer_exchange.push`
+       stores those rows into the rows of their shards in the step's slot
+       of every card's ``[2, shards, K + params]`` buffer and raises the
+       card's flag there;
+    2. wait, sum and update: :func:`peer_exchange.wait` until every card's
+       rows of the step have landed on card c, and copies them out;
+       :func:`_pmean_update` over them in shard order, on card c, in place
+       on its replica; card 0 writes the mean losses.
+
+    Every card sums the same bytes in the same order with the same kernels,
+    so every replica holds card 0's bits, which are the per-step route's
+    (``epoch.plain``, which sums on card 0). The exchange's step number is
+    the card's step base, which the host sets at each call and each replay
+    advances by the epoch's steps, plus the step's place in the epoch; the
+    warm-up before the capture takes the first numbers, which no replay
+    takes again. A call's host work an epoch: each card's index rows copied
+    in, then one replay a card, all launched before any card is waited on;
+    after the call, every card's error word is read, and a wait that timed
+    out raises."""
+
+    def __init__(self, net_spec: NetSpec, lr: float, cards: list,
                  params, opt_state, feats, labels, idx):
         dev0 = cards[0][0]
         if feats.device != dev0:
             raise ValueError(f"the data lies on {feats.device}, not on shard 0's {dev0}")
+        devices = [dev for dev, _ in cards]
+        peer_exchange.enable_peers(devices)
         shards = sum(len(mine) for _, mine in cards)
         local = idx.shape[1] // shards
         self.cards, self.local, self.steps = cards, local, len(idx)
         layers = params["layers"]
-        flat = torch.cat([t.reshape(-1) for t in _leaves(layers)]).to(dev0)
-        self.flats = [flat] + [flat.to(dev, copy=True) for dev, _ in cards[1:]]
-        self.params = [
-            {k: _flat_views(f, layers) if k == "layers"
-             else _tree_map(lambda t, dev=dev: t.to(dev, copy=True), v)
-             for k, v in params.items()}
-            for (dev, _), f in zip(cards, self.flats)
-        ]
-        self.opt_state = tuple(_tree_map(lambda t: t.to(dev0, copy=True), opt_state))
+        self.params = [_tree_map(lambda t, dev=dev: t.to(dev, copy=True), params)
+                       for dev in devices]
+        self.opt_state = [tuple(_tree_map(lambda t, dev=dev: t.to(dev, copy=True), opt_state))
+                          for dev in devices]
         self.data = [(feats, labels)] + [
-            (feats.to(dev, copy=True), labels.to(dev, copy=True)) for dev, _ in cards[1:]
+            (feats.to(dev, copy=True), labels.to(dev, copy=True)) for dev in devices[1:]
         ]
-        nets = tuple(self.opt_state[0].shape)
-        width = self.opt_state[0].numel() + flat.numel()
+        nets = tuple(opt_state[0].shape)
+        n = opt_state[0].numel()
+        width = n + sum(t.numel() for t in _leaves(layers))
         self.parts = [torch.zeros((len(mine), width), device=dev) for dev, mine in cards]
-        self.landing = [self.parts[0]] + [torch.zeros_like(p, device=dev0) for p in self.parts[1:]]
+        self.shard_of = [torch.tensor(mine, dtype=torch.int32, device=dev) for dev, mine in cards]
+        self.slots = [torch.zeros((2, shards, width), device=dev) for dev in devices]
+        self.flags = [torch.zeros(len(cards), dtype=torch.long, device=dev) for dev in devices]
+        self.ready = [torch.zeros((shards, width), device=dev) for dev in devices]
+        self.base = [torch.zeros(1, dtype=torch.long, device=dev) for dev in devices]
+        self.errors = [torch.zeros(1, dtype=torch.int32, device=dev) for dev in devices]
         self.rows = [torch.zeros((self.steps, len(mine) * local), dtype=idx.dtype, device=dev)
                      for dev, mine in cards]
-        # each card's step counter, and card 0's for the update
-        self.counters = [torch.zeros(1, dtype=torch.long, device=dev) for dev, _ in cards]
-        self.counters.append(torch.zeros(1, dtype=torch.long, device=dev0))
         self.values = torch.zeros((self.steps, *nets), device=dev0)
         for c in range(len(cards)):
             self.rows[c].copy_(self._card_rows(c, idx))
-        where = {i: (c, j) for c, (_, mine) in enumerate(cards) for j, i in enumerate(mine)}
-        order = [where[i] for i in range(shards)]
+        # _pmean_update sums on its mesh's first device: each card's own
+        on_card = [Mesh((dev,), ("data",)) for dev in devices]
 
-        def grads(c):
+        def grads_and_push(c, s):
             p, (f, l) = self.params[c], self.data[c]
-            row = self.rows[c].index_select(0, self.counters[c])[0]
+            row = self.rows[c][s]
             for j in range(len(cards[c][1])):
                 cols = row[j * local : (j + 1) * local]
                 v, g = _batch_grads(net_spec, p, f.index_select(0, cols), l.index_select(0, cols))
                 torch.cat([v.reshape(-1)] + [t.reshape(-1) for t in _leaves(g)],
                           out=self.parts[c][j])
-            self.counters[c].add_(1)
+            peer_exchange.push(self.parts[c], self.shard_of[c], self.slots, self.flags, c,
+                               self.base[c], s)
 
-        def update():
-            rows = [self.landing[c][j] for c, j in order]
-            n = self.opt_state[0].numel()
-            v = _pmean_update(mesh, lr, self.params[0], self.opt_state,
-                              [(r[:n].view(nets), _flat_views(r[n:], layers)) for r in rows])
-            self.values.index_copy_(0, self.counters[-1], v.unsqueeze(0))
-            self.counters[-1].add_(1)
+        def wait_and_update(c, s):
+            peer_exchange.wait(self.flags[c], self.slots[c], self.ready[c], self.base[c], s,
+                               self.errors[c])
+            v = _pmean_update(on_card[c], lr, self.params[c], self.opt_state[c],
+                              [(r[:n].view(nets), _flat_views(r[n:], layers))
+                               for r in self.ready[c]])
+            if c == 0:
+                self.values[s].copy_(v)
 
-        def warm(fn, counter):
-            for _ in range(_WARM_STEPS):
-                counter.zero_()
-                fn()
+        def phases(c, steps):
+            return [functools.partial(phase, c, s) for s in range(steps)
+                    for phase in (grads_and_push, wait_and_update)]
 
-        self.graphs, pools = [], 0
-        for c, (dev, _) in enumerate(cards):
-            graph, _, pool = _capture(lambda c=c: warm(lambda: grads(c), self.counters[c]),
-                                      lambda c=c: grads(c), dev)
-            self.graphs.append(graph)
-            pools += pool
-        self.update, _, pool = _capture(lambda: warm(update, self.counters[-1]), update, dev0)
-        self.pool_bytes = pools + pool
-        EPOCH_GRAPHS["captures"] += len(self.graphs) + 1
+        warm = min(self.steps, _WARM_STEPS)
+        captured = _capture_cards(
+            [phases(c, warm) for c in range(len(cards))],
+            [phases(c, self.steps) + [functools.partial(self.base[c].add_, self.steps)]
+             for c in range(len(cards))],
+            devices,
+        )
+        self.graphs = [graph for graph, _, _ in captured]
+        self.pool_bytes = sum(pool for _, _, pool in captured)
+        self.issued = warm  # the step numbers taken so far
+        EPOCH_GRAPHS["captures"] += len(self.graphs)
 
     def _card_rows(self, c: int, idx: torch.Tensor) -> torch.Tensor:
         """Card ``c``'s shards' batch columns of every row of ``idx``, in
@@ -769,49 +810,46 @@ class _CardGraphs:
 
     def run(self, params, opt_state, idx) -> tuple:
         """The epochs of ``idx [k*S, bs]`` from ``(params, opt_state)``, as
-        :meth:`_EpochGraph.run`: the state copied into card 0's buffers and
-        the replicas, the caller's data (card 0's) into the other cards'
-        copies, then each epoch's rows into the cards' row buffers with the
-        counters at 0 and its steps replayed -> (copies of the state,
-        values [k*S, K])."""
-        _assign((self.params[0], self.opt_state), (params, opt_state))
+        :meth:`_EpochGraph.run`: the state copied into every card's replica,
+        the caller's data (card 0's) into the other cards' copies, the step
+        bases set past every step number taken; then per epoch its rows
+        into each card's row buffer and one replay a card; then the error
+        words read -> (copies of card 0's state, values [k*S, K])."""
+        for c in range(len(self.cards)):
+            _assign((self.params[c], self.opt_state[c]), (params, opt_state))
         for c in range(1, len(self.cards)):
-            _assign(self.params[c], self.params[0])
             _assign(self.data[c], self.data[0])
         rows = [self._card_rows(c, idx) for c in range(len(self.cards))]
+        for base in self.base:
+            base.fill_(self.issued)
         values = self.values.new_empty((len(idx), *self.values.shape[1:]))
         for first in range(0, len(idx), self.steps):
             for c in range(len(self.cards)):
                 self.rows[c].copy_(rows[c][first : first + self.steps])
-            for counter in self.counters:
-                counter.zero_()
-            for _ in range(self.steps):
-                for graph in self.graphs:
-                    graph.replay()
-                for c in range(1, len(self.cards)):
-                    self.landing[c].copy_(self.parts[c])
-                self.update.replay()
-                for c in range(1, len(self.cards)):
-                    self.flats[c].copy_(self.flats[0])
-                EPOCH_GRAPHS["replays"] += len(self.graphs) + 1
+            for graph in self.graphs:
+                graph.replay()
+            EPOCH_GRAPHS["replays"] += len(self.graphs)
             values[first : first + self.steps].copy_(self.values)
-        return (*_clone_state(self.params[0], self.opt_state), values)
+        self.issued += len(idx)
+        peer_exchange.check(self.errors)
+        return (*_clone_state(self.params[0], self.opt_state[0]), values)
 
 
 class _CardsEpoch(_Epoch):
     """The data mesh's epoch where its shards lie on several cards: an
     :class:`_Epoch` whose ``step`` (the plain version, run step by step:
-    each shard's batch on its card, on the shard's stream) is replaced on
-    the card by the step graphs of :class:`_CardGraphs`, captured at the
-    first call for a key and replayed step by step."""
+    each shard's batch on its card, on the shard's stream, summed on card
+    0) is replaced on the card by :class:`_CardsEpochGraph`, one graph a
+    card, captured at the first call for a key and replayed once an
+    epoch."""
 
     def __init__(self, step, steps, net_spec: NetSpec, lr: float, mesh: Mesh):
         super().__init__(step, steps)
         self.net_spec, self.lr, self.mesh = net_spec, lr, mesh
 
     def _graph(self, params, opt_state, feats, labels, idx):
-        return _CardGraphs(self.net_spec, self.lr, self.mesh, _cards(self.mesh),
-                           params, opt_state, feats, labels, idx)
+        return _CardsEpochGraph(self.net_spec, self.lr, _cards(self.mesh),
+                                params, opt_state, feats, labels, idx)
 
 
 def _make_restart_epoch(
@@ -843,8 +881,11 @@ def _make_restart_epoch(
     reading the caller's tensors, and the epoch is an :class:`_Epoch` of
     that step: one graph replay an epoch on a card, the JAX package's
     ``shard_map`` of one ``lax.scan``. Across cards it is a
-    :class:`_CardsEpoch`: a step's gradients cross cards before its
-    update, so each step replays graphs (:class:`_CardGraphs`).
+    :class:`_CardsEpoch`: on the cards one graph a card, replayed once an
+    epoch, each card gathering every shard's gradients inside it
+    (:class:`_CardsEpochGraph`, the ``pmean`` inside JAX's program) and
+    updating its own replica, card 0's returned; its plain version, the
+    CPU's route, sums on shard 0's device step by step.
     """
     if mesh is None:
         def step(params, opt_state, feats, labels, rows):

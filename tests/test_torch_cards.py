@@ -58,6 +58,8 @@ def guarded_by(call: ast.Call, withs: list[ast.With]) -> set[str]:
 @pytest.mark.parametrize("module, entry", [
     ("fused_detector.py", "sd_fused_detector"),
     ("framed_gemm.py", "sd_framed_gemm"),
+    ("peer_exchange.py", "sd_peer_push"),
+    ("peer_exchange.py", "sd_peer_wait"),
 ])
 def test_kernel_library_calls_run_under_their_tensors_device(module, entry):
     """Every call into a kernel's library is made under

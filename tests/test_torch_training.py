@@ -13,6 +13,7 @@ against the out-of-place step it replaced, kept here as its reference.
 """
 
 import ast
+import contextlib
 import dataclasses
 import inspect
 
@@ -36,6 +37,7 @@ from syllable_detector_tpu.parallel.mesh import make_mesh as jmesh
 from syllable_detector_tpu.training import trainer as jt
 from syllable_detector_tpu.utils.synth import make_labeled_audio
 from syllable_detector_tpu_torch.config.model_format import dumps_config, save_config
+from syllable_detector_tpu_torch.kernels import peer_exchange
 from syllable_detector_tpu_torch.models.detector import Detector
 from syllable_detector_tpu_torch.models.neural_net import params_from_numpy, stack_params
 from syllable_detector_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -451,7 +453,8 @@ def test_graph_route_has_no_fallback_or_switch():
     tree = ast.parse(src)
     route = {"_Epoch", "_EpochGraph", "_make_restart_epoch", "make_ensemble_epoch",
              "_run_training_loop", "train", "train_ensemble", "_stacked_step", "_adam_update",
-             "_capture", "_CardGraphs", "_CardsEpoch", "_pmean_update", "_batch_grads"}
+             "_capture", "_capture_cards", "_CardsEpochGraph", "_CardsEpoch", "_pmean_update",
+             "_batch_grads"}
     nodes = [n for n in tree.body
              if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name in route]
     assert {n.name for n in nodes} == route
@@ -464,7 +467,7 @@ def test_graph_route_has_no_fallback_or_switch():
         "self", "params", "opt_state", "feats", "labels", "idx"]
     assert list(inspect.signature(pt._Epoch).parameters) == ["step", "steps"]
     # ``_Epoch.__call__`` runs whichever graph ``_graph`` built alike
-    for graph in (pt._EpochGraph, pt._CardGraphs):
+    for graph in (pt._EpochGraph, pt._CardsEpochGraph):
         assert list(inspect.signature(graph.run).parameters) == [
             "self", "params", "opt_state", "idx"]
 
@@ -514,10 +517,11 @@ def test_graph_epoch_equals_plain_on_card():
 
 @pytest.mark.cuda
 def test_card_graphs_equal_plain_on_cards():
-    """On two cards or more: the data mesh of two shards a card, its step
-    graphs against its plain per-step loop from one state over two epochs
-    bit for bit (or within rtol=1e-6, atol=1e-7), one capture a card and
-    one for the update, each replayed once a step; the results on card 0."""
+    """On two cards or more: the data mesh of two shards a card, one graph
+    a card (one capture each) replayed once an epoch with the gradient
+    exchange inside it, against its plain per-step loop from one state
+    over two epochs bit for bit (or within rtol=1e-6, atol=1e-7); every
+    card's replica bit for bit card 0's; the results on card 0."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards (the gradients cross cards)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -530,9 +534,13 @@ def test_card_graphs_equal_plain_on_cards():
     got = epoch(*state)
     want = epoch.plain(*state)
     torch.cuda.synchronize()
-    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + n + 1,
-                               "replays": before["replays"] + (n + 1) * len(idx)}
+    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + n,
+                               "replays": before["replays"] + n * (len(idx) // 4)}
     assert {t.device for t in pt._leaves(got)} == {mesh.devices[0]}
+    graph, = epoch.graphs.values()
+    for c in range(1, n):
+        assert bits(pt._tree_map(lambda t: t.cpu(), (graph.params[c], graph.opt_state[c]))) == \
+            bits(pt._tree_map(lambda t: t.cpu(), (graph.params[0], graph.opt_state[0])))
     assert_trees_close(pt._tree_map(lambda t: t.cpu(), got),
                        pt._tree_map(lambda t: t.cpu(), want), 1e-6, 1e-7)
 
@@ -760,81 +768,206 @@ def test_resumed_data_mesh_run_is_bit_for_bit(data, tmp_path):
     assert bits(resumed) == bits(full) and t_resumed == t_full
 
 
-class EagerGraph:
-    """Stands in for a CUDA graph on the CPU: each replay runs the body."""
+class EagerCards:
+    """Stands in for the cards' CUDA graphs on the CPU: the last card's
+    replay of an epoch runs every card's phases, phase by phase across the
+    cards, so that each card's push of a step comes before any card's
+    wait of it (on the cards the waits spin until the pushes land)."""
 
-    def __init__(self, body):
-        self.replay = body
+    def __init__(self, phases):
+        self.phases, self.replayed = phases, 0
+
+    def replay(self):
+        self.replayed += 1
+        if self.replayed % len(self.phases) == 0:
+            for k in range(len(self.phases[0])):
+                for card in self.phases:
+                    card[k]()
 
 
-def eager_capture(warm, body, device):
-    warm()
-    return EagerGraph(body), None, 0
+def eager_cards(warms, phases, devices):
+    for k in range(len(warms[0])):
+        for card in warms:
+            card[k]()
+    graph = EagerCards(phases)
+    return [(graph, [None] * len(card), 0) for card in phases]
 
 
-@pytest.mark.parametrize("devices", [("cpu", "cpu:0", "cpu", "cpu:0"),
-                                     ("cpu", "cpu:0", "cpu:0", "cpu:1")],
-                         ids=["round-robin", "uneven"])
-def test_card_graphs_host_logic(devices, monkeypatch):
+@pytest.mark.parametrize("devices, shards", [
+    (("cpu", "cpu:0", "cpu", "cpu:0"), [[0, 2], [1, 3]]),
+    (("cpu", "cpu:0", "cpu:0", "cpu:1"), [[0], [1, 2], [3]]),
+    (("cpu", "cpu:1", "cpu:0", "cpu:1"), [[0], [1, 3], [2]]),
+], ids=["round-robin", "uneven", "interleaved"])
+def test_cards_epoch_graph_host_logic(devices, shards, monkeypatch):
     """The multi-card route on CPU devices standing in for cards (``cpu``,
-    ``cpu:0`` and ``cpu:1`` are distinct devices to the mesh, and ``.to``
-    between them copies) and graphs that run their body at each replay.
-    Two epochs of the ``_CardsEpoch``'s per-step loop and of its step
-    graphs, bit for bit the one-device mesh epoch: so the cards' shards are
-    summed in shard order. The inputs are unchanged; one graph a card and
-    one for the update are captured, each replayed once a step; each card's
-    row buffer holds its shards' columns in shard order; the replicas hold
-    card 0's layers; the other cards' copies of the data are copies; the
-    results lie on card 0's device, in the caller's key order; a second
-    call reuses every buffer and gives the same bits. What only the card
-    checks: the capture itself,
-    the peer copies between cards and the order they impose on the
-    cards' streams."""
+    ``cpu:0`` and ``cpu:1`` are distinct devices to the mesh) and a
+    stand-in for the capture that runs each card's phases (grads and push,
+    then wait, sum and update, a step at a time) phase by phase across the
+    cards at the last card's replay, through the exchange's plain version.
+    Two epochs of 3 steps (an odd count, so the slot parity of an epoch's
+    first step alternates) of the ``_CardsEpoch``'s per-step loop and of
+    its graphs, bit for bit the one-device mesh epoch: so every card sums
+    the shards in shard order. The inputs are unchanged; one graph a card
+    is captured and each replayed once an epoch; every card's replica is
+    bit for bit card 0's; each card's row buffer holds its shards' columns
+    in shard order; every card's flags hold the last step + 1 of every
+    source; the other cards' data are copies; the results lie on card 0's
+    device in the caller's key order; a second call reuses every buffer and
+    gives the same bits; the plain versions count no kernel launch. What
+    only the card checks: the capture, the kernels, the peer stores and
+    the waits between cards."""
     spec, params, opt_state, feats, labels, idx = mesh_case(K=2)
     mesh = Mesh(tuple(torch.device(d) for d in devices), ("data",))
     cards = pt._cards(mesh)
-    assert [mine for _, mine in cards] == ([[0, 2], [1, 3]] if devices[2] == "cpu"
-                                           else [[0], [1, 2], [3]])
+    assert [mine for _, mine in cards] == shards
     epoch = pt._make_restart_epoch(spec, 2e-3, mesh=mesh, steps=3)
     assert type(epoch) is pt._CardsEpoch
     want = pt._make_restart_epoch(
         spec, 2e-3, mesh=make_mesh(4, axis="data", devices=["cpu"]), steps=3
     )(params, opt_state, feats, labels, idx)
     inputs = bits((params, opt_state, feats, labels, idx))
-    before = dict(pt.EPOCH_GRAPHS)
+    before, launches = dict(pt.EPOCH_GRAPHS), dict(peer_exchange.LAUNCHES)
     assert bits(epoch(params, opt_state, feats, labels, idx)) == bits(want)
     assert pt.EPOCH_GRAPHS == before
-    monkeypatch.setattr(pt, "_capture", eager_capture)
+    monkeypatch.setattr(pt, "_capture_cards", eager_cards)
     graphs = epoch._graph(params, opt_state, feats, labels, idx[:3])
-    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + len(cards) + 1,
+    assert pt.EPOCH_GRAPHS == {"captures": before["captures"] + len(cards),
                                "replays": before["replays"]}
-    buffers = [t.data_ptr() for t in pt._leaves((graphs.flats, graphs.params, graphs.opt_state,
-                                                 graphs.data, graphs.parts, graphs.landing,
-                                                 graphs.rows, graphs.values))]
+
+    def buffers():
+        return [t.data_ptr() for t in pt._leaves((
+            graphs.params, graphs.opt_state, graphs.data, graphs.parts, graphs.shard_of,
+            graphs.slots, graphs.flags, graphs.ready, graphs.base, graphs.errors, graphs.rows,
+            graphs.values))]
+
+    kept = buffers()
     got = graphs.run(params, opt_state, idx)
     assert bits((params, opt_state, feats, labels, idx)) == inputs
     assert bits(got) == bits(want)
-    assert pt.EPOCH_GRAPHS["replays"] == before["replays"] + (len(cards) + 1) * len(idx)
+    assert pt.EPOCH_GRAPHS["replays"] == before["replays"] + len(cards) * 2
     local = idx.shape[1] // 4
     for c, (_, mine) in enumerate(cards):
+        assert bits((graphs.params[c], graphs.opt_state[c])) == bits((graphs.params[0],
+                                                                      graphs.opt_state[0]))
         assert torch.equal(graphs.rows[c], torch.cat([idx[3:, i * local:(i + 1) * local]
                                                       for i in mine], 1))
-        assert graphs.parts[c].shape[0] == len(mine)
-        assert torch.equal(graphs.flats[c], graphs.flats[0])
+        assert graphs.parts[c].shape[0] == len(mine) and graphs.shard_of[c].tolist() == mine
+        assert graphs.flags[c].tolist() == [graphs.issued] * len(cards)
         if c:
-            assert graphs.flats[c].data_ptr() != graphs.flats[0].data_ptr()
             assert graphs.data[c][0].data_ptr() != feats.data_ptr()
             assert torch.equal(graphs.data[c][0], feats)
+    assert graphs.issued == 3 + len(idx)  # the warm-up's steps, then the call's
     assert graphs.data[0][0] is feats
     assert {t.device for t in pt._leaves(got)} == {cards[0][0]}
     assert list(got[0]) == list(params)  # the caller's key order, which leaf walks follow
     assert bits(graphs.run(params, opt_state, idx)) == bits(want)
-    assert [t.data_ptr() for t in pt._leaves((
-        graphs.flats, graphs.params, graphs.opt_state, graphs.data, graphs.parts, graphs.landing,
-        graphs.rows, graphs.values))] == buffers
+    assert buffers() == kept
+    assert peer_exchange.LAUNCHES == launches
     with pytest.raises(ValueError, match="not on shard 0's"):
-        pt._CardGraphs(spec, 2e-3, mesh, cards[1:] + cards[:1], params, opt_state,
-                       feats, labels, idx[:3])
+        pt._CardsEpochGraph(spec, 2e-3, cards[1:] + cards[:1], params, opt_state,
+                            feats, labels, idx[:3])
+
+
+def test_capture_cards_warms_phase_by_phase(monkeypatch):
+    """``_capture_cards`` with the CUDA calls it makes recorded on the CPU:
+    every card synchronised before any warm-up; the warm-ups run phase by
+    phase across the cards (a card's phase k only once every card has run
+    its phases before k, since a card's wait needs the others' pushes and a
+    kernel's first load may wait for its card), each under its card and its
+    own side stream; every card's warm-up done before any capture; then
+    each card's phases captured in order on that stream, what they return
+    kept card by card."""
+    log = []
+
+    class Stream:
+        def __init__(self, device):
+            self.device = device
+
+        def wait_stream(self, other):
+            log.append(("wait_stream", self.device))
+
+    @contextlib.contextmanager
+    def scope(kind, value):
+        log.append((kind, value))
+        yield
+
+    class Graph:
+        pass
+
+    @contextlib.contextmanager
+    def graph(g, stream):
+        log.append(("capture", stream.device))
+        yield
+
+    current = {}
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d: log.append(("sync", d)))
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: current.setdefault(d, Stream(d)))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: scope("device", d))
+    monkeypatch.setattr(torch.cuda, "stream", lambda st: scope("stream", st.device))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 0)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    devices = ["card0", "card1", "card2"]
+
+    def phase(kind, c, k):
+        return lambda: log.append((kind, c, k)) or (c, k)
+
+    warms = [[phase("warm", c, k) for k in range(4)] for c in range(3)]
+    bodies = [[phase("body", c, k) for k in range(2 + c)] for c in range(3)]
+    captured = pt._capture_cards(warms, bodies, devices)
+    warm_runs = [e for e in log if e[0] == "warm"]
+    assert warm_runs == [("warm", c, k) for k in range(4) for c in range(3)]
+    first_warm = log.index(warm_runs[0])
+    assert [e for e in log[:first_warm] if e[0] == "sync"] == [("sync", d) for d in devices]
+    for c, dev in enumerate(devices):
+        at = log.index(("warm", c, 0))
+        assert log[at - 2:at] == [("device", dev), ("stream", dev)]
+    last_warm, first_capture = log.index(warm_runs[-1]), log.index(("capture", "card0"))
+    assert [e for e in log[last_warm:first_capture] if e[0] == "sync"] == [
+        ("sync", d) for d in devices]
+    assert [e for e in log if e[0] == "body"] == [("body", c, k) for c in range(3)
+                                                  for k in range(2 + c)]
+    assert [outs for _, outs, _ in captured] == [[(c, k) for k in range(2 + c)]
+                                                 for c in range(3)]
+    assert all(isinstance(g, Graph) and pool == 0 for g, _, pool in captured)
+
+
+@pytest.mark.parametrize("step", [6, 7], ids=["even step", "odd step"])
+def test_exchange_plain_version_lands_rows_in_shard_order(step):
+    """The exchange's plain version on three stand-in cards holding shards
+    [0, 3], [1] and [2]: each card's push puts its rows into the rows of
+    their shards in the step's parity slot of every card, and leaves the
+    other slot as it was; every card's flag of each source holds the step +
+    1; a wait copies the step's slot out in shard order, and raises for a
+    step whose rows have not landed; ``check`` raises where an error word
+    is set; the plain versions count no launch."""
+    cards, shards, width = [[0, 3], [1], [2]], 4, 5
+    rng = np.random.default_rng(step)
+    rows = [torch.from_numpy(rng.standard_normal((len(m), width)).astype(np.float32))
+            for m in cards]
+    slots = [torch.full((2, shards, width), -1.0) for _ in cards]
+    flags = [torch.zeros(len(cards), dtype=torch.long) for _ in cards]
+    base, error = torch.tensor([step - 2]), torch.zeros(1, dtype=torch.int32)
+    launches = dict(peer_exchange.LAUNCHES)
+    for c, mine in enumerate(cards):
+        peer_exchange.push(rows[c], torch.tensor(mine, dtype=torch.int32), slots, flags, c,
+                           base, 2)
+    want = torch.cat(rows)[torch.tensor([0, 2, 3, 1])]
+    for c in range(len(cards)):
+        assert torch.equal(slots[c][step % 2], want)
+        assert (slots[c][1 - step % 2] == -1).all()
+        assert flags[c].tolist() == [step + 1] * len(cards)
+    ready = torch.zeros(shards, width)
+    peer_exchange.wait(flags[1], slots[1], ready, base, 2, error)
+    assert torch.equal(ready, want)
+    with pytest.raises(RuntimeError, match=r"card\(s\) \[0, 1, 2\] have not landed"):
+        peer_exchange.wait(flags[1], slots[1], ready, base, 3, error)
+    peer_exchange.check([error] * 3)
+    with pytest.raises(RuntimeError, match="cpu waited for card 2's rows"):
+        peer_exchange.check([error, torch.tensor([3], dtype=torch.int32)])
+    assert peer_exchange.LAUNCHES == launches
 
 
 def test_channel_parallel_ensemble_matches_unsharded():
