@@ -34,6 +34,7 @@ from syllable_detector_tpu_torch.models.detector import (
 )
 from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.ops.stft import num_frames
+from syllable_detector_tpu_torch.utils import timing
 from syllable_detector_tpu_torch.utils.fmt import fmt_double, fmt_float32
 from syllable_detector_tpu_torch.utils.wav import read_audio
 
@@ -159,15 +160,21 @@ def scan_corpus(
         if lane_configs is not None:
             # padding lanes reuse net 0 (their outputs are sliced away)
             params = params + [params[0]] * (lanes - len(streams))
-    xs = np.zeros((lanes, _bucket(max(len(s) for s in streams))), np.float32)
-    for i, s in enumerate(streams):
-        xs[i, : len(s)] = s
-    xd = torch.from_numpy(xs).to(device)
-    if mesh is not None:
-        outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
-    else:
-        outs = batch_offline_outputs_shared(spec, params, xd, method)
-    outs = outs.cpu().numpy()
+    bucket = _bucket(max(len(s) for s in streams))
+    with timing.span("corpus.stage", lanes=lanes, samples=sum(map(len, streams)),
+                     staged_samples=lanes * bucket):
+        xs = np.zeros((lanes, bucket), np.float32)
+        for i, s in enumerate(streams):
+            xs[i, : len(s)] = s
+    with timing.span("corpus.copy_in"):
+        xd = torch.from_numpy(xs).to(device)
+    with timing.span("corpus.detect"):
+        if mesh is not None:
+            outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
+        else:
+            outs = batch_offline_outputs_shared(spec, params, xd, method)
+    with timing.span("corpus.readback"):  # the host waits here for the launch
+        outs = outs.cpu().numpy()
     results = []
     for i, s in enumerate(streams):
         f = num_frames(len(s), cfg.window_length, cfg.window_overlap)
@@ -188,15 +195,17 @@ def corpus_csv_lines(
     thr = np.asarray(cfg.thresholds, np.float64)
     debounce_until = -1
     lines = []
-    for row in outputs:
-        cur = next_output
-        next_output += hop_inc
-        if np.any(row.astype(np.float64) >= thr) and debounce_until < cur:
-            line = f"{channel},{cur},{fmt_double(cur / cfg.sampling_rate)}"
-            for d in row:
-                line += f",{fmt_float32(d)}"
-            lines.append(line)
-            debounce_until = cur + debounce_frames
+    with timing.span("corpus.csv", rows=len(outputs)) as s:
+        for row in outputs:
+            cur = next_output
+            next_output += hop_inc
+            if np.any(row.astype(np.float64) >= thr) and debounce_until < cur:
+                line = f"{channel},{cur},{fmt_double(cur / cfg.sampling_rate)}"
+                for d in row:
+                    line += f",{fmt_float32(d)}"
+                lines.append(line)
+                debounce_until = cur + debounce_frames
+        s.counts["lines"] = len(lines)
     return lines
 
 
@@ -230,73 +239,76 @@ def scan_corpus_files(
     network ``cfgs[c % len(cfgs)]`` (cycled); all nets must share the first
     network's pipeline geometry.
     """
-    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg]
-    cfg = cfgs[0]
-    err = err if err is not None else (lambda s: print(s, file=sys.stderr))
-    if group_files and len(paths) > group_files:
-        forced = len(paths) > 1 if headers is None else headers
-        for i in range(0, len(paths), group_files):
-            scan_corpus_files(
-                cfgs, paths[i : i + group_files],
-                debounce_seconds=debounce_seconds, emit=emit, err=err,
-                method=method, mesh=mesh, headers=forced, resample=resample,
-                device=device,
-            )
-        return
-    streams = []  # one entry per (file, channel) lane
-    lanes = []  # (path index, channel)
-    good_paths = []
-    for p in paths:
-        try:
-            samples, rate = read_audio(p)
-        except (OSError, ValueError) as e:
-            err(f"Unable to read {p}: {e}")
-            continue
-        if rate != cfg.sampling_rate and not resample:
-            # the sequential path's --no-resample contract: warn and process
-            # at the network rate
-            err(
-                f"Warning: {p} is {rate} Hz but the network expects "
-                f"{cfg.sampling_rate} Hz (resampling disabled)."
-            )
-        elif rate != cfg.sampling_rate:
-            err(f"Resampling {p} from {rate} Hz to {cfg.sampling_rate} Hz.")
-            samples = resample_channels(samples, rate, cfg.sampling_rate, device)
-        good_paths.append(p)
-        for c in range(samples.shape[1]):
-            streams.append(np.ascontiguousarray(samples[:, c]))
-            lanes.append((len(good_paths) - 1, c))
-    if not streams:
-        return
-    lane_cfgs = [cfgs[c % len(cfgs)] for _, c in lanes] if len(cfgs) > 1 else None
-    results = scan_corpus(
-        cfg, streams, method=method, mesh=mesh, lane_configs=lane_cfgs, device=device
-    )
-    debounce = int((debounce_seconds or 0.0) * cfg.sampling_rate)
-    multiple = len(good_paths) > 1 if headers is None else headers
-    by_file: dict[int, list] = {}
-    for (pi, c), outs in zip(lanes, results):
-        by_file.setdefault(pi, []).append((c, outs))
-    for i, p in enumerate(good_paths):
-        if multiple:
-            emit(p)
-        for c, outs in by_file.get(i, ()):
-            # per-lane thresholds: channel c's own network decides its lines
-            for line in corpus_csv_lines(
-                cfgs[c % len(cfgs)], outs, channel=c, debounce_frames=debounce
-            ):
-                emit(line)
+    with timing.span("corpus.scan"):
+        cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg]
+        cfg = cfgs[0]
+        err = err if err is not None else (lambda s: print(s, file=sys.stderr))
+        if group_files and len(paths) > group_files:
+            forced = len(paths) > 1 if headers is None else headers
+            for i in range(0, len(paths), group_files):
+                scan_corpus_files(
+                    cfgs, paths[i : i + group_files],
+                    debounce_seconds=debounce_seconds, emit=emit, err=err,
+                    method=method, mesh=mesh, headers=forced, resample=resample,
+                    device=device,
+                )
+            return
+        streams = []  # one entry per (file, channel) lane
+        lanes = []  # (path index, channel)
+        good_paths = []
+        for p in paths:
+            try:
+                with timing.span("corpus.read"):
+                    samples, rate = read_audio(p)
+            except (OSError, ValueError) as e:
+                err(f"Unable to read {p}: {e}")
+                continue
+            if rate != cfg.sampling_rate and not resample:
+                # the sequential path's --no-resample contract: warn and process
+                # at the network rate
+                err(
+                    f"Warning: {p} is {rate} Hz but the network expects "
+                    f"{cfg.sampling_rate} Hz (resampling disabled)."
+                )
+            elif rate != cfg.sampling_rate:
+                err(f"Resampling {p} from {rate} Hz to {cfg.sampling_rate} Hz.")
+                samples = resample_channels(samples, rate, cfg.sampling_rate, device)
+            good_paths.append(p)
+            for c in range(samples.shape[1]):
+                streams.append(np.ascontiguousarray(samples[:, c]))
+                lanes.append((len(good_paths) - 1, c))
+        if not streams:
+            return
+        lane_cfgs = [cfgs[c % len(cfgs)] for _, c in lanes] if len(cfgs) > 1 else None
+        results = scan_corpus(
+            cfg, streams, method=method, mesh=mesh, lane_configs=lane_cfgs, device=device
+        )
+        debounce = int((debounce_seconds or 0.0) * cfg.sampling_rate)
+        multiple = len(good_paths) > 1 if headers is None else headers
+        by_file: dict[int, list] = {}
+        for (pi, c), outs in zip(lanes, results):
+            by_file.setdefault(pi, []).append((c, outs))
+        for i, p in enumerate(good_paths):
+            if multiple:
+                emit(p)
+            for c, outs in by_file.get(i, ()):
+                # per-lane thresholds: channel c's own network decides its lines
+                for line in corpus_csv_lines(
+                    cfgs[c % len(cfgs)], outs, channel=c, debounce_frames=debounce
+                ):
+                    emit(line)
 
 
 def resample_channels(samples: np.ndarray, rate: float, net_rate: float, device) -> np.ndarray:
     """[n, channels] samples at ``rate`` -> [n', channels] float32 at
     ``net_rate``: each channel through the polyphase resampler on ``device``."""
-    return np.stack(
-        [
-            polyphase_resample(
-                np.ascontiguousarray(samples[:, c]), rate, net_rate, device=device
-            ).cpu().numpy()
-            for c in range(samples.shape[1])
-        ],
-        axis=1,
-    )
+    with timing.span("corpus.resample", channels=samples.shape[1]):
+        return np.stack(
+            [
+                polyphase_resample(
+                    np.ascontiguousarray(samples[:, c]), rate, net_rate, device=device
+                ).cpu().numpy()
+                for c in range(samples.shape[1])
+            ],
+            axis=1,
+        )

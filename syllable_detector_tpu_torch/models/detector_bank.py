@@ -51,6 +51,7 @@ from syllable_detector_tpu_torch.models.detector import (
 from syllable_detector_tpu_torch.models.neural_net import stack_params
 from syllable_detector_tpu_torch.ops.stft import normalize_overlap, num_frames
 from syllable_detector_tpu_torch.runtime.ring_buffer import DrainStager
+from syllable_detector_tpu_torch.utils import timing
 
 __all__ = ["DetectorBank", "mulaw_expand_np"]
 
@@ -393,7 +394,9 @@ class DetectorBank:
             take = min(n_max, self._buckets[-1])
             bucket = next(b for b in self._buckets if b >= take)
             need = (bucket + t - 2) * hop + gap + spec.window_length
-            outs = self._wire_outputs(self._stage_round(avail, need))[:, :take]
+            with timing.span("bank.stage"):
+                xs = self._stage_round(avail, need)
+            outs = self._wire_outputs(xs)[:, :take]
             for i in range(self.n_lanes):
                 take_i = min(avail[i], take)
                 if take_i <= 0:
@@ -442,18 +445,25 @@ class DetectorBank:
     def _wire_outputs(self, xs: torch.Tensor) -> np.ndarray:
         """One staged round -> [n_lanes, bucket, outputs] on the host: one
         host->device copy, the evaluation, one device->host copy."""
-        if self.method == "fused":
-            prog = self._program(xs.shape[1])
-            if prog is not None:
-                return prog(xs)
-        from syllable_detector_tpu_torch.kernels.fused_detector import dequant
+        prog = self._program(xs.shape[1]) if self.method == "fused" else None
+        if prog is not None:
+            with timing.span("bank.copy"):
+                xd = prog.upload(xs)
+            with timing.span("bank.launch"):
+                out = prog.launch(xd)
+        else:
+            from syllable_detector_tpu_torch.kernels.fused_detector import dequant
 
-        x = dequant(xs.to(self.device), self.transfer_dtype)
-        if self._stacked is None:
-            self._stacked = stack_params(self.params_list)
-        spec = self.spec
-        out = torch.func.vmap(lambda p, xl: offline_outputs(spec, p, xl))(self._stacked, x)
-        return out.cpu().numpy()
+            with timing.span("bank.copy"):
+                xd = xs.to(self.device)
+            with timing.span("bank.launch"):
+                x = dequant(xd, self.transfer_dtype)
+                if self._stacked is None:
+                    self._stacked = stack_params(self.params_list)
+                spec = self.spec
+                out = torch.func.vmap(lambda p, xl: offline_outputs(spec, p, xl))(self._stacked, x)
+        with timing.span("bank.readback"):  # the host waits here for the launch
+            return out.cpu().numpy()
 
     def seen_syllables(self) -> np.ndarray:
         """Drain and OR detections per lane (output 0 against each lane's

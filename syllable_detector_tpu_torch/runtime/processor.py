@@ -53,6 +53,7 @@ from syllable_detector_tpu_torch.runtime.audio_io import (
     AudioOutputInterface,
 )
 from syllable_detector_tpu_torch.runtime.ring_buffer import RingBlockWriter, RingBuffer
+from syllable_detector_tpu_torch.utils import timing
 from syllable_detector_tpu_torch.utils.fmt import fmt_double, fmt_float32
 from syllable_detector_tpu_torch.utils.stats import StatMax, SummaryStat
 from syllable_detector_tpu_torch.utils.timing import Time
@@ -176,6 +177,9 @@ class _Lane:
     bank_overflows: int = 0
     bank_dropped_samples: int = 0
     last_audio_ns: Optional[int] = None  # stamp of the last capture callback
+    # when the ring last went from drained to holding samples: set by the
+    # capture thread, taken (and cleared) by the round that drains the lane
+    pending_ns: Optional[int] = None
     # gap bookkeeping between the two threads: the capture thread records
     # each loss as (produced_samples at that time, n lost); the worker
     # splices the gap in at exactly that stream position (list append and
@@ -340,6 +344,8 @@ class Processor:
             lane.gap_events.append((lane.produced_samples, len(data)))
             return
         lane.produced_samples += len(data)
+        if lane.pending_ns is None:
+            lane.pending_ns = _time_ns()
         self._work.put(index)
 
     def receive_audio(self, interface, channel: int, data: np.ndarray) -> None:
@@ -373,6 +379,8 @@ class Processor:
                 lane.last_audio_ns = now
                 if ok[ch]:
                     lane.produced_samples += n
+                    if lane.pending_ns is None:
+                        lane.pending_ns = now
                     self._work.put(channels[ch])
                 else:
                     lane.overflows += 1
@@ -528,7 +536,23 @@ class Processor:
                 file=sys.stderr,
             )
 
+    @staticmethod
+    def _note_queue_wait(lanes) -> None:
+        """``processor.queue_wait``: from the earliest moment one of
+        ``lanes``' rings held samples no round had taken to now, the start of
+        the round that takes them. A stamp set between this and the round's
+        read of the ring belongs to samples that round takes, and overstates
+        the next round's wait by at most a round."""
+        stamps = []
+        for lane in lanes:
+            if lane.pending_ns is not None:
+                stamps.append(lane.pending_ns)
+                lane.pending_ns = None
+        if stamps:
+            timing.record("processor.queue_wait", min(stamps), _time_ns())
+
     def _drain_lane(self, index: int, lane: _Lane) -> None:
+        self._note_queue_wait([lane])
         t_start = _time_ns()
         samples = lane.ring.peek()
         if len(samples):
@@ -587,47 +611,49 @@ class Processor:
         (prepare_output with seen=False) fires for those only."""
         if drained is None:
             drained = set(range(len(self._lanes)))
-        t_start = _time_ns()
-        any_outs = False
-        seen_flags = [False] * len(self._lanes)
-        for bank, idxs in self._banks:
-            # a failure in one group leaves the others' detections standing
-            try:
+        self._note_queue_wait(self._lanes)
+        with timing.span("process") as round_span:
+            any_outs = False
+            seen_flags = [False] * len(self._lanes)
+            for bank, idxs in self._banks:
+                # a failure in one group leaves the others' detections standing
+                try:
+                    for j, i in enumerate(idxs):
+                        lane = self._lanes[i]
+                        samples = lane.ring.peek()
+                        if len(samples):
+                            lane.ring.consume(len(samples))
+
+                        def append(chunk, j=j, lane=lane, bank=bank):
+                            if not bank.append_audio_data(j, chunk):
+                                # the bank's buffer cap dropped the chunk
+                                lane.bank_overflows += 1
+                                lane.bank_dropped_samples += len(chunk)
+
+                        self._feed_with_gaps(
+                            lane, samples, append,
+                            lambda n_lost, j=j, bank=bank: bank.note_gap(j, n_lost),
+                        )
+                    outs = bank.drain()  # [len(idxs), n_max, outputs], padded
+                    counts = bank.last_counts
+                except Exception as e:
+                    self._report_drain_error(f"lanes {idxs}", e)
+                    continue
+                if outs.shape[1]:
+                    any_outs = True
                 for j, i in enumerate(idxs):
                     lane = self._lanes[i]
-                    samples = lane.ring.peek()
-                    if len(samples):
-                        lane.ring.consume(len(samples))
-
-                    def append(chunk, j=j, lane=lane, bank=bank):
-                        if not bank.append_audio_data(j, chunk):
-                            # the bank's buffer cap dropped the chunk
-                            lane.bank_overflows += 1
-                            lane.bank_dropped_samples += len(chunk)
-
-                    self._feed_with_gaps(
-                        lane, samples, append, lambda n_lost, j=j, bank=bank: bank.note_gap(j, n_lost)
-                    )
-                outs = bank.drain()  # [len(idxs), n_max, outputs], padded
-                counts = bank.last_counts
-            except Exception as e:
-                self._report_drain_error(f"lanes {idxs}", e)
-                continue
-            if outs.shape[1]:
-                any_outs = True
-            for j, i in enumerate(idxs):
-                lane = self._lanes[i]
-                o = outs[j, : counts[j]]  # this lane's valid prefix
-                if o.shape[0]:
-                    lane.stat_output.write_value(float(np.max(o[:, 0])))
-                    # float32 comparison, as in the per-lane drain
-                    n_hits = int(np.sum(o[:, 0] >= np.float32(bank.thresholds[j])))
-                    if n_hits:
-                        seen_flags[i] = True
-                        lane.detections += n_hits
-                    if self.event_log is not None:
-                        self._log_events(lane, bank.last_sample_indices[j], o)
-        Time.save_with_name("process" if any_outs else "skip", _time_ns() - t_start)
+                    o = outs[j, : counts[j]]  # this lane's valid prefix
+                    if o.shape[0]:
+                        lane.stat_output.write_value(float(np.max(o[:, 0])))
+                        # float32 comparison, as in the per-lane drain
+                        n_hits = int(np.sum(o[:, 0] >= np.float32(bank.thresholds[j])))
+                        if n_hits:
+                            seen_flags[i] = True
+                            lane.detections += n_hits
+                        if self.event_log is not None:
+                            self._log_events(lane, bank.last_sample_indices[j], o)
+            round_span.name = "process" if any_outs else "skip"
         for i, lane in enumerate(self._lanes):
             if not (seen_flags[i] or i in drained):
                 continue

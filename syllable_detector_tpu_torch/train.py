@@ -38,6 +38,7 @@ from syllable_detector_tpu_torch.training.trainer import (
     features_and_labels,
     train,
 )
+from syllable_detector_tpu_torch.utils import timing
 from syllable_detector_tpu_torch.utils.wav import read_audio
 
 __all__ = ["main", "read_labels"]
@@ -143,16 +144,17 @@ def main(argv=None) -> int:
     rate = None
     settings = None
     for audio_path, labels_path in zip(args.audio, args.labels):
-        try:
-            samples, r = read_audio(audio_path)
-        except (OSError, ValueError) as e:
-            print(f"Unable to read {audio_path}: {e}", file=sys.stderr)
-            return 1
-        try:
-            intervals = read_labels(labels_path)
-        except (OSError, ValueError) as e:
-            print(f"Unable to read {labels_path}: {e}", file=sys.stderr)
-            return 1
+        with timing.span("train.read"):
+            try:
+                samples, r = read_audio(audio_path)
+            except (OSError, ValueError) as e:
+                print(f"Unable to read {audio_path}: {e}", file=sys.stderr)
+                return 1
+            try:
+                intervals = read_labels(labels_path)
+            except (OSError, ValueError) as e:
+                print(f"Unable to read {labels_path}: {e}", file=sys.stderr)
+                return 1
         if not intervals:
             print(f"No labeled intervals in {labels_path}.", file=sys.stderr)
             return 1
@@ -195,7 +197,8 @@ def main(argv=None) -> int:
             return 1
 
         audio = np.ascontiguousarray(samples[:, args.channel])
-        feats, labels = features_and_labels(settings, audio, intervals, device)
+        with timing.span("train.features"):
+            feats, labels = features_and_labels(settings, audio, intervals, device)
         n_pos = int(labels.sum())
         if not args.quiet:
             print(
@@ -216,26 +219,27 @@ def main(argv=None) -> int:
     if len(feats_list) == 1:
         mesh = _mesh("data", device) if args.data_parallel else None
         try:
-            net_spec, params, threshold = train(
-                settings, feats_list[0], labels_list[0], mesh=mesh,
-                verbose=not args.quiet,
-                checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every,
-                device=device,
-            )
+            with timing.span("train.trainer"):
+                net_spec, params, threshold = train(
+                    settings, feats_list[0], labels_list[0], mesh=mesh,
+                    verbose=not args.quiet,
+                    checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_every=args.checkpoint_every,
+                    device=device,
+                )
         except ValueError as e:
             # checkpoint-dir fingerprint mismatches etc. are user errors,
             # not tracebacks
             print(str(e), file=sys.stderr)
             return 1
-        cfg = export_trained_config(settings, net_spec, params, threshold)
         # honor a {ch} template even with one pair
         out = (
             _channel_output_path(args.output, 0)
             if "{ch}" in args.output
             else args.output
         )
-        save_config(cfg, out)
+        with timing.span("train.export"):
+            save_config(export_trained_config(settings, net_spec, params, threshold), out)
         if not args.quiet:
             print(f"threshold {threshold:.4f}; wrote {out}")
         return 0
@@ -246,22 +250,23 @@ def main(argv=None) -> int:
 
     mesh = _mesh("channel", device) if args.channel_parallel else None
     try:
-        net_spec, params_list, thresholds = train_ensemble(
-            settings, feats_list, labels_list, mesh=mesh,
-            verbose=not args.quiet,
-            checkpoint_dir=args.checkpoint_dir,
-            checkpoint_every=args.checkpoint_every,
-            device=device,
-        )
+        with timing.span("train.trainer"):
+            net_spec, params_list, thresholds = train_ensemble(
+                settings, feats_list, labels_list, mesh=mesh,
+                verbose=not args.quiet,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                device=device,
+            )
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
-    for c, (params, threshold) in enumerate(zip(params_list, thresholds)):
-        cfg = export_trained_config(settings, net_spec, params, threshold)
-        out = _channel_output_path(args.output, c)
-        save_config(cfg, out)
-        if not args.quiet:
-            print(f"channel {c}: threshold {threshold:.4f}; wrote {out}")
+    with timing.span("train.export"):
+        for c, (params, threshold) in enumerate(zip(params_list, thresholds)):
+            out = _channel_output_path(args.output, c)
+            save_config(export_trained_config(settings, net_spec, params, threshold), out)
+            if not args.quiet:
+                print(f"channel {c}: threshold {threshold:.4f}; wrote {out}")
     return 0
 
 

@@ -88,6 +88,7 @@ from syllable_detector_tpu_torch.parallel.mesh import (
     _psum,
     _tree_map,
 )
+from syllable_detector_tpu_torch.utils import timing
 
 __all__ = [
     "TrainSettings",
@@ -669,11 +670,18 @@ class _Epoch:
         with torch.cuda.device(feats.device):
             graph = self.graphs.pop(key, None)
             if graph is None:
-                graph = self._graph(params, opt_state, feats, labels, idx[:steps])
+                with timing.span("trainer.capture") as s:
+                    before = EPOCH_GRAPHS["captures"]
+                    graph = self._graph(params, opt_state, feats, labels, idx[:steps])
+                    s.counts["graphs"] = EPOCH_GRAPHS["captures"] - before
             self.graphs[key] = graph
             while len(self.graphs) > _GRAPHS_KEPT:
                 self.graphs.popitem(last=False)
-            return graph.run(params, opt_state, idx)
+            with timing.span("trainer.replays") as s:
+                before = EPOCH_GRAPHS["replays"]
+                out = graph.run(params, opt_state, idx)
+                s.counts["replays"] = EPOCH_GRAPHS["replays"] - before
+            return out
 
 
 def _cards(mesh: Mesh) -> list:
@@ -1094,20 +1102,21 @@ def _run_training_loop(
     epoch = start_epoch
     cap = None  # epochs per call under the index budget (lazy: needs one draw)
     while epoch < settings.epochs:
-        first = epoch_indices()
-        if cap is None:
-            cap = max(1, _INDEX_BUDGET_BYTES // max(1, first.nbytes))
-        k = 1 if verbose else min(cap, settings.epochs - epoch)
-        if checkpoint_dir is not None:
-            k = min(k, checkpoint_every - epoch % checkpoint_every)
-        idx = (
-            np.concatenate([first] + [epoch_indices() for _ in range(k - 1)])
-            if k > 1
-            else first
-        )
-        params, opt_state, values = epoch_fn(
-            params, opt_state, *data, torch.as_tensor(idx, dtype=torch.int32, device=device)
-        )
+        with timing.span("trainer.indices") as s:
+            first = epoch_indices()
+            if cap is None:
+                cap = max(1, _INDEX_BUDGET_BYTES // max(1, first.nbytes))
+            k = 1 if verbose else min(cap, settings.epochs - epoch)
+            if checkpoint_dir is not None:
+                k = min(k, checkpoint_every - epoch % checkpoint_every)
+            idx = (
+                np.concatenate([first] + [epoch_indices() for _ in range(k - 1)])
+                if k > 1
+                else first
+            )
+            idx = torch.as_tensor(idx, dtype=torch.int32, device=device)
+            s.counts["epochs"] = k
+        params, opt_state, values = epoch_fn(params, opt_state, *data, idx)
         epoch += k
         if verbose and (
             (epoch - 1) % 25 == 0 or epoch == settings.epochs
@@ -1119,6 +1128,14 @@ def _run_training_loop(
             _save_train_state(checkpoint_dir, epoch, params, opt_state)
             _save_rng_state(checkpoint_dir, epoch, rngs)
     return params, opt_state
+
+
+def _wait_for_epochs(device: torch.device) -> None:
+    """The host's wait for the epochs it enqueued, where the full-data loss's
+    readback would wait for them anyway (a span of its own)."""
+    with timing.span("trainer.device_wait"):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _output_mapminmax() -> ProcessingSpec:
@@ -1166,28 +1183,29 @@ def train(
         raise ValueError("features has no rows")
     device = mesh.devices[0] if mesh is not None else _device(device)
     net_spec = _build_net_spec(settings)
-    in_specs, _ = fit_input_chain(settings, features, device)
-    _, in_params = specs_to_chain(in_specs, device)
-    _, out_params = specs_to_chain([_output_mapminmax()], device)
+    with timing.span("trainer.chain_fit"):
+        in_specs, _ = fit_input_chain(settings, features, device)
+        _, in_params = specs_to_chain(in_specs, device)
+        _, out_params = specs_to_chain([_output_mapminmax()], device)
 
-    generator = torch.Generator().manual_seed(settings.seed)
-    sizes = [settings.n_features, *settings.hidden, 1]
-    K = max(1, settings.n_init)
-    params = stack_params(
-        [
-            {
-                "layers": init_layer_params(generator, sizes, device=device),
-                "process_inputs": in_params,
-                "process_outputs": out_params,
-            }
-            for _ in range(K)
-        ]
-    )
-    opt_state = _adam_init(params["layers"], (K,))  # per-init state
+        generator = torch.Generator().manual_seed(settings.seed)
+        sizes = [settings.n_features, *settings.hidden, 1]
+        K = max(1, settings.n_init)
+        params = stack_params(
+            [
+                {
+                    "layers": init_layer_params(generator, sizes, device=device),
+                    "process_inputs": in_params,
+                    "process_outputs": out_params,
+                }
+                for _ in range(K)
+            ]
+        )
+        opt_state = _adam_init(params["layers"], (K,))  # per-init state
 
-    n = len(features)
-    feats = torch.tensor(np.asarray(features, np.float32), device=device)
-    labs = torch.tensor(np.asarray(labels, np.float32), device=device)
+        n = len(features)
+        feats = torch.tensor(np.asarray(features, np.float32), device=device)
+        labs = torch.tensor(np.asarray(labels, np.float32), device=device)
     bs = min(settings.batch_size, n)
     if mesh is not None:
         n_dev = len(mesh.devices)
@@ -1237,12 +1255,13 @@ def train(
         [rng],
     )
 
-    with torch.no_grad():
+    _wait_for_epochs(device)
+    with timing.span("trainer.pick"), torch.no_grad():
         full = _host(_stacked_loss(net_spec, params, feats, labs))
         best = int(np.argmin(full))
         params = _tree_map(lambda x: x[best], params)
         preds = _host(apply_net(net_spec, params, feats)[..., 0])
-    threshold = _pick_threshold(preds, labels)
+        threshold = _pick_threshold(preds, labels)
     return net_spec, params, threshold
 
 
@@ -1376,51 +1395,52 @@ def train_ensemble(
             )
     device = mesh.devices[0] if mesh is not None else _device(device)
     net_spec = _build_net_spec(settings)
-    _, out_params = specs_to_chain([_output_mapminmax()], device)
-    sizes = [settings.n_features, *settings.hidden, 1]
-    generator = torch.Generator().manual_seed(settings.seed)
-    per_params = []
-    for c in range(C):
-        if features_list[c].shape[1] != settings.n_features:
-            raise ValueError(
-                f"channel {c} features have {features_list[c].shape[1]} "
-                f"columns, settings expect {settings.n_features}"
+    with timing.span("trainer.chain_fit"):
+        _, out_params = specs_to_chain([_output_mapminmax()], device)
+        sizes = [settings.n_features, *settings.hidden, 1]
+        generator = torch.Generator().manual_seed(settings.seed)
+        per_params = []
+        for c in range(C):
+            if features_list[c].shape[1] != settings.n_features:
+                raise ValueError(
+                    f"channel {c} features have {features_list[c].shape[1]} "
+                    f"columns, settings expect {settings.n_features}"
+                )
+            _, in_params = specs_to_chain(
+                fit_input_chain(settings, features_list[c], device)[0], device
             )
-        _, in_params = specs_to_chain(
-            fit_input_chain(settings, features_list[c], device)[0], device
+            for _ in range(K):  # flat stack index = c * K + k (channel-major)
+                per_params.append(
+                    {
+                        "layers": init_layer_params(generator, sizes, device=device),
+                        "process_inputs": in_params,
+                        "process_outputs": out_params,
+                    }
+                )
+        params = stack_params(per_params)
+        opt_state = _adam_init(params["layers"], (C * K,))  # per-init state
+        ns = [len(f) for f in features_list]
+        bs = min(settings.batch_size, min(ns))
+        # an epoch covers the LONGEST channel once; shorter channels wrap
+        steps_per_epoch = max(1, max(ns) // bs)
+        epoch_fn = make_ensemble_epoch(
+            net_spec,
+            settings.learning_rate,
+            n_init=K,
+            mesh=mesh,
+            channel_axis=channel_axis,
+            steps=steps_per_epoch,
         )
-        for _ in range(K):  # flat stack index = c * K + k (channel-major)
-            per_params.append(
-                {
-                    "layers": init_layer_params(generator, sizes, device=device),
-                    "process_inputs": in_params,
-                    "process_outputs": out_params,
-                }
+        n_max = max(ns)
+        feats_all = torch.zeros((C, n_max, settings.n_features), dtype=torch.float32, device=device)
+        labs_all = torch.zeros((C, n_max), dtype=torch.float32, device=device)
+        for c in range(C):
+            feats_all[c, : ns[c]] = torch.tensor(
+                np.asarray(features_list[c], np.float32), device=device
             )
-    params = stack_params(per_params)
-    opt_state = _adam_init(params["layers"], (C * K,))  # per-init state
-    ns = [len(f) for f in features_list]
-    bs = min(settings.batch_size, min(ns))
-    # an epoch covers the LONGEST channel once; shorter channels wrap
-    steps_per_epoch = max(1, max(ns) // bs)
-    epoch_fn = make_ensemble_epoch(
-        net_spec,
-        settings.learning_rate,
-        n_init=K,
-        mesh=mesh,
-        channel_axis=channel_axis,
-        steps=steps_per_epoch,
-    )
-    n_max = max(ns)
-    feats_all = torch.zeros((C, n_max, settings.n_features), dtype=torch.float32, device=device)
-    labs_all = torch.zeros((C, n_max), dtype=torch.float32, device=device)
-    for c in range(C):
-        feats_all[c, : ns[c]] = torch.tensor(
-            np.asarray(features_list[c], np.float32), device=device
-        )
-        labs_all[c, : ns[c]] = torch.tensor(
-            np.asarray(labels_list[c], np.float32), device=device
-        )
+            labs_all[c, : ns[c]] = torch.tensor(
+                np.asarray(labels_list[c], np.float32), device=device
+            )
 
     rngs = [np.random.default_rng(settings.seed + c) for c in range(C)]
 
@@ -1468,8 +1488,9 @@ def train_ensemble(
 
     # best init per channel by full-data loss over each channel's true
     # prefix of the padded stack
+    _wait_for_epochs(device)
     params_list, thresholds = [], []
-    with torch.no_grad():
+    with timing.span("trainer.pick"), torch.no_grad():
         for c in range(C):
             mine = _tree_map(lambda x: x[c * K : (c + 1) * K], params)
             full = _host(
