@@ -34,8 +34,8 @@ from syllable_detector_tpu_torch.models.detector import (
 )
 from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.ops.stft import num_frames
+from syllable_detector_tpu_torch.runtime.track_detector import _detection_lines
 from syllable_detector_tpu_torch.utils import timing
-from syllable_detector_tpu_torch.utils.fmt import fmt_double, fmt_float32
 from syllable_detector_tpu_torch.utils.wav import read_audio
 
 __all__ = [
@@ -190,21 +190,11 @@ def corpus_csv_lines(
 ) -> list[str]:
     """CSV detection lines from batched outputs, with the streaming
     TrackDetector's accounting byte for byte."""
-    next_output = cfg.first_output_sample
-    hop_inc = cfg.window_length - cfg.window_overlap
-    thr = np.asarray(cfg.thresholds, np.float64)
-    debounce_until = -1
-    lines = []
     with timing.span("corpus.csv", rows=len(outputs)) as s:
-        for row in outputs:
-            cur = next_output
-            next_output += hop_inc
-            if np.any(row.astype(np.float64) >= thr) and debounce_until < cur:
-                line = f"{channel},{cur},{fmt_double(cur / cfg.sampling_rate)}"
-                for d in row:
-                    line += f",{fmt_float32(d)}"
-                lines.append(line)
-                debounce_until = cur + debounce_frames
+        lines, _, hits = _detection_lines(
+            cfg, outputs, channel, cfg.first_output_sample, debounce_frames, -1
+        )
+        s.counts["hits"] = hits
         s.counts["lines"] = len(lines)
     return lines
 

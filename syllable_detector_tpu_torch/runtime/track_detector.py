@@ -62,18 +62,42 @@ class TrackDetector:
         self.detector.append_audio_data(samples)
         outputs = self.detector.drain()
 
-        rate = self.config.sampling_rate
-        thresholds = np.asarray(self.config.thresholds, np.float64)
-        for row in outputs:
-            cur_output = self._next_output
-            self._next_output += self.config.window_length - self.config.window_overlap
+        cfg = self.config
+        lines, self._debounce_until, _ = _detection_lines(
+            cfg, outputs, self.channel, self._next_output, self.debounce_frames,
+            self._debounce_until,
+        )
+        self._next_output += (cfg.window_length - cfg.window_overlap) * len(outputs)
+        for line in lines:
+            self.emit(line)
 
-            # the comparison promotes the float32 output to double
-            has_detection = bool(np.any(row.astype(np.float64) >= thresholds))
 
-            if has_detection and self._debounce_until < cur_output:
-                line = f"{self.channel},{cur_output},{fmt_double(cur_output / rate)}"
-                for d in row:
-                    line += f",{fmt_float32(d)}"
-                self.emit(line)
-                self._debounce_until = cur_output + self.debounce_frames
+def _detection_lines(
+    cfg: SyllableDetectorConfig,
+    outputs: np.ndarray,
+    channel: int,
+    first_sample: int,
+    debounce_frames: int,
+    debounce_until: int,
+) -> tuple[list[str], int, int]:
+    """CSV lines of ``outputs`` [E, outputs], row k at sample ``first_sample
+    + hop * k`` -> (lines, the new ``debounce_until``, rows over threshold).
+
+    Every row is tested against its thresholds in one array compare (float64,
+    as the reference promotes; NaN never detects); only the rows that pass
+    are walked, in order, for the debounce and the line. A row that misses
+    never touches the debounce state, so skipping it is exact.
+    """
+    hop = cfg.window_length - cfg.window_overlap
+    thr = np.asarray(cfg.thresholds, np.float64)
+    hits = np.flatnonzero((outputs.astype(np.float64) >= thr).any(axis=1))
+    lines = []
+    for k in hits.tolist():
+        cur = first_sample + hop * k
+        if debounce_until < cur:
+            line = f"{channel},{cur},{fmt_double(cur / cfg.sampling_rate)}"
+            for d in outputs[k]:
+                line += f",{fmt_float32(d)}"
+            lines.append(line)
+            debounce_until = cur + debounce_frames
+    return lines, debounce_until, len(hits)

@@ -21,10 +21,12 @@ import torch
 
 import reference_impl as ref
 import syllable_detector_tpu.cli as jax_cli
+import syllable_detector_tpu.corpus as jcorpus
 from syllable_detector_tpu.config.model_format import save_config
 from syllable_detector_tpu.utils.wav import write_wav
 from syllable_detector_tpu_torch import fixtures
 from syllable_detector_tpu_torch.cli import main as port_main
+from syllable_detector_tpu_torch.models.detector import Detector
 from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.runtime.track_detector import TrackDetector
 
@@ -125,6 +127,38 @@ def test_track_detector_matches_oracle(files):
     want = ref.cli_lines(cfg, x, 0, debounce_frames=int(0.05 * 44100))
     assert 0 < len(want) < len(ref.cli_lines(cfg, x, 0))
     assert_csv_close(got, want)
+
+
+def test_track_detector_lines_do_not_depend_on_buffers(files):
+    """One signal fed whole and in uneven buffers (some shorter than a hop,
+    some that complete no evaluation) gives the same lines, equal to the JAX
+    row loop over the detector's whole output."""
+    cfg, two, _ = files
+    x = two[:, 1]
+    debounce = int(0.03 * cfg.sampling_rate)
+
+    def lines(cuts):
+        got = []
+        td = TrackDetector(cfg, channel=1, emit=got.append, device="cpu")
+        td.debounce_time = 0.03
+        assert td.debounce_frames == debounce
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            td.process(x[lo:hi])
+        return got
+
+    rng = np.random.default_rng(4)
+    sizes = [1, 50, 131, 5, 3000, 7, 90, 20000]
+    cuts = [0]
+    while cuts[-1] < len(x):
+        cuts.append(min(len(x), cuts[-1] + sizes[len(cuts) % len(sizes)] + int(rng.integers(0, 3))))
+    whole = lines([0, len(x)])
+    assert lines(cuts) == whole
+    det = Detector(cfg, device="cpu")
+    det.append_audio_data(x)
+    outputs = det.drain()
+    want = jcorpus.corpus_csv_lines(cfg, outputs, channel=1, debounce_frames=debounce)
+    assert whole == want
+    assert 0 < len(want) < len(jcorpus.corpus_csv_lines(cfg, outputs, channel=1))
 
 
 def test_repeated_nets_cycle_per_channel(files, monkeypatch):

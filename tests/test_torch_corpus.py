@@ -14,6 +14,7 @@ Pallas interpret mode here.
 """
 
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
@@ -82,6 +83,82 @@ def test_scan_corpus_checks_lane_geometry(corpus):
     with pytest.raises(ValueError, match="share the first network's geometry"):
         tcorpus.scan_corpus(cfgs[0], streams[:2], lane_configs=[cfgs[0], fixtures.gap_config()], device="cpu")
     assert tcorpus._bucket(1) == 1 << 14 and tcorpus._bucket((1 << 15) + 1) == 1 << 16
+
+
+def _runs(rng, n, run, gap, value=1.0):
+    """[n, 1] zeros with runs of ``run`` rows at ``value``, ``gap`` rows apart."""
+    out = np.zeros((n, 1), np.float32)
+    for start in range(int(rng.integers(0, gap)), n, run + gap):
+        out[start : start + run] = value
+    return out
+
+
+def _csv_case(name, rng):
+    """(config, [E, O] float32 outputs, channel, debounce in samples)."""
+    cfg = fixtures.sample_geometry_config(0)
+    hop = cfg.window_length - cfg.window_overlap
+    u = lambda e, o: rng.random((e, o)).astype(np.float32)  # noqa: E731
+    if name == "o1":
+        return dataclasses.replace(cfg, thresholds=[0.97]), u(3000, 1), 0, 0
+    if name == "o3_per_output":
+        return dataclasses.replace(cfg, thresholds=[0.99, 0.95, 1.5]), u(3000, 3), 2, hop
+    if name == "nonfinite":
+        out = u(3000, 3)
+        for col, v in ((0, np.nan), (1, np.inf), (2, -np.inf), (0, -np.inf)):
+            out[rng.choice(3000, 200, replace=False), col] = v
+        out[rng.choice(3000, 50, replace=False)] = np.nan
+        return dataclasses.replace(cfg, thresholds=[0.95, 0.98, 0.9]), out, 1, 0
+    if name == "first_and_last_row":
+        out = np.zeros((500, 1), np.float32)
+        out[[0, 17, 499]] = 0.75
+        return cfg, out, 0, 0
+    if name == "debounce_one_hop":
+        return dataclasses.replace(cfg, thresholds=[0.5]), _runs(rng, 3000, 7, 5), 0, hop
+    if name == "debounce_past_a_run":
+        return cfg, _runs(rng, 3000, 6, 9), 3, 11 * hop + 5
+    if name == "float64_compare":  # float32(0.7) < 0.7 in float64
+        out = np.full((400, 2), np.float32(0.7))
+        out[rng.choice(400, 30, replace=False), 1] = np.nextafter(np.float32(0.7), 1)
+        return dataclasses.replace(cfg, thresholds=[0.7, 0.7]), out, 0, 0
+    if name == "empty":
+        return dataclasses.replace(cfg, thresholds=[0.5, 0.5]), u(0, 2), 0, hop
+    if name == "yield_one":
+        return dataclasses.replace(cfg, thresholds=[-1.0, 2.0]), u(700, 2), 1, 0
+    if name == "yield_zero":
+        return dataclasses.replace(cfg, thresholds=[1.0, 1.0]), u(3000, 2), 0, 0
+    if name == "gap_geometry":
+        return fixtures.gap_config(), _runs(rng, 3000, 4, 3), 0, 2 * fixtures.gap_config().hop
+    assert name == "rate_48k"
+    cfg48 = fixtures.geometry_config(0, rate=48000)
+    return dataclasses.replace(cfg48, thresholds=[0.9]), u(3000, 1), 0, 3 * hop
+
+
+CSV_CASES = ["o1", "o3_per_output", "nonfinite", "first_and_last_row", "debounce_one_hop",
+             "debounce_past_a_run", "float64_compare", "empty", "yield_one", "yield_zero",
+             "gap_geometry", "rate_48k"]
+
+
+@pytest.mark.parametrize("name", CSV_CASES)
+def test_corpus_csv_lines_match_jax_row_loop(name):
+    """The port tests every row at once and walks only the rows over
+    threshold; its lines equal the JAX row loop's byte for byte."""
+    cfg, outputs, channel, debounce = _csv_case(name, np.random.default_rng(CSV_CASES.index(name)))
+    got = tcorpus.corpus_csv_lines(cfg, outputs, channel=channel, debounce_frames=debounce)
+    want = jcorpus.corpus_csv_lines(cfg, outputs, channel=channel, debounce_frames=debounce)
+    assert got == want
+    hits = int((outputs.astype(np.float64) >= np.asarray(cfg.thresholds)).any(axis=1).sum())
+    if name in ("empty", "yield_zero"):
+        assert got == [] and hits == 0
+    elif name == "yield_one":
+        assert len(got) == len(outputs)
+    else:
+        assert 0 < len(got) <= hits
+        assert (len(got) < hits) == (debounce > 0)
+    if name == "first_and_last_row":
+        assert [int(line.split(",")[1]) for line in got] == [
+            cfg.first_output_sample + (cfg.window_length - cfg.window_overlap) * k
+            for k in (0, 17, 499)
+        ]
 
 
 BATCHED = {

@@ -160,10 +160,10 @@ def corpus_files(tmp_path_factory):
     return cfg, paths
 
 
-def scan(cfg, paths):
+def scan(cfg, paths, debounce_seconds=None):
     lines = []
-    corpus.scan_corpus_files(cfg, paths, emit=lines.append, err=lambda s: None,
-                             method="fused", device="cpu")
+    corpus.scan_corpus_files(cfg, paths, debounce_seconds=debounce_seconds, emit=lines.append,
+                             err=lambda s: None, method="fused", device="cpu")
     return lines
 
 
@@ -192,8 +192,17 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     evals = [max(0, num_frames(n, cfg.window_length, cfg.window_overlap) - cfg.time_range + 1)
              for n in lanes]
     assert [s.counts["rows"] for s in csv] == evals
+    assert all(set(s.counts) == {"rows", "hits", "lines"} for s in csv)
+    assert all(s.counts["hits"] == s.counts["lines"] for s in csv)  # no debounce
     detections = [line for line in lines if line not in paths]
     assert sum(s.counts["lines"] for s in csv) == len(detections) > 0
+    # a debounce prints fewer of the same hits
+    debounced, again = recorded(lambda: scan(cfg, paths, debounce_seconds=0.05))
+    csv_d = named(again, "corpus.csv")
+    assert [s.counts["hits"] for s in csv_d] == [s.counts["hits"] for s in csv]
+    assert all(s.counts["hits"] >= s.counts["lines"] for s in csv_d)
+    assert sum(s.counts["lines"] for s in csv_d) == len(
+        [line for line in debounced if line not in paths]) < len(detections)
     timing.set_recording(False)
     assert scan(cfg, paths) == lines
 
