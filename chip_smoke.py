@@ -1352,7 +1352,7 @@ def phase_corpus_times(scan: dict, card_line: str) -> dict:
     # the batched kernel on the scan's padded lanes, against its plain
     # version on the same tensor: every evaluation, the zero padding's too
     spec, params = detector.detector_spec_from_config(cfg, "cuda")
-    xs = torch.zeros((len(streams), corpus._bucket(max(len(s) for s in streams))), device="cuda")
+    xs = torch.zeros((len(streams), corpus._batch_length(max(len(s) for s in streams))), device="cuda")
     for i, s in enumerate(streams):
         xs[i, : len(s)] = torch.from_numpy(s)
     folded = fused.fold_constants(spec, params, "cuda")
@@ -1377,7 +1377,7 @@ def phase_corpus_times(scan: dict, card_line: str) -> dict:
     print(
         f"phase 11 times [{card_line}]: the batched scan's steps ({len(streams)} lanes, "
         f"{lines} lines), host clock: {', '.join(split)} (read = WAV files, resample = "
-        f"copy in, kernel and copy out per channel, scan = padding to the bucket, copy in, "
+        f"copy in, kernel and copy out per channel, scan = the batch staged at its longest lane, copy in, "
         f"batched kernel and copy out, csv = the per-row thresholds and formatting)",
         flush=True,
     )

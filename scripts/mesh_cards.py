@@ -223,7 +223,7 @@ class Cards:
             if rate != smoke.NET_RATE:
                 samples = corpus.resample_channels(samples, rate, smoke.NET_RATE, self.home)
             streams += [np.ascontiguousarray(samples[:, c]) for c in range(samples.shape[1])]
-        xs = torch.zeros((len(streams), corpus._bucket(max(map(len, streams)))),
+        xs = torch.zeros((len(streams), corpus._batch_length(max(map(len, streams)))),
                          device=self.home)
         for i, s in enumerate(streams):
             xs[i, : len(s)] = torch.from_numpy(s)

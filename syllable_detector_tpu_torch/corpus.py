@@ -1,14 +1,19 @@
 """Batched offline corpus scan on PyTorch: many files, one device computation.
 
 Counterpart of ``syllable_detector_tpu.corpus``. The reference CLI iterates
-files one after another, one detector per track. The batched scan pads
-every (file, channel) stream to a shared bucket length, stacks them on a
-lane axis and runs the whole corpus through one detection call: with
-``method='fused'`` one launch of the fused detector kernel over all lanes
-(shared or per-lane nets), otherwise the unfused path over every lane.
-Per-file sample accounting and debounce reproduce ``TrackDetector``'s.
-Files whose rate differs from the net's are resampled per channel by the
-polyphase resampler (the framed GEMM kernel on a card).
+files one after another, one detector per track. The batched scan stacks
+every (file, channel) stream on a lane axis, as long as the longest stream
+(rounded up to 4 samples) with zeros past each shorter one, and runs the
+whole corpus through one detection call: with ``method='fused'`` one launch
+of the fused detector kernel over all lanes (shared or per-lane nets),
+otherwise the unfused path over every lane. Per-file sample accounting and
+debounce reproduce ``TrackDetector``'s.
+
+Samples cross to the device once. Each file's decoded block is copied into
+one reused host buffer (page-locked on a card) and uploaded from there
+asynchronously; files whose rate differs from the net's are resampled per
+channel on the device by the polyphase resampler (the framed GEMM kernel on
+a card), and the lanes are written into the batch there.
 
 Every entry takes a ``device``; it defaults to ``cuda``. With a ``mesh``
 (``parallel.make_mesh``) the lane axis is split across the mesh's shards,
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import threading
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -26,7 +32,12 @@ import numpy as np
 import torch
 
 from syllable_detector_tpu_torch.config.model_format import SyllableDetectorConfig
-from syllable_detector_tpu_torch.kernels.fused_detector import fused_batch_offline_outputs
+from syllable_detector_tpu_torch.kernels.fused_detector import (
+    FusedOperands,
+    fold_constants,
+    fusable,
+    fused_batch_offline_outputs,
+)
 from syllable_detector_tpu_torch.models.detector import (
     DetectorSpec,
     detector_spec_from_config,
@@ -56,10 +67,13 @@ def batch_offline_outputs_shared(
     ``params`` is ONE shared network (dict) or a sequence of C DISTINCT
     per-lane networks sharing the spec's geometry. ``method='fused'`` runs
     the fused detector kernel (one launch for all lanes); 'matmul'/'rfft'
-    run the unfused pipeline over every lane.
+    run the unfused pipeline over every lane. A shared net that the scan's
+    spec cache holds is folded into the kernel's operands once, not per
+    call.
     """
     if method == "fused":
-        return fused_batch_offline_outputs(spec, params, xs)
+        folded = _cached_fold(spec, params, xs.device)
+        return fused_batch_offline_outputs(spec, params, xs, folded=folded)
     return offline_outputs_batch(spec, params, xs, method)
 
 
@@ -94,7 +108,7 @@ def _spec_cache(cfg: SyllableDetectorConfig, device):
     hit = _spec_memo.get(key)
     if hit is None or hit[2] is not cfg:
         spec, params = detector_spec_from_config(cfg, device)
-        _spec_memo[key] = (spec, params, cfg)
+        _spec_memo[key] = [spec, params, cfg, None]  # the fold, at its first use
         while len(_spec_memo) > _SPEC_MEMO_MAX:
             _spec_memo.popitem(last=False)
         hit = _spec_memo[key]
@@ -103,17 +117,86 @@ def _spec_cache(cfg: SyllableDetectorConfig, device):
     return hit[0], hit[1]
 
 
-def _bucket(n: int) -> int:
-    """Round a stream length up to a power of two (at least 2**14)."""
-    b = 1 << 14
-    while b < n:
-        b <<= 1
-    return b
+def _cached_fold(spec: DetectorSpec, params, device: torch.device) -> Optional[FusedOperands]:
+    """The fused kernel's operands on ``device`` of a shared net that
+    :func:`_spec_cache` holds there, folded at its first use and kept beside
+    it (a fold reads the net back from the device); None for any other net,
+    which the kernel's entry folds per call."""
+    if not fusable(spec):
+        return None
+    for hit in _spec_memo.values():
+        if hit[1] is params and params["layers"][0]["w"].device == device:
+            if hit[3] is None:
+                hit[3] = fold_constants(spec, params, device)
+            return hit[3]
+    return None
+
+
+def _device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a card with its index, as the
+    device of a tensor on it reads."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _batch_length(n: int) -> int:
+    """The batch's lane length for a longest stream of ``n`` samples: ``n``
+    rounded up to 4, so that every lane's row starts on 16 bytes, where the
+    fused kernel reads its samples 16 bytes at a time."""
+    return -(-n // 4) * 4
+
+
+# one reused host buffer per device, with the event recorded after the last
+# upload out of it (None once that upload is known to be done, or on a CPU)
+_host_buffers: dict[str, tuple[torch.Tensor, Optional[torch.cuda.Event]]] = {}
+_host_lock = threading.Lock()  # held from a buffer's refill to its upload
+
+
+def _host_buffer(device: torch.device, numel: int) -> torch.Tensor:
+    """``numel`` float32 of ``device``'s host buffer, once the last upload
+    out of it has finished; page-locked for a card, so that the upload runs
+    beside the host. The buffer grows to the largest need seen. Call under
+    ``_host_lock`` and hand the view to :func:`_upload`."""
+    buf, done = _host_buffers.get(str(device), (None, None))
+    if done is not None:
+        done.synchronize()
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, pin_memory=device.type == "cuda")
+    _host_buffers[str(device)] = (buf, None)
+    return buf[:numel]
+
+
+def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A view of the host buffer copied to ``device``: on a card
+    asynchronously, with the event the buffer's next refill waits on; on a
+    CPU as a copy, since the buffer is refilled."""
+    if device.type != "cuda":
+        return host.clone()
+    out = host.to(device, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    _host_buffers[str(device)] = (_host_buffers[str(device)][0], done)
+    return out
+
+
+def _file_to_device(samples: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A file's ``[n, channels]`` samples as float32 on ``device``: one copy
+    into the host buffer, one upload."""
+    samples = np.asarray(samples, np.float32)
+    with _host_lock:
+        with timing.span("corpus.stage", lanes=samples.shape[1], samples=samples.size,
+                         staged_samples=samples.size):
+            host = _host_buffer(device, samples.size).view(samples.shape)
+            np.copyto(host.numpy(), samples)
+        with timing.span("corpus.copy_in"):
+            return _upload(host, device)
 
 
 def scan_corpus(
     cfg: SyllableDetectorConfig,
-    streams: Sequence[np.ndarray],
+    streams: Sequence[np.ndarray | torch.Tensor],
     method: str = "matmul",
     mesh=None,
     lane_configs: Optional[Sequence[SyllableDetectorConfig]] = None,
@@ -121,19 +204,23 @@ def scan_corpus(
 ) -> list[np.ndarray]:
     """Detect over many same-rate streams at once -> per-stream [E_i, outputs].
 
-    Streams are zero-padded to a common bucket and batched; each result is
-    trimmed back to the stream's true evaluation count. Zero padding cannot
-    create detections by itself, but an eval window straddling the end of a
-    short stream sees padded zeros exactly as the reference sees silence.
-    With ``mesh``, the lane axis is split across the mesh's shards (lanes
-    padded to a multiple of the mesh size); the batch is placed on
-    ``device`` and each shard takes its lanes from there.
+    ``streams`` are numpy arrays, or tensors on ``device``. They are stacked
+    as the lanes of one ``[lanes, L]`` float32 batch on ``device``, ``L`` the
+    longest stream rounded up to 4 samples, with zeros past each shorter
+    stream; each result is trimmed back to the stream's true evaluation
+    count, so no evaluation kept reads past its stream, and the zeros keep
+    the batch the same whatever the reused buffers held. Numpy streams are
+    staged as that batch in the host buffer and uploaded in one copy;
+    tensors on ``device`` are copied into it there. With ``mesh``, the lane
+    axis is split across the mesh's shards (lanes padded with zero lanes to
+    a multiple of the mesh size); the batch is placed on ``device`` and each
+    shard takes its lanes from there.
 
     ``lane_configs`` gives each stream its own DISTINCT network, one config
     per stream, all sharing ``cfg``'s pipeline geometry (thresholds may
     differ; they are applied later per lane).
     """
-    device = torch.device(device)
+    device = _device(device)
     spec, params = _spec_cache(cfg, device)
     if not streams:
         return []
@@ -152,7 +239,12 @@ def scan_corpus(
                     "geometry (sampling rate, FFT/window, band, layer sizes)"
                 )
             params.append(p_i)
-    streams = [np.asarray(s, np.float32).reshape(-1) for s in streams]
+    on_device = all(isinstance(s, torch.Tensor) and s.device == device for s in streams)
+    if on_device:
+        streams = [s.reshape(-1) for s in streams]
+    else:
+        streams = [np.asarray(s.cpu() if isinstance(s, torch.Tensor) else s, np.float32)
+                   .reshape(-1) for s in streams]
     lanes = len(streams)
     if mesh is not None:
         n_dev = int(np.prod(list(mesh.shape.values())))
@@ -160,14 +252,26 @@ def scan_corpus(
         if lane_configs is not None:
             # padding lanes reuse net 0 (their outputs are sliced away)
             params = params + [params[0]] * (lanes - len(streams))
-    bucket = _bucket(max(len(s) for s in streams))
-    with timing.span("corpus.stage", lanes=lanes, samples=sum(map(len, streams)),
-                     staged_samples=lanes * bucket):
-        xs = np.zeros((lanes, bucket), np.float32)
-        for i, s in enumerate(streams):
-            xs[i, : len(s)] = s
-    with timing.span("corpus.copy_in"):
-        xd = torch.from_numpy(xs).to(device)
+    width = _batch_length(max(len(s) for s in streams))
+    if on_device:
+        with timing.span("corpus.copy_in"):
+            xd = torch.empty((lanes, width), dtype=torch.float32, device=device)
+            for row, s in zip(xd, streams):
+                row[: len(s)].copy_(s)
+                row[len(s):].zero_()
+            xd[len(streams):].zero_()
+    else:
+        with _host_lock:
+            with timing.span("corpus.stage", lanes=lanes, samples=sum(map(len, streams)),
+                             staged_samples=lanes * width):
+                xs = _host_buffer(device, lanes * width).view(lanes, width)
+                rows = xs.numpy()
+                for row, s in zip(rows, streams):
+                    row[: len(s)] = s
+                    row[len(s):] = 0.0
+                rows[len(streams):] = 0.0
+            with timing.span("corpus.copy_in"):
+                xd = _upload(xs, device)
     with timing.span("corpus.detect"):
         if mesh is not None:
             outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
@@ -220,15 +324,19 @@ def scan_corpus_files(
     file, detection lines are emitted grouped by channel in channel order —
     identical to sequential mode for files shorter than its chunk size.
 
+    Each file's samples cross to ``device`` once (:func:`scan_corpus`'s host
+    buffer, one upload); resampling and the batch stay there.
+
     ``group_files`` bounds memory on huge corpora: files are scanned in
     groups of that many (output order and the CSV contract unchanged —
     file-major), so one long file no longer forces every lane to its
-    padded bucket length and the whole corpus never sits in memory at once.
+    length and the whole corpus never sits in memory at once.
 
     ``cfg`` may be a sequence of configs: channel c of every file then uses
     network ``cfgs[c % len(cfgs)]`` (cycled); all nets must share the first
     network's pipeline geometry.
     """
+    device = _device(device)
     with timing.span("corpus.scan"):
         cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg]
         cfg = cfgs[0]
@@ -253,6 +361,7 @@ def scan_corpus_files(
             except (OSError, ValueError) as e:
                 err(f"Unable to read {p}: {e}")
                 continue
+            samples = _file_to_device(samples, device)
             if rate != cfg.sampling_rate and not resample:
                 # the sequential path's --no-resample contract: warn and process
                 # at the network rate
@@ -265,7 +374,7 @@ def scan_corpus_files(
                 samples = resample_channels(samples, rate, cfg.sampling_rate, device)
             good_paths.append(p)
             for c in range(samples.shape[1]):
-                streams.append(np.ascontiguousarray(samples[:, c]))
+                streams.append(samples[:, c])
                 lanes.append((len(good_paths) - 1, c))
         if not streams:
             return
@@ -289,16 +398,19 @@ def scan_corpus_files(
                     emit(line)
 
 
-def resample_channels(samples: np.ndarray, rate: float, net_rate: float, device) -> np.ndarray:
+def resample_channels(
+    samples: np.ndarray | torch.Tensor, rate: float, net_rate: float, device
+) -> np.ndarray | torch.Tensor:
     """[n, channels] samples at ``rate`` -> [n', channels] float32 at
-    ``net_rate``: each channel through the polyphase resampler on ``device``."""
+    ``net_rate``: each channel through the polyphase resampler on ``device``.
+    A tensor gives a tensor on ``device``, with nothing copied to the host;
+    numpy gives numpy."""
     with timing.span("corpus.resample", channels=samples.shape[1]):
-        return np.stack(
-            [
-                polyphase_resample(
-                    np.ascontiguousarray(samples[:, c]), rate, net_rate, device=device
-                ).cpu().numpy()
-                for c in range(samples.shape[1])
-            ],
-            axis=1,
+        if isinstance(samples, torch.Tensor):
+            channels = [samples[:, c] for c in range(samples.shape[1])]
+        else:
+            channels = [np.ascontiguousarray(samples[:, c]) for c in range(samples.shape[1])]
+        out = torch.stack(
+            [polyphase_resample(x, rate, net_rate, device=device) for x in channels], 1
         )
+        return out if isinstance(samples, torch.Tensor) else out.cpu().numpy()

@@ -16,6 +16,9 @@ Pallas interpret mode here.
 import contextlib
 import dataclasses
 import io
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,9 +33,13 @@ from syllable_detector_tpu_torch import fixtures
 from syllable_detector_tpu_torch import sim as tsim
 from syllable_detector_tpu_torch.cli import main as port_main
 from syllable_detector_tpu_torch.ops.resample import polyphase_resample
+from syllable_detector_tpu_torch.ops.stft import num_frames
+from syllable_detector_tpu_torch.parallel import mesh as pmesh
 from test_torch_cli import assert_csv_close, run, run_jax, split_files
 
 torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +89,128 @@ def test_scan_corpus_checks_lane_geometry(corpus):
     cfgs, streams, _ = corpus
     with pytest.raises(ValueError, match="share the first network's geometry"):
         tcorpus.scan_corpus(cfgs[0], streams[:2], lane_configs=[cfgs[0], fixtures.gap_config()], device="cpu")
-    assert tcorpus._bucket(1) == 1 << 14 and tcorpus._bucket((1 << 15) + 1) == 1 << 16
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+@pytest.mark.parametrize("form", ["tensors", "mixed"])
+def test_scan_corpus_takes_streams_as_tensors_or_numpy(corpus, method, form, monkeypatch):
+    """Streams given as tensors on the device (copied into the batch there),
+    or some of them as numpy (the whole batch staged on the host), give the
+    outputs of numpy streams bit for bit, with every tensor the scan makes
+    by ``torch.empty`` filled with NaN first: nothing reads what it did not
+    write."""
+    cfgs, streams, _ = corpus
+    want = tcorpus.scan_corpus(cfgs[0], streams, method=method, device="cpu")
+    given = [torch.from_numpy(s) if form == "tensors" or i % 2 else s
+             for i, s in enumerate(streams)]
+    empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+    tcorpus._host_buffers.clear()
+    got = tcorpus.scan_corpus(cfgs[0], given, method=method, device="cpu")
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and len(g) > 50
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("shards", [None, 3], ids=["unsharded", "mesh3"])
+@pytest.mark.parametrize("form", ["numpy", "tensors"])
+def test_scan_corpus_batch_holds_each_stream_then_zeros(corpus, form, shards, monkeypatch):
+    """The batch handed to detection is ``[lanes, L]``, ``L`` the longest
+    stream rounded up to 4: each lane holds its stream, then zeros, and a
+    mesh's padding lanes hold zeros, though every tensor the scan makes by
+    ``torch.empty`` starts as NaN."""
+    cfgs, streams, _ = corpus
+    given = [torch.from_numpy(s) for s in streams] if form == "tensors" else streams
+    empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    batches = []
+    plain, sharded = tcorpus.batch_offline_outputs_shared, tcorpus.sharded_batch_offline_outputs_shared
+    monkeypatch.setattr(torch, "empty", poisoned)
+    monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
+                        lambda spec, params, xs, method: batches.append(xs.clone())
+                        or plain(spec, params, xs, method))
+    monkeypatch.setattr(tcorpus, "sharded_batch_offline_outputs_shared",
+                        lambda mesh, spec, params, xs, method: batches.append(xs.clone())
+                        or sharded(mesh, spec, params, xs, method))
+    tcorpus._host_buffers.clear()
+    mesh = None if shards is None else pmesh.make_mesh(shards, devices=["cpu"])
+    got = tcorpus.scan_corpus(cfgs[0], given, mesh=mesh, device="cpu")
+    batch, = batches
+    lanes = len(streams) if shards is None else 6
+    want = np.zeros((lanes, -(-max(map(len, streams)) // 4) * 4), np.float32)
+    for row, s in zip(want, streams):
+        row[: len(s)] = s
+    np.testing.assert_array_equal(batch.numpy(), want)
+    assert [len(g) for g in got] == [
+        num_frames(len(s), cfgs[0].window_length, cfgs[0].window_overlap)
+        - cfgs[0].time_range + 1 for s in streams]
+
+
+FRESH_SCAN = """
+import sys
+import numpy as np
+import torch
+from syllable_detector_tpu_torch import corpus
+from syllable_detector_tpu_torch.config.model_format import load_config
+torch.set_num_threads(1)
+streams = list(np.load(sys.argv[1]).values())
+batches, plain = [], corpus.batch_offline_outputs_shared
+corpus.batch_offline_outputs_shared = lambda *a: batches.append(a[2].clone()) or plain(*a)
+outs = corpus.scan_corpus(load_config(sys.argv[2]), streams, method=sys.argv[3], device="cpu")
+np.savez(sys.argv[4], batches[0].numpy(), *outs)
+"""
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_scan_corpus_reuses_its_host_buffer_without_stale_samples(corpus, method, tmp_path,
+                                                                  monkeypatch):
+    """A scan after a longer and wider one refills the same host buffer: its
+    batch and outputs equal, bit for bit, those of a fresh process, so the
+    tails of its shorter lanes hold zeros, not the first scan's samples."""
+    cfgs, streams, p = corpus
+    wide = [fixtures.chirp_audio(0.9, 60 + i) for i in range(6)]
+    tcorpus.scan_corpus(cfgs[0], wide, method=method, device="cpu")
+    buffer = tcorpus._host_buffers["cpu"][0]
+    assert buffer.numel() >= 6 * len(wide[0])
+    batches, plain = [], tcorpus.batch_offline_outputs_shared
+    monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
+                        lambda *a: batches.append(a[2].clone()) or plain(*a))
+    got = tcorpus.scan_corpus(cfgs[0], streams, method=method, device="cpu")
+    assert tcorpus._host_buffers["cpu"][0] is buffer  # reused, not reallocated
+    np.savez(tmp_path / "streams.npz", *streams)
+    subprocess.run([sys.executable, "-c", FRESH_SCAN, str(tmp_path / "streams.npz"), p["net0"],
+                    method, str(tmp_path / "fresh.npz")], cwd=REPO, check=True, timeout=300)
+    fresh_batch, *fresh = np.load(tmp_path / "fresh.npz").values()
+    np.testing.assert_array_equal(batches[0].numpy(), fresh_batch)
+    assert len(got) == len(fresh) == 4
+    for g, w in zip(got, fresh):
+        assert g.shape == w.shape and len(g) > 50
+        np.testing.assert_array_equal(g, w)
+
+
+def test_resample_channels_returns_what_it_was_given(corpus):
+    """numpy in, numpy out; a tensor in, a tensor on the device out; the same
+    float32 values, each channel the polyphase resampler's."""
+    x = np.stack([fixtures.chirp_audio(0.4, 70), fixtures.chirp_audio(0.4, 71)], 1)
+    got_np = tcorpus.resample_channels(x, 48000, 44100, "cpu")
+    got_t = tcorpus.resample_channels(torch.from_numpy(x), 48000, 44100, "cpu")
+    assert isinstance(got_np, np.ndarray) and isinstance(got_t, torch.Tensor)
+    assert got_np.dtype == np.float32 and got_t.dtype == torch.float32
+    assert got_np.shape == tuple(got_t.shape) == (-(-len(x) * 147 // 160), 2)
+    np.testing.assert_array_equal(got_t.numpy(), got_np)
+    for c in range(2):
+        want = polyphase_resample(np.ascontiguousarray(x[:, c]), 48000, 44100, device="cpu")
+        np.testing.assert_array_equal(got_np[:, c], want.numpy())
 
 
 def _runs(rng, n, run, gap, value=1.0):

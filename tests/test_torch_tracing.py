@@ -11,6 +11,7 @@ spans times the live cell's rounds over a 30 s window fit the ring.
 
 import contextlib
 import io
+import json
 import threading
 import time
 
@@ -160,18 +161,19 @@ def corpus_files(tmp_path_factory):
     return cfg, paths
 
 
-def scan(cfg, paths, debounce_seconds=None):
+def scan(cfg, paths, debounce_seconds=None, device="cpu"):
     lines = []
     corpus.scan_corpus_files(cfg, paths, debounce_seconds=debounce_seconds, emit=lines.append,
-                             err=lambda s: None, method="fused", device="cpu")
+                             err=lambda s: None, method="fused", device=device)
     return lines
 
 
 def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_files):
     cfg, paths = corpus_files
-    lanes = []  # each lane's samples at the net's rate
+    files, lanes = [], []  # each file's samples at its rate; each lane's at the net's
     for p in paths:
         x, rate = read_audio(p)
+        files.append(x.size)
         if rate != cfg.sampling_rate:
             x = corpus.resample_channels(x, rate, cfg.sampling_rate, "cpu")
         lanes += [x.shape[0]] * x.shape[1]
@@ -180,14 +182,19 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     assert len(got) <= 40
     root, = named(got, "corpus.scan")
     assert got[-1] is root and all(s.parent == root.id for s in got[:-1])
-    assert len(named(got, "corpus.read")) == 3
+    reads = named(got, "corpus.read")
+    assert len(reads) == 3
     assert [s.counts for s in named(got, "corpus.resample")] == [{"channels": 2}]
-    stage, = named(got, "corpus.stage")
-    bucket = corpus._bucket(max(lanes))
-    assert stage.counts == {"lanes": 6, "samples": sum(lanes), "staged_samples": 6 * bucket}
-    steps = [stage] + [named(got, n)[0] for n in ("corpus.copy_in", "corpus.detect",
-                                                  "corpus.readback")]
-    assert in_order(*steps) and len(got) == 3 + 1 + 4 + 6 + 1
+    # each file staged whole in the host buffer and uploaded once; the batch
+    # is assembled on the device, behind the last file
+    stages, copies = named(got, "corpus.stage"), named(got, "corpus.copy_in")
+    assert [s.counts for s in stages] == [
+        {"lanes": 2, "samples": n, "staged_samples": n} for n in files]
+    assert len(copies) == 4
+    for read, stage, copy in zip(reads, stages, copies):
+        assert in_order(read, stage, copy)
+    steps = [copies[-1]] + [named(got, n)[0] for n in ("corpus.detect", "corpus.readback")]
+    assert in_order(*steps) and len(got) == 3 + 3 + 4 + 1 + 2 + 6 + 1
     csv = named(got, "corpus.csv")
     evals = [max(0, num_frames(n, cfg.window_length, cfg.window_overlap) - cfg.time_range + 1)
              for n in lanes]
@@ -205,6 +212,100 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
         [line for line in debounced if line not in paths]) < len(detections)
     timing.set_recording(False)
     assert scan(cfg, paths) == lines
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_corpus_scan_stages_its_lanes_at_the_longest_stream(method):
+    """Lanes of four lengths are staged as ``lanes x`` the longest (rounded
+    up to 4 samples), and each lane's outputs equal, bit for bit, those of
+    the same streams zero-padded to the power-of-two bucket the scan used to
+    take, through the same plain path."""
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
+                                   fixtures.chirp_audio(1.0, 5))
+    streams = [fixtures.chirp_audio(s, 30 + i) for i, s in enumerate((0.6, 0.37, 0.5, 0.91))]
+    longest = max(map(len, streams))
+    assert longest % 4  # the rounding is exercised
+    got, spans = recorded(lambda: corpus.scan_corpus(cfg, streams, method=method, device="cpu"))
+    stage, = named(spans, "corpus.stage")
+    assert stage.counts == {"lanes": 4, "samples": sum(map(len, streams)),
+                            "staged_samples": 4 * (longest + 4 - longest % 4)}
+    bucket = 1 << max(14, (longest - 1).bit_length())
+    padded = np.zeros((4, bucket), np.float32)
+    for row, s in zip(padded, streams):
+        row[: len(s)] = s
+    spec, params = corpus._spec_cache(cfg, torch.device("cpu"))
+    want = corpus.batch_offline_outputs_shared(spec, params, torch.from_numpy(padded), method)
+    for g, w, s in zip(got, want.numpy(), streams):
+        evals = num_frames(len(s), cfg.window_length, cfg.window_overlap) - cfg.time_range + 1
+        assert g.shape == (evals, 1) and evals > 50
+        np.testing.assert_array_equal(g, w[:evals])
+
+
+@pytest.fixture(scope="module")
+def card_files(tmp_path_factory):
+    """On a card: a net and three two-channel files of 2**18 frames, at 48
+    and 96 kHz (resampled by the scan) and at the net's 44.1 kHz."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the fused kernel and the resampler run only there)")
+    folder = tmp_path_factory.mktemp("card")
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(4),
+                                   fixtures.chirp_audio(1.0, 6))
+    paths = []
+    for i, rate in enumerate((48000, 96000, 44100)):
+        x = np.stack([fixtures.chirp_audio(1 + 2**18 / rate, 20 * i + c, rate)[: 2**18]
+                      for c in range(2)], 1)
+        paths.append(str(folder / f"c{i}.wav"))
+        write_wav(paths[-1], x, rate, dtype="float32")
+    return cfg, paths
+
+
+def device_to_host_bytes(fn, path) -> list[int]:
+    """The bytes of each device-to-host copy in a ``torch.profiler`` trace of
+    ``fn()``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [int(e["args"]["bytes"]) for e in events
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+
+
+@pytest.mark.cuda
+def test_card_scan_batch_equals_the_numpy_route_and_reads_back_only_outputs(
+        card_files, monkeypatch, tmp_path):
+    """On the card, the files' route (each file uploaded once, resampled and
+    written into the batch there) gives the batch and K1 outputs of numpy
+    streams, read, resampled to numpy and scanned, bit for bit; and the only
+    copy back to the host is the outputs'."""
+    cfg, paths = card_files
+    seen = []
+    batch = corpus.batch_offline_outputs_shared
+
+    def keep(spec, params, xs, method="matmul"):
+        out = batch(spec, params, xs, method)
+        seen.append((xs.clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(corpus, "batch_offline_outputs_shared", keep)
+    streams = []
+    for p in paths:
+        x, rate = read_audio(p)
+        if rate != cfg.sampling_rate:
+            x = corpus.resample_channels(x, rate, cfg.sampling_rate, "cuda")
+            assert isinstance(x, np.ndarray)
+        streams += [np.ascontiguousarray(x[:, c]) for c in range(x.shape[1])]
+    corpus.scan_corpus(cfg, streams, method="fused", device="cuda")
+    lines = scan(cfg, paths, device="cuda")
+    (xs_np, out_np), (xs_files, out_files) = seen
+    longest = max(map(len, streams))
+    assert xs_files.shape == (6, -(-longest // 4) * 4) and xs_files.is_cuda
+    assert torch.equal(xs_files, xs_np)
+    np.testing.assert_array_equal(out_files.cpu().numpy(), out_np.cpu().numpy())
+    assert any(line not in paths for line in lines)
+    device_to_host_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "warm.json")
+    copies = device_to_host_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "scan.json")
+    assert copies == [out_files.numel() * 4]
 
 
 # -- the train CLI and the trainer ---------------------------------------------
