@@ -9,9 +9,11 @@ of the fused detector kernel over all lanes (shared or per-lane nets),
 otherwise the unfused path over every lane. Per-file sample accounting and
 debounce reproduce ``TrackDetector``'s.
 
-Samples cross to the device once. Each file's decoded block is copied into
-one reused host buffer (page-locked on a card) and uploaded from there
-asynchronously; files whose rate differs from the net's are resampled per
+Samples cross to the device once. Each file lands in a room of one reused
+host buffer a device, used as a ring (page-locked on a card), and is
+uploaded from there asynchronously: a 16-bit PCM WAV's codes read straight
+in and scaled to float32 on the device, any other file decoded on the host
+and its float32 block copied in. Files whose rate differs from the net's are resampled per
 channel on the device by the polyphase resampler (the framed GEMM kernel on
 a card), and the lanes are written into the batch there.
 
@@ -23,9 +25,11 @@ each on its own device and stream.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import threading
 from collections import OrderedDict
+from time import perf_counter_ns
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,7 +51,7 @@ from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.ops.stft import num_frames
 from syllable_detector_tpu_torch.runtime.track_detector import _detection_lines
 from syllable_detector_tpu_torch.utils import timing
-from syllable_detector_tpu_torch.utils.wav import read_audio
+from syllable_detector_tpu_torch.utils.wav import _read_pcm16_into, read_audio
 
 __all__ = [
     "batch_offline_outputs_shared",
@@ -148,50 +152,134 @@ def _batch_length(n: int) -> int:
     return -(-n // 4) * 4
 
 
-# one reused host buffer per device, with the event recorded after the last
-# upload out of it (None once that upload is known to be done, or on a CPU)
-_host_buffers: dict[str, tuple[torch.Tensor, Optional[torch.cuda.Event]]] = {}
-_host_lock = threading.Lock()  # held from a buffer's refill to its upload
+_ALIGN = 64  # bytes: where each room of a host ring starts
+_FILE_ROOMS = 3  # rooms of the largest file a host ring holds
 
 
-def _host_buffer(device: torch.device, numel: int) -> torch.Tensor:
-    """``numel`` float32 of ``device``'s host buffer, once the last upload
-    out of it has finished; page-locked for a card, so that the upload runs
-    beside the host. The buffer grows to the largest need seen. Call under
-    ``_host_lock`` and hand the view to :func:`_upload`."""
-    buf, done = _host_buffers.get(str(device), (None, None))
-    if done is not None:
-        done.synchronize()
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.float32, pin_memory=device.type == "cuda")
-    _host_buffers[str(device)] = (buf, None)
-    return buf[:numel]
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+class _HostRing:
+    """A device's reused host buffer of bytes (page-locked on a card), handed
+    out as a ring of rooms, one for each upload: a room starts after the one
+    before, or at the buffer's start where it does not fit there, and waits
+    only for the uploads out of the rooms it overlaps (the events recorded
+    by :meth:`uploaded`; a CPU's copies are done when they return). Use
+    under ``_host_lock``, from a room's taking to its upload."""
+
+    def __init__(self):
+        self.buf = torch.empty(0, dtype=torch.uint8)
+        self.head = 0
+        self.live: list[tuple[int, int, torch.cuda.Event]] = []  # oldest first
+
+    def fit(self, device: torch.device, nbytes: int) -> None:
+        """Grow the buffer to ``nbytes`` or more, once every upload out of
+        it has finished."""
+        if self.buf.numel() < nbytes:
+            self._wait(0, self.buf.numel())
+            self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
+            self.head = 0
+
+    def room(self, device: torch.device, nbytes: int, rooms: int = _FILE_ROOMS) -> torch.Tensor:
+        """``nbytes`` bytes of the buffer, grown to hold ``rooms`` such
+        rooms at least. Three rooms of a scan's largest file keep each
+        file's room off the room of the file before: no file's read waits on
+        the upload of the file before it."""
+        size = _aligned(nbytes)
+        self.fit(device, rooms * size)
+        if self.head + size > self.buf.numel():
+            self.head = 0
+        at, self.head = self.head, self.head + size
+        self._wait(at, self.head)
+        return self.buf[at : at + nbytes]
+
+    def uploaded(self, device: torch.device, room: torch.Tensor) -> None:
+        """Record, on a card, the event after the uploads enqueued out of
+        ``room``, on which a later room over it waits."""
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            at = room.data_ptr() - self.buf.data_ptr()
+            self.live.append((at, at + room.numel(), done))
+
+    def _wait(self, lo: int, hi: int) -> None:
+        while self.live and self.live[0][2].query():  # finished, oldest first
+            self.live.pop(0)
+        for at, end, done in self.live:
+            if at < hi and lo < end:
+                done.synchronize()
+        self.live = [r for r in self.live if not (r[0] < hi and lo < r[1])]
+
+
+_host_buffers: dict[str, _HostRing] = {}  # one a device
+_host_lock = threading.Lock()
+
+
+def _host_ring(device: torch.device) -> _HostRing:
+    return _host_buffers.setdefault(str(device), _HostRing())
 
 
 def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A view of the host buffer copied to ``device``: on a card
-    asynchronously, with the event the buffer's next refill waits on; on a
-    CPU as a copy, since the buffer is refilled."""
+    """A view of a host ring copied to ``device``: on a card
+    asynchronously; on a CPU as a copy, since the ring is refilled."""
     if device.type != "cuda":
         return host.clone()
-    out = host.to(device, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(device))
-    _host_buffers[str(device)] = (_host_buffers[str(device)][0], done)
-    return out
+    return host.to(device, non_blocking=True)
 
 
-def _file_to_device(samples: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A file's ``[n, channels]`` samples as float32 on ``device``: one copy
-    into the host buffer, one upload."""
-    samples = np.asarray(samples, np.float32)
+def _file_size(path) -> int:
+    try:
+        return os.stat(path).st_size
+    except OSError:
+        return 0  # the read reports it
+
+
+def _file_to_device(path: str, device: torch.device, size: int) -> tuple[torch.Tensor, int]:
+    """A file's ``[n, channels]`` samples as float32 on ``device``, and its
+    rate: read into a room of the device's host ring, uploaded once.
+
+    The room, of ``size``, the file's size on disk, is taken before the
+    read, so that its wait is the stage's and not the read's. A 16-bit PCM
+    WAV's codes are read straight into it (:func:`_read_pcm16_into`),
+    uploaded as int16 and scaled by 2**-15 on the device: every int16 and
+    its product are exact in float32, so the samples equal
+    :func:`read_audio`'s bit for bit. Any other file is decoded by
+    :func:`read_audio` and its float32 block copied into the room, or into
+    a larger one. Raises what the read raises."""
+    ring = _host_ring(device)
     with _host_lock:
+        t0 = perf_counter_ns()
+        room = ring.room(device, size)
+        waited = (t0, perf_counter_ns())
+        with timing.span("corpus.read", direct=0) as read:
+            direct = _read_pcm16_into(path, room.numpy())
+            if direct is None:
+                samples, rate = read_audio(path)
+            else:
+                read.counts["direct"] = 1
+        if direct is not None:
+            nbytes, channels, rate = direct
+            n = nbytes // (2 * channels)
+            timing.record("corpus.stage", *waited, lanes=channels, samples=n * channels,
+                          staged_samples=n * channels)
+            with timing.span("corpus.copy_in"):
+                codes = room[:nbytes].view(torch.int16).view(n, channels)
+                if device.type == "cuda":
+                    codes = codes.to(device, non_blocking=True)
+                ring.uploaded(device, room)
+                return codes.to(torch.float32).mul_(2.0**-15), rate
+        samples = np.asarray(samples, np.float32)
         with timing.span("corpus.stage", lanes=samples.shape[1], samples=samples.size,
                          staged_samples=samples.size):
-            host = _host_buffer(device, samples.size).view(samples.shape)
+            if samples.nbytes > room.numel():
+                room = ring.room(device, samples.nbytes)
+            host = room[: samples.nbytes].view(torch.float32).view(samples.shape)
             np.copyto(host.numpy(), samples)
         with timing.span("corpus.copy_in"):
-            return _upload(host, device)
+            out = _upload(host, device)
+            ring.uploaded(device, room)
+            return out, rate
 
 
 def scan_corpus(
@@ -261,10 +349,12 @@ def scan_corpus(
                 row[len(s):].zero_()
             xd[len(streams):].zero_()
     else:
+        ring = _host_ring(device)
         with _host_lock:
             with timing.span("corpus.stage", lanes=lanes, samples=sum(map(len, streams)),
                              staged_samples=lanes * width):
-                xs = _host_buffer(device, lanes * width).view(lanes, width)
+                room = ring.room(device, lanes * width * 4, rooms=1)
+                xs = room.view(torch.float32).view(lanes, width)
                 rows = xs.numpy()
                 for row, s in zip(rows, streams):
                     row[: len(s)] = s
@@ -272,6 +362,7 @@ def scan_corpus(
                 rows[len(streams):] = 0.0
             with timing.span("corpus.copy_in"):
                 xd = _upload(xs, device)
+                ring.uploaded(device, room)
     with timing.span("corpus.detect"):
         if mesh is not None:
             outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
@@ -324,8 +415,8 @@ def scan_corpus_files(
     file, detection lines are emitted grouped by channel in channel order —
     identical to sequential mode for files shorter than its chunk size.
 
-    Each file's samples cross to ``device`` once (:func:`scan_corpus`'s host
-    buffer, one upload); resampling and the batch stay there.
+    Each file's samples cross to ``device`` once (:func:`_file_to_device`:
+    the host buffer, one upload); resampling and the batch stay there.
 
     ``group_files`` bounds memory on huge corpora: files are scanned in
     groups of that many (output order and the CSV contract unchanged —
@@ -354,14 +445,15 @@ def scan_corpus_files(
         streams = []  # one entry per (file, channel) lane
         lanes = []  # (path index, channel)
         good_paths = []
-        for p in paths:
+        sizes = [_file_size(p) for p in paths]
+        with _host_lock:  # grown once, to the largest file
+            _host_ring(device).fit(device, _FILE_ROOMS * _aligned(max(sizes, default=0)))
+        for p, size in zip(paths, sizes):
             try:
-                with timing.span("corpus.read"):
-                    samples, rate = read_audio(p)
+                samples, rate = _file_to_device(p, device, size)
             except (OSError, ValueError) as e:
                 err(f"Unable to read {p}: {e}")
                 continue
-            samples = _file_to_device(samples, device)
             if rate != cfg.sampling_rate and not resample:
                 # the sequential path's --no-resample contract: warn and process
                 # at the network rate

@@ -7,13 +7,21 @@ here WAV is parsed directly (PCM 8/16/24/32-bit, IEEE float32/64,
 WAVE_FORMAT_EXTENSIBLE) and AIFF/AIFC and Sun AU ride the stdlib decoders.
 Integers normalize to [-1, 1) with the CoreAudio convention (int16 / 32768
 etc.). No external dependencies.
+
+:func:`_read_pcm16_into` reads a 16-bit PCM WAV's codes as they are into a
+buffer the caller gives, for a caller that scales them elsewhere (the corpus
+scan, on the device).
 """
 
 from __future__ import annotations
 
+import io
+import os
+import stat
 import struct
+import sys
 import warnings
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 
@@ -24,32 +32,37 @@ _IEEE_FLOAT = 3
 _EXTENSIBLE = 0xFFFE
 
 
-def read_wav(path: Union[str, "os.PathLike"]) -> tuple[np.ndarray, int]:
-    """Read a WAV file -> (samples [n, channels] float32 in [-1, 1], rate)."""
-    with open(path, "rb") as fh:
-        header = fh.read(12)
-        if len(header) < 12:
-            raise ValueError(f"{path}: truncated WAV header")
-        riff, size, wave_id = struct.unpack("<4sI4s", header)
-        if riff != b"RIFF" or wave_id != b"WAVE":
-            raise ValueError(f"{path}: not a RIFF/WAVE file")
-        fmt = None
-        data = None
-        while True:
-            header = fh.read(8)
-            if len(header) < 8:
-                break
-            chunk_id, chunk_size = struct.unpack("<4sI", header)
-            payload = fh.read(chunk_size)
-            if chunk_size % 2:
-                fh.read(1)  # chunks are word-aligned
-            if chunk_id == b"fmt ":
-                fmt = payload
-            elif chunk_id == b"data":
-                data = payload
-        if fmt is None or data is None:
-            raise ValueError(f"{path}: missing fmt/data chunk")
+def _wav_layout(fh, path) -> tuple[bytes, int, int]:
+    """Walk the chunks of the RIFF/WAVE file open in ``fh`` by their
+    headers: (the last ``fmt `` chunk's payload, the last ``data`` chunk's
+    offset in the file, the bytes of it the file holds). A chunk's odd size
+    is followed by a pad byte; a chunk cut short by the end of the file ends
+    the walk. Only ``fmt ``'s payload is read."""
+    header = fh.read(12)
+    if len(header) < 12:
+        raise ValueError(f"{path}: truncated WAV header")
+    riff, _size, wave_id = struct.unpack("<4sI4s", header)
+    if riff != b"RIFF" or wave_id != b"WAVE":
+        raise ValueError(f"{path}: not a RIFF/WAVE file")
+    end = fh.seek(0, os.SEEK_END)
+    fmt, data, pos = None, None, 12
+    while pos + 8 <= end:
+        fh.seek(pos)
+        chunk_id, chunk_size = struct.unpack("<4sI", fh.read(8))
+        pos += 8
+        if chunk_id == b"fmt ":
+            fmt = fh.read(chunk_size)
+        elif chunk_id == b"data":
+            data = (pos, min(chunk_size, end - pos))
+        pos += chunk_size + chunk_size % 2  # chunks are word-aligned
+    if fmt is None or data is None:
+        raise ValueError(f"{path}: missing fmt/data chunk")
+    return fmt, *data
 
+
+def _wav_format(fmt: bytes, path) -> tuple[int, int, int, int, int]:
+    """A ``fmt `` payload -> (format code, channels, rate, block align,
+    bits); WAVE_FORMAT_EXTENSIBLE gives its subformat's code."""
     if len(fmt) < 16:
         raise ValueError(f"{path}: truncated fmt chunk")
     (audio_format, channels, rate, _byte_rate, block_align, bits) = struct.unpack(
@@ -62,6 +75,18 @@ def read_wav(path: Union[str, "os.PathLike"]) -> tuple[np.ndarray, int]:
         if len(fmt) < 26:
             raise ValueError(f"{path}: truncated WAVE_FORMAT_EXTENSIBLE fmt chunk")
         audio_format = struct.unpack("<H", fmt[24:26])[0]
+    return audio_format, channels, int(rate), block_align, bits
+
+
+def read_wav(path: Union[str, "os.PathLike"]) -> tuple[np.ndarray, int]:
+    """Read a WAV file -> (samples [n, channels] float32 in [-1, 1], rate)."""
+    with open(path, "rb") as fh:
+        if not fh.seekable():  # a pipe: walked in memory
+            fh = io.BytesIO(fh.read())
+        fmt, offset, length = _wav_layout(fh, path)
+        fh.seek(offset)
+        data = fh.read(length)
+    audio_format, channels, rate, block_align, bits = _wav_format(fmt, path)
 
     n_frames = len(data) // block_align
     data = data[: n_frames * block_align]
@@ -95,7 +120,41 @@ def read_wav(path: Union[str, "os.PathLike"]) -> tuple[np.ndarray, int]:
     else:
         raise ValueError(f"{path}: unsupported WAV format code {audio_format}")
 
-    return x.reshape(n_frames, channels), int(rate)
+    return x.reshape(n_frames, channels), rate
+
+
+def _read_pcm16_into(path, buffer) -> Optional[tuple[int, int, int]]:
+    """Read a 16-bit PCM WAV's data chunk as it is, little-endian int16
+    codes frame after frame, into the writable ``buffer`` with one
+    ``readinto``: (the bytes of the whole frames read, channels, rate).
+
+    The file is opened unbuffered and walked as :func:`read_wav` walks it
+    (:func:`_wav_layout`, :func:`_wav_format`), so the codes are those that
+    :func:`read_wav` divides by 32768, frame for frame. Returns None, with
+    no sample read, for every file :func:`read_wav` would not decode as
+    16-bit PCM (WAVE_FORMAT_EXTENSIBLE with a PCM subformat included) or
+    would refuse, whose data chunk does not fit ``buffer``, that is not a
+    regular file, and on a big-endian host. Raises OSError where the file
+    cannot be opened.
+    """
+    if sys.byteorder != "little":
+        return None
+    with open(path, "rb", buffering=0) as fh:
+        if not stat.S_ISREG(os.fstat(fh.fileno()).st_mode):
+            return None
+        try:
+            fmt, offset, length = _wav_layout(fh, path)
+            audio_format, channels, rate, block_align, bits = _wav_format(fmt, path)
+        except ValueError:
+            return None
+        view = memoryview(buffer).cast("B")
+        if audio_format != _PCM or bits != 16 or block_align != 2 * channels or length > len(view):
+            return None
+        fh.seek(offset)
+        got = 0
+        while got < length and (n := fh.readinto(view[got:length])):
+            got += n
+    return got - got % block_align, channels, rate
 
 
 def _pcm_bytes_to_float(data: bytes, sampwidth: int, big_endian: bool) -> np.ndarray:

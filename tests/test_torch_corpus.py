@@ -17,8 +17,11 @@ import contextlib
 import dataclasses
 import io
 import pathlib
+import struct
 import subprocess
 import sys
+import time
+import warnings
 
 import numpy as np
 import pytest
@@ -35,6 +38,8 @@ from syllable_detector_tpu_torch.cli import main as port_main
 from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.ops.stft import num_frames
 from syllable_detector_tpu_torch.parallel import mesh as pmesh
+from syllable_detector_tpu_torch.utils import timing
+from syllable_detector_tpu_torch.utils import wav as twav
 from test_torch_cli import assert_csv_close, run, run_jax, split_files
 
 torch.set_num_threads(1)
@@ -55,6 +60,10 @@ def corpus(tmp_path_factory):
     write_wav(p["two"], two, 44100, dtype="float32")
     write_wav(p["fast"], fast, 48000, dtype="float32")
     write_wav(p["one"], one, 44100, dtype="float32")
+    for name in ("two", "fast", "one"):  # 16-bit copies, read straight in by the port
+        x, rate = read_audio(p[name])
+        p[name + "16"] = str(d / f"{name}16.wav")
+        write_wav(p[name + "16"], x, rate, dtype="int16")
     for i, cfg in enumerate(cfgs):
         p[f"net{i}"] = str(d / f"net{i}.txt")
         save_config(cfg, p[f"net{i}"])
@@ -97,8 +106,8 @@ def test_scan_corpus_takes_streams_as_tensors_or_numpy(corpus, method, form, mon
     """Streams given as tensors on the device (copied into the batch there),
     or some of them as numpy (the whole batch staged on the host), give the
     outputs of numpy streams bit for bit, with every tensor the scan makes
-    by ``torch.empty`` filled with NaN first: nothing reads what it did not
-    write."""
+    by ``torch.empty`` filled with NaN first (the host buffer's bytes with
+    0xFF, NaN as float32): nothing reads what it did not write."""
     cfgs, streams, _ = corpus
     want = tcorpus.scan_corpus(cfgs[0], streams, method=method, device="cpu")
     given = [torch.from_numpy(s) if form == "tensors" or i % 2 else s
@@ -107,6 +116,8 @@ def test_scan_corpus_takes_streams_as_tensors_or_numpy(corpus, method, form, mon
 
     def poisoned(*args, **kwargs):
         t = empty(*args, **kwargs)
+        if t.dtype == torch.uint8:  # the host buffer: NaN read as float32
+            return t.fill_(255)
         return t.fill_(float("nan")) if t.is_floating_point() else t
 
     monkeypatch.setattr(torch, "empty", poisoned)
@@ -124,13 +135,15 @@ def test_scan_corpus_batch_holds_each_stream_then_zeros(corpus, form, shards, mo
     """The batch handed to detection is ``[lanes, L]``, ``L`` the longest
     stream rounded up to 4: each lane holds its stream, then zeros, and a
     mesh's padding lanes hold zeros, though every tensor the scan makes by
-    ``torch.empty`` starts as NaN."""
+    ``torch.empty`` starts as NaN (the host buffer's bytes as 0xFF)."""
     cfgs, streams, _ = corpus
     given = [torch.from_numpy(s) for s in streams] if form == "tensors" else streams
     empty = torch.empty
 
     def poisoned(*args, **kwargs):
         t = empty(*args, **kwargs)
+        if t.dtype == torch.uint8:  # the host buffer: NaN read as float32
+            return t.fill_(255)
         return t.fill_(float("nan")) if t.is_floating_point() else t
 
     batches = []
@@ -180,13 +193,13 @@ def test_scan_corpus_reuses_its_host_buffer_without_stale_samples(corpus, method
     cfgs, streams, p = corpus
     wide = [fixtures.chirp_audio(0.9, 60 + i) for i in range(6)]
     tcorpus.scan_corpus(cfgs[0], wide, method=method, device="cpu")
-    buffer = tcorpus._host_buffers["cpu"][0]
-    assert buffer.numel() >= 6 * len(wide[0])
+    buffer = tcorpus._host_buffers["cpu"].buf
+    assert buffer.numel() >= 6 * len(wide[0]) * 4
     batches, plain = [], tcorpus.batch_offline_outputs_shared
     monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
                         lambda *a: batches.append(a[2].clone()) or plain(*a))
     got = tcorpus.scan_corpus(cfgs[0], streams, method=method, device="cpu")
-    assert tcorpus._host_buffers["cpu"][0] is buffer  # reused, not reallocated
+    assert tcorpus._host_buffers["cpu"].buf is buffer  # reused, not reallocated
     np.savez(tmp_path / "streams.npz", *streams)
     subprocess.run([sys.executable, "-c", FRESH_SCAN, str(tmp_path / "streams.npz"), p["net0"],
                     method, str(tmp_path / "fresh.npz")], cwd=REPO, check=True, timeout=300)
@@ -196,6 +209,206 @@ def test_scan_corpus_reuses_its_host_buffer_without_stale_samples(corpus, method
     for g, w in zip(got, fresh):
         assert g.shape == w.shape and len(g) > 50
         np.testing.assert_array_equal(g, w)
+
+
+def _fmt(channels, bits, code=1, rate=44100, extensible=False, align=None):
+    """A ``fmt `` payload; WAVE_FORMAT_EXTENSIBLE carries ``code`` in its
+    subformat GUID."""
+    align = channels * bits // 8 if align is None else align
+    base = struct.pack("<HHIIHH", 0xFFFE if extensible else code, channels, rate, rate * align,
+                       align, bits)
+    if not extensible:
+        return base
+    guid = struct.pack("<H", code) + b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71"
+    return base + struct.pack("<HHI", 22, bits, 0) + guid
+
+
+def _riff(*chunks):
+    """RIFF/WAVE bytes of ``(id, payload[, claimed size])`` chunks, each
+    followed by its pad byte where its payload is odd; a chunk that claims
+    more than its payload must come last."""
+    body = b"WAVE"
+    for cid, payload, *claimed in chunks:
+        size = claimed[0] if claimed else len(payload)
+        body += cid + struct.pack("<I", size) + payload + b"\x00" * (len(payload) % 2)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _codes(frames, channels, seed=0):
+    """Seeded int16 codes ``[frames, channels]`` with both extremes in them."""
+    c = np.random.default_rng(seed).integers(-32768, 32768, (frames, channels)).astype("<i2")
+    c.flat[:2] = (-32768, 32767)
+    return c
+
+
+def _int24(x):
+    """``[n, channels]`` signed 24-bit codes as little-endian bytes."""
+    return (x.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3]).tobytes()
+
+
+def _audio_file(kind, folder):
+    """(path, whether the file's codes go straight into the host buffer, or
+    None where the read must fail) of a file of ``kind``."""
+    path = folder / f"{kind}.wav"
+    pcm = lambda ch, frames=1000: _codes(frames, ch, len(kind)).tobytes()  # noqa: E731
+    data = {
+        "mono": _riff((b"fmt ", _fmt(1, 16)), (b"data", pcm(1))),
+        "stereo": _riff((b"fmt ", _fmt(2, 16)), (b"data", pcm(2))),
+        "three_odd_frames": _riff((b"fmt ", _fmt(3, 16, rate=48000)), (b"data", pcm(3, 777))),
+        "cut_mid_frame": _riff((b"fmt ", _fmt(2, 16)), (b"data", pcm(2) + b"\x01\x02\x03")),
+        "claims_more": _riff((b"fmt ", _fmt(2, 16)), (b"data", pcm(2) + b"\x05", 10**6)),
+        "list_around": _riff((b"LIST", b"INFOISFT\x04\x00\x00\x00sd\x00\x00"),
+                             (b"fmt ", _fmt(2, 16)), (b"data", pcm(2)),
+                             (b"LIST", b"INFOICMT\x02\x00\x00\x00x\x00")),
+        "odd_chunk_pad": _riff((b"fmt ", _fmt(1, 16)), (b"junk", b"\x07" * 5), (b"data", pcm(1))),
+        "fmt_after_data": _riff((b"data", pcm(2)), (b"fmt ", _fmt(2, 16, rate=96000))),
+        "two_data_last_wins": _riff((b"fmt ", _fmt(1, 16)), (b"data", pcm(1, 5)),
+                                    (b"data", pcm(1, 9))),
+        "extensible": _riff((b"fmt ", _fmt(2, 16, extensible=True)), (b"data", pcm(2))),
+        "pcm8": _riff((b"fmt ", _fmt(2, 8)), (b"data", bytes(range(256)) * 8)),
+        "pcm24": _riff((b"fmt ", _fmt(2, 24)),
+                       (b"data", _int24(_codes(1000, 2).astype(np.int32) * 256 + 17))),
+        "pcm32": _riff((b"fmt ", _fmt(2, 32)),
+                       (b"data", (_codes(1000, 2).astype("<i4") * 65536 + 3).tobytes())),
+        "extensible_float": _riff((b"fmt ", _fmt(1, 32, code=3, extensible=True)),
+                                  (b"data", np.linspace(-1, 1, 999, dtype="<f4").tobytes())),
+        "bad_align": _riff((b"fmt ", _fmt(2, 16, align=6)), (b"data", pcm(2))),
+        "no_data": _riff((b"fmt ", _fmt(2, 16))),
+        "truncated_header": b"RIFF\x10\x00",
+    }.get(kind)
+    if kind == "float32":
+        write_wav(path, _codes(1000, 2) / 32768.0, 44100, dtype="float32")
+    elif kind == "aiff":
+        path = folder / "a.aiff"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            import aifc
+        f = aifc.open(str(path), "wb")
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(22050)
+        f.writeframes(_codes(1000, 2).astype(">i2").tobytes())
+        f.close()
+    elif kind == "missing":
+        path = folder / "missing.wav"
+    else:
+        path.write_bytes(data)
+    direct = {"pcm8": False, "pcm24": False, "pcm32": False, "float32": False, "aiff": False,
+              "extensible_float": False}.get(kind, True)
+    return path, None if kind in ("bad_align", "no_data", "truncated_header", "missing") else direct
+
+
+AUDIO_KINDS = ["mono", "stereo", "three_odd_frames", "cut_mid_frame", "claims_more",
+               "list_around", "odd_chunk_pad", "fmt_after_data", "two_data_last_wins",
+               "extensible", "pcm8", "pcm24", "pcm32", "float32", "extensible_float", "aiff",
+               "bad_align", "no_data", "truncated_header", "missing"]
+
+
+@pytest.mark.parametrize("kind", AUDIO_KINDS)
+def test_file_to_device_reads_16_bit_pcm_straight_in_as_read_audio_decodes_it(kind, tmp_path):
+    """A 16-bit PCM WAV's codes go straight into the host buffer (``direct``
+    1 on its ``corpus.read`` span) and come out as the JAX package's
+    ``read_audio`` float32 samples, bit for bit, with its rate; any other
+    file takes the fallback (``direct`` 0) and gives that reader's result;
+    a file it refuses gives the scan's ``Unable to read`` line with its
+    message. The port's ``read_audio`` agrees with it on every kind."""
+    path, direct = _audio_file(kind, tmp_path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want, port = [], []
+        for reader, into in ((read_audio, want), (twav.read_audio, port)):
+            try:
+                into.extend(reader(str(path)))
+            except (OSError, ValueError) as e:
+                into.append(e)
+        want, want_rate = want if len(want) == 2 else (want[0], None)
+        lo = time.perf_counter_ns()
+        try:
+            got, rate = tcorpus._file_to_device(str(path), torch.device("cpu"),
+                                                tcorpus._file_size(path))
+        except (OSError, ValueError) as e:
+            got = e
+        errors = []
+        tcorpus.scan_corpus_files(fixtures.sample_geometry_config(0), [str(path)],
+                                  emit=lambda s: None, err=errors.append, device="cpu")
+    read, *_ = [s for s in timing.spans(lo) if s.name == "corpus.read"]
+    if direct is None:
+        assert isinstance(want, (OSError, ValueError)) and type(got) is type(want)
+        assert str(got) == str(want) == str(port[0]) and type(port[0]) is type(want)
+        assert errors == [f"Unable to read {path}: {want}"]
+        assert read.counts == {"direct": 0}
+        return
+    assert read.counts == {"direct": int(direct)}
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+    assert rate == want_rate and tuple(got.shape) == want.shape and len(want) > 0
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert port[1] == want_rate  # the port's own reader, on the walk it shares
+    np.testing.assert_array_equal(port[0].view(np.int32), want.view(np.int32))
+    if kind == "two_data_last_wins":
+        assert len(want) == 9
+    if kind in ("cut_mid_frame", "claims_more"):
+        assert len(want) == 1000
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lines(
+        method, tmp_path, monkeypatch):
+    """Two scans in a row of a 16-bit file at the net's rate, a 16-bit file
+    to be resampled and a 24-bit file give the CSV lines of a scan that
+    decodes every file on the host, line for line; the first two files'
+    reads are direct, the third's not, and the second scan refills the
+    host buffer the first one grew, without reallocating it."""
+    two = np.stack([fixtures.chirp_audio(0.6, 81), fixtures.chirp_audio(0.6, 82)], 1)
+    fast = fixtures.chirp_audio(0.5, 83, rate=48000)
+    wide = np.stack([fixtures.chirp_audio(0.4, 84), fixtures.chirp_audio(0.4, 85)], 1)
+    paths = [str(tmp_path / n) for n in ("two.wav", "fast.wav", "wide.wav")]
+    write_wav(paths[0], two, 44100)
+    write_wav(paths[1], fast, 48000)
+    codes24 = np.clip(np.round(wide * 2**23), -(2**23), 2**23 - 1).astype(np.int32)
+    pathlib.Path(paths[2]).write_bytes(_riff((b"fmt ", _fmt(2, 24)), (b"data", _int24(codes24))))
+    heard = polyphase_resample(fast, 48000, 44100, device="cpu").numpy()
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(54),
+                                   np.concatenate([two.reshape(-1), heard, wide.reshape(-1)]))
+
+    def scan():
+        lines, lo = [], time.perf_counter_ns()
+        tcorpus.scan_corpus_files(cfg, paths, emit=lines.append, err=lambda s: None,
+                                  method=method, device="cpu")
+        reads = [s.counts["direct"] for s in timing.spans(lo) if s.name == "corpus.read"]
+        return lines, reads
+
+    tcorpus._host_buffers.clear()
+    first, reads = scan()
+    buffer = tcorpus._host_buffers["cpu"].buf
+    second, again = scan()
+    assert tcorpus._host_buffers["cpu"].buf is buffer  # reused, not reallocated
+    # three rooms of the largest block staged: the 24-bit file's float32 samples
+    assert buffer.numel() == tcorpus._FILE_ROOMS * tcorpus._aligned(wide.size * 4)
+    assert reads == again == [1, 1, 0]
+    monkeypatch.setattr(tcorpus, "_read_pcm16_into", lambda path, buffer: None)
+    fallback, none = scan()
+    assert none == [0, 0, 0]
+    assert first == second == fallback
+    assert sum(line not in paths for line in first) > 0
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_host_ring_keeps_each_room_off_the_one_before(seed):
+    """Rooms of up to the largest size the ring was fitted to start on
+    64 bytes, lie inside the buffer and never overlap the room before, so a
+    file's read never waits on the upload of the file before it; the buffer
+    is not grown."""
+    sizes = np.random.default_rng(seed).integers(0, 10_000, 300)
+    cpu, ring = torch.device("cpu"), tcorpus._HostRing()
+    ring.fit(cpu, tcorpus._FILE_ROOMS * tcorpus._aligned(int(sizes.max())))
+    buffer, before = ring.buf, (0, 0)
+    for n in map(int, sizes):
+        room = ring.room(cpu, n)
+        at = room.data_ptr() - buffer.data_ptr()
+        assert room.numel() == n and at % tcorpus._ALIGN == 0 and at + n <= buffer.numel()
+        assert at >= before[1] or at + n <= before[0]
+        before = (at, at + n)
+    assert ring.buf is buffer
 
 
 def test_resample_channels_returns_what_it_was_given(corpus):
@@ -294,13 +507,14 @@ BATCHED = {
     "fused": ["--method", "fused"],
     "nets": ["--method", "fused", "-n", "{net1}"],
     "groups": ["--method", "fused", "--batch-files", "1"],
+    "int16": ["--method", "fused"],
 }
 
 
 @pytest.mark.parametrize("variant", list(BATCHED))
 def test_batched_cli_matches_jax(corpus, variant, monkeypatch):
     _, _, p = corpus
-    files = [p["two"], p["fast"], p["one"]]
+    files = [p[name + ("16" if variant == "int16" else "")] for name in ("two", "fast", "one")]
     argv = ["-n", p["net0"], "-d", "0.02", "--batched"] + [a for f in files for a in ("-a", f)]
     extra = [a.format(**p) for a in BATCHED[variant]]
     rc, got, err = run(port_main, argv + extra + ["--device", "cpu"])
@@ -311,7 +525,7 @@ def test_batched_cli_matches_jax(corpus, variant, monkeypatch):
     for path in files:
         assert got_f[path], "fixture audio must trigger detections"
         assert_csv_close(got_f[path], want_f[path])
-    assert {line.split(",")[0] for line in got_f[p["two"]]} == {"0", "1"}
+    assert {line.split(",")[0] for line in got_f[files[0]]} == {"0", "1"}
     if variant == "groups":
         ungrouped = run(port_main, argv + ["--method", "fused", "--device", "cpu"])[1]
         assert got == ungrouped

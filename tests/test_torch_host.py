@@ -6,6 +6,8 @@ own, so no test passes an object of one package to the other's isinstance.
 """
 
 import dataclasses
+import os
+import threading
 import warnings
 
 import numpy as np
@@ -103,6 +105,22 @@ def _write_stdlib(path, module, pcm, channels, rate, comptype=None):
         f.setcomptype(comptype, "")
     f.writeframes(pcm.tobytes())
     f.close()
+
+
+def test_read_wav_reads_a_pipe_as_jax_reads_the_file(tmp_path):
+    """``read_wav`` walks a WAV it cannot seek in, a pipe, in memory: the
+    samples and rate the JAX package reads from the same bytes in a file."""
+    x = (np.random.default_rng(5).standard_normal((700, 2)) * 0.3).astype(np.float32)
+    path, pipe = tmp_path / "a.wav", tmp_path / "pipe"
+    jwav.write_wav(path, x, 48000, dtype="int16")
+    os.mkfifo(pipe)
+    writer = threading.Thread(target=lambda: pipe.write_bytes(path.read_bytes()), daemon=True)
+    writer.start()
+    got, rate = twav.read_wav(pipe)
+    writer.join(timeout=30)
+    want, jrate = jwav.read_wav(path)
+    assert rate == jrate == 48000 and got.shape == want.shape == (700, 2)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["wav-int16", "wav-float32", "aiff", "au", "au-ulaw"])

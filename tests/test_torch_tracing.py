@@ -12,6 +12,7 @@ spans times the live cell's rounds over a 30 s window fit the ring.
 import contextlib
 import io
 import json
+import os
 import threading
 import time
 
@@ -24,7 +25,7 @@ from syllable_detector_tpu_torch import train as ptrain
 from syllable_detector_tpu_torch.ops.stft import num_frames
 from syllable_detector_tpu_torch.runtime import audio_io, processor
 from syllable_detector_tpu_torch.utils import make_labeled_audio, timing
-from syllable_detector_tpu_torch.utils.wav import read_audio, write_wav
+from syllable_detector_tpu_torch.utils.wav import _read_pcm16_into, read_audio, write_wav
 
 torch.set_num_threads(1)
 
@@ -147,9 +148,11 @@ def test_nothing_is_recorded_with_recording_off():
 # -- the corpus scan ----------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def corpus_files(tmp_path_factory):
-    """A net and three two-channel files, the second at 48 kHz."""
+@pytest.fixture(scope="module", params=["float32", "int16"])
+def corpus_files(request, tmp_path_factory):
+    """A net and three two-channel WAVs of one sample format, the second at
+    48 kHz: float32 files are decoded on the host, 16-bit ones read
+    straight into the host buffer."""
     folder = tmp_path_factory.mktemp("corpus")
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
                                    fixtures.chirp_audio(1.0, 5))
@@ -157,8 +160,13 @@ def corpus_files(tmp_path_factory):
     for i, rate in enumerate((44100, 48000, 44100)):
         x = np.stack([fixtures.chirp_audio(0.5 + 0.2 * i, 10 * i + c, rate) for c in range(2)], 1)
         paths.append(str(folder / f"f{i}.wav"))
-        write_wav(paths[-1], x, rate, dtype="float32")
+        write_wav(paths[-1], x, rate, dtype=request.param)
     return cfg, paths
+
+
+def read_straight_in(path) -> bool:
+    """Whether the scan reads ``path``'s codes straight into its host buffer."""
+    return _read_pcm16_into(path, bytearray(os.path.getsize(path))) is not None
 
 
 def scan(cfg, paths, debounce_seconds=None, device="cpu"):
@@ -183,16 +191,19 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     root, = named(got, "corpus.scan")
     assert got[-1] is root and all(s.parent == root.id for s in got[:-1])
     reads = named(got, "corpus.read")
-    assert len(reads) == 3
+    direct = int(read_straight_in(paths[0]))
+    assert [s.counts for s in reads] == [{"direct": direct}] * 3
     assert [s.counts for s in named(got, "corpus.resample")] == [{"channels": 2}]
-    # each file staged whole in the host buffer and uploaded once; the batch
-    # is assembled on the device, behind the last file
+    # each file staged whole in the host buffer and uploaded once: a file
+    # read straight in waits for its room before the read, a decoded one is
+    # copied in after it; the batch is assembled on the device, behind the
+    # last file
     stages, copies = named(got, "corpus.stage"), named(got, "corpus.copy_in")
     assert [s.counts for s in stages] == [
         {"lanes": 2, "samples": n, "staged_samples": n} for n in files]
     assert len(copies) == 4
     for read, stage, copy in zip(reads, stages, copies):
-        assert in_order(read, stage, copy)
+        assert in_order(stage, read, copy) if direct else in_order(read, stage, copy)
     steps = [copies[-1]] + [named(got, n)[0] for n in ("corpus.detect", "corpus.readback")]
     assert in_order(*steps) and len(got) == 3 + 3 + 4 + 1 + 2 + 6 + 1
     csv = named(got, "corpus.csv")
@@ -212,6 +223,28 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
         [line for line in debounced if line not in paths]) < len(detections)
     timing.set_recording(False)
     assert scan(cfg, paths) == lines
+
+
+def test_corpus_reads_count_the_files_read_straight_in(tmp_path):
+    """Σ``direct`` over the ``corpus.read`` spans: every file of a 16-bit
+    scan, two of three where the third is float32; the files' stages count
+    their samples, nothing padded, and none overlaps a read."""
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
+                                   fixtures.chirp_audio(1.0, 5))
+    paths = [str(tmp_path / f"m{i}.wav") for i in range(3)]
+    for i, p in enumerate(paths):
+        write_wav(p, fixtures.chirp_audio(0.3, 40 + i), 44100, dtype="int16")
+    shares = []
+    for _ in range(2):
+        _, got = recorded(lambda: scan(cfg, paths))
+        reads, stages = named(got, "corpus.read"), named(got, "corpus.stage")
+        shares.append(sum(s.counts["direct"] for s in reads) / len(reads))
+        assert len(stages) == 3 and all(
+            in_order(a, b) or in_order(b, a) for a in reads for b in stages)
+        assert sum(s.counts["samples"] for s in stages) == sum(
+            s.counts["staged_samples"] for s in stages) == 3 * len(fixtures.chirp_audio(0.3))
+        write_wav(paths[2], fixtures.chirp_audio(0.3, 42), 44100, dtype="float32")
+    assert shares == [1.0, pytest.approx(2 / 3)]
 
 
 @pytest.mark.parametrize("method", ["matmul", "fused"])
@@ -241,10 +274,11 @@ def test_corpus_scan_stages_its_lanes_at_the_longest_stream(method):
         np.testing.assert_array_equal(g, w[:evals])
 
 
-@pytest.fixture(scope="module")
-def card_files(tmp_path_factory):
-    """On a card: a net and three two-channel files of 2**18 frames, at 48
-    and 96 kHz (resampled by the scan) and at the net's 44.1 kHz."""
+@pytest.fixture(scope="module", params=["float32", "int16"])
+def card_files(request, tmp_path_factory):
+    """On a card: a net and three two-channel WAVs of one sample format, of
+    2**18 frames, at 48 and 96 kHz (resampled by the scan) and at the net's
+    44.1 kHz."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the fused kernel and the resampler run only there)")
     folder = tmp_path_factory.mktemp("card")
@@ -255,20 +289,20 @@ def card_files(tmp_path_factory):
         x = np.stack([fixtures.chirp_audio(1 + 2**18 / rate, 20 * i + c, rate)[: 2**18]
                       for c in range(2)], 1)
         paths.append(str(folder / f"c{i}.wav"))
-        write_wav(paths[-1], x, rate, dtype="float32")
+        write_wav(paths[-1], x, rate, dtype=request.param)
     return cfg, paths
 
 
-def device_to_host_bytes(fn, path) -> list[int]:
-    """The bytes of each device-to-host copy in a ``torch.profiler`` trace of
-    ``fn()``."""
+def copy_bytes(fn, path, kind="DtoH") -> list[int]:
+    """The bytes of each copy of ``kind`` (``DtoH``, ``HtoD``) in a
+    ``torch.profiler`` trace of ``fn()``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     return [int(e["args"]["bytes"]) for e in events
-            if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+            if e.get("cat") == "gpu_memcpy" and kind in e["name"]]
 
 
 @pytest.mark.cuda
@@ -276,8 +310,10 @@ def test_card_scan_batch_equals_the_numpy_route_and_reads_back_only_outputs(
         card_files, monkeypatch, tmp_path):
     """On the card, the files' route (each file uploaded once, resampled and
     written into the batch there) gives the batch and K1 outputs of numpy
-    streams, read, resampled to numpy and scanned, bit for bit; and the only
-    copy back to the host is the outputs'."""
+    streams, read, resampled to numpy and scanned, bit for bit; the only
+    copy back to the host is the outputs'; and each file crosses to the card
+    in one copy, of its 16-bit codes where it holds them (2 bytes a sample),
+    of its float32 samples otherwise."""
     cfg, paths = card_files
     seen = []
     batch = corpus.batch_offline_outputs_shared
@@ -303,9 +339,13 @@ def test_card_scan_batch_equals_the_numpy_route_and_reads_back_only_outputs(
     assert torch.equal(xs_files, xs_np)
     np.testing.assert_array_equal(out_files.cpu().numpy(), out_np.cpu().numpy())
     assert any(line not in paths for line in lines)
-    device_to_host_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "warm.json")
-    copies = device_to_host_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "scan.json")
+    copy_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "warm.json")
+    copies = copy_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "scan.json")
     assert copies == [out_files.numel() * 4]
+    itemsize = 2 if read_straight_in(paths[0]) else 4
+    uploads = copy_bytes(lambda: scan(cfg, paths, device="cuda"), tmp_path / "in.json", "HtoD")
+    # the files' copies, beside whatever small constants the launches upload
+    assert sorted(u for u in uploads if u > 1 << 16) == [2**18 * 2 * itemsize] * 3, uploads
 
 
 # -- the train CLI and the trainer ---------------------------------------------
