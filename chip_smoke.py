@@ -212,11 +212,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
                for one process and 2 and 4 workers.
   21. tune   — ``python -m syllable_detector_tpu_torch tune --workload all``
                on a fixture net at the sample geometry (64 lanes x 2048
-               evaluations; one stream of 32768), the cache it wrote (3
-               entries, each candidate's device ms beside the analytic
-               choice); K1a on a 60 s stream and K1e on 64 x 2048 (shared
-               and per-lane nets) under the cached choice and under the
-               other candidate, each against its plain version.
+               evaluations; one stream of 32768), a report that writes
+               nothing: each candidate's device ms beside the rule's choice,
+               which fails the phase if it is more than 5 % slower than
+               the fastest; K1a on a 60 s stream and K1e on 64 x 2048
+               (shared and per-lane nets) through their entries (the
+               rule's choice) and at every candidate, each against its
+               plain version.
   22. geometry sweep — counts from 0: every K1 entry (K1a raw, K1b
                frames, K1c under each tier, K1d one slab, K1e shared and
                per-lane nets on 4 lanes, K1f int16 and mu-law) on 2 s of
@@ -282,7 +284,6 @@ import io
 import json
 import os
 import re
-import shutil
 import socket
 import statistics
 import subprocess
@@ -1377,8 +1378,9 @@ def phase_corpus_times(scan: dict, card_line: str) -> dict:
     print(
         f"phase 11 times [{card_line}]: the batched scan's steps ({len(streams)} lanes, "
         f"{lines} lines), host clock: {', '.join(split)} (read = WAV files, resample = "
-        f"copy in, kernel and copy out per channel, scan = the batch staged at its longest lane, copy in, "
-        f"batched kernel and copy out, csv = the per-row thresholds and formatting)",
+        f"copy in, kernel and copy out per channel, scan = each lane staged and copied in, the "
+        f"batch at its longest lane on the card, batched kernel and copy out, csv = the per-row "
+        f"thresholds and formatting)",
         flush=True,
     )
     print(
@@ -2841,11 +2843,10 @@ def arena_uploads(bank, spec) -> dict:
 
 def phase_tune(tmp: str, card_line: str) -> dict:
     """Phase 21: ``python -m syllable_detector_tpu_torch tune`` for every
-    workload at the sample geometry, the cache it writes, and K1a and K1e
-    under the cached choice, and under the other candidate, against their
-    plain versions."""
-    from syllable_detector_tpu_torch import tuning
-
+    workload at the sample geometry, a report: each candidate's device ms
+    beside the rule's choice, which must be within 5 % of the fastest. Then
+    K1a and K1e at every candidate (forced through ``_launch``) and through
+    their entries (the rule's choice) against their plain versions."""
     net = os.path.join(tmp, "live0.txt")
     proc = subprocess.run(
         [sys.executable, "-m", "syllable_detector_tpu_torch", "tune", "-n", net, "--workload",
@@ -2854,72 +2855,86 @@ def phase_tune(tmp: str, card_line: str) -> dict:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"tune returned {proc.returncode}: {proc.stderr[-2000:]}")
-    with open(tuning.tune_cache_path()) as fh:
-        cache = json.load(fh)
-    kind = f"r{tuning.KERNEL_REVISION}/{tuning.device_kind('cuda')}/"
-    if len(cache) != 3 or not all(k.startswith(kind) for k in cache):
-        raise AssertionError(f"the tune cache holds {list(cache)}")
-    tuning.reset_tune_cache()
-    for key, entry in sorted(cache.items()):
-        workload, lanes, evals = key.split("/")[-3:]
+    reported = []
+    for line in proc.stdout.splitlines():
+        m = re.fullmatch(r"(\w+): frames (\d+) [\d.]+ ms .*; rule (\d+); (\d+ x \d+): (.*)",
+                         line)
+        if m is None:
+            raise AssertionError(f"tune printed {line!r}")
+        workload, fastest, rule, shape = m[1], int(m[2]), int(m[3]), m[4]
+        trials = {int(f): float(ms) for f, ms in re.findall(r"frames (\d+) ([\d.]+) ms", m[5])}
+        slower = trials[rule] / trials[fastest] - 1.0
         print(
-            f"phase 21 tune [{card_line}]: {workload} {lanes} {evals}: "
-            + ", ".join(f"frames {f} {ms:.4f} ms" for f, ms in sorted(entry["trials"]))
-            + f"; chosen {entry['frames']}, analytic {entry['analytic']}",
+            f"phase 21 tune [{card_line}]: {workload} {shape}: "
+            + ", ".join(f"frames {f} {ms:.4f} ms" for f, ms in sorted(trials.items()))
+            + f"; fastest {fastest}, rule {rule} ({slower:+.2%} against the fastest)",
             flush=True,
         )
+        if slower > 0.05:
+            raise AssertionError(f"{workload}: the rule's {rule} frames are {slower:.2%} "
+                                 f"slower than the fastest, {fastest}")
+        reported.append(workload)
+    if sorted(reported) != ["batched", "distinct", "single"]:
+        raise AssertionError(f"tune reported {reported}")
 
     spec, params = detector.detector_spec_from_config(load_config(net), "cuda")
     width = max(w for _, w in spec.net.layer_sizes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.from_numpy(fixtures.chirp_audio(60.0, 5)).cuda()
     n = bucket_samples(spec, TUNE_EVALS)
     xs = torch.stack([torch.roll(stream[:n], 97 * lane) for lane in range(TUNE_LANES)])
     nets = [perturbed(params, lane) for lane in range(TUNE_LANES)]
     shared = fused.fold_constants(spec, params, "cuda")
-    folded = {"single": shared, "batched": shared,
-              "distinct": fused.fold_constants_stacked(spec, nets, "cuda")}
+    distinct = fused.fold_constants_stacked(spec, nets, "cuda")
     runs = {
-        "single": (lambda: fused.fused_offline_outputs(spec, params, stream, folded=folded["single"]),
-                   lambda: fused.fused_offline_outputs_reference(spec, folded["single"], stream),
-                   1, stream.shape[0], lambda: fused.LAUNCHES),
+        "single": (lambda: fused.fused_offline_outputs(spec, params, stream, folded=shared),
+                   lambda: fused.fused_offline_outputs_reference(spec, shared, stream)[None],
+                   shared, stream[None], lambda: fused.LAUNCHES),
         "batched": (lambda: fused.fused_flat_batch_offline_outputs(spec, params, xs,
                                                                    folded=shared),
                     lambda: fused.fused_batch_outputs_reference(spec, shared, xs),
-                    TUNE_LANES, n, lambda: fused.BATCH_LAUNCHES),
+                    shared, xs, lambda: fused.BATCH_LAUNCHES),
         "distinct": (lambda: fused.fused_flat_batch_offline_outputs(spec, nets, xs,
-                                                                    folded=folded["distinct"]),
-                     lambda: fused.fused_batch_outputs_reference(spec, folded["distinct"], xs),
-                     TUNE_LANES, n, lambda: fused.BATCH_LAUNCHES),
+                                                                    folded=distinct),
+                     lambda: fused.fused_batch_outputs_reference(spec, distinct, xs),
+                     distinct, xs, lambda: fused.BATCH_LAUNCHES),
     }
     out = {}
-    for workload, (kernel, plain, lanes, samples, count) in runs.items():
+    for workload, (kernel, plain, folded, x, count) in runs.items():
+        lanes, samples = x.shape
         evals = num_frames(samples, spec.window_length, spec.window_overlap) - spec.time_range + 1
-        analytic = fused.cta_frames(spec, evals, lanes, width)
-        tuned = fused.cta_frames(spec, evals, lanes, width, workload=workload, device_kind=kind)
+        rule = fused.cta_choice(spec, evals, lanes, width, sms)
+        name = f"{'K1a' if lanes == 1 else 'K1e'} {workload} ({lanes} x {evals} evals)"
         want = plain()
-        for frames in (tuned, *(f for f in fused.CTA_FRAMES if f != tuned)):
-            tuning._save_entry(tuning.tune_key(kind, spec, workload, lanes, evals),
-                               {"frames": frames})
-            if fused.cta_frames(spec, evals, lanes, width, workload=workload,
-                                device_kind=kind) != frames:
-                raise AssertionError(f"{workload}: the cached choice {frames} was not taken")
-            reset_counts()
-            got = kernel()
-            launched = count()
-            err = held(got, want, 1e-3, 2e-4, f"{workload} at frames {frames}")
-            if launched != 1:
-                raise AssertionError(f"{workload} at frames {frames}: {launched} launches")
-            ms = event_ms(kernel)[0]
-            if frames == tuned:
-                out[workload] = (launched, err, ms, event_ms(plain)[0],
-                                 fused_bound(spec, lanes, samples, 4,
-                                             lanes if workload == "distinct" else 1))
+        reset_counts()
+        got = kernel()
+        launched, layouts = count(), dict(fused.LAYOUT_LAUNCHES)
+        err = held(got.reshape(want.shape), want, 1e-3, 2e-4, f"{workload} through its entry")
+        if launched != 1 or layouts[rule.layout] != 1:
+            raise AssertionError(f"{workload}: {launched} launches, layouts {layouts}")
+        ms = event_ms(kernel)[0]
+        out[workload] = (launched, err, ms, event_ms(plain)[0],
+                         fused_bound(spec, lanes, samples, 4,
+                                     lanes if workload == "distinct" else 1))
+        print(
+            f"phase 21 tune [{card_line}]: {name} through its entry at the rule's "
+            f"{rule.frames} frames a CTA ({rule.layout}): vs plain max_abs {err:.3g} "
+            f"(rtol=1e-3, atol=2e-4), {ms:.4f} ms, launches {launched} ok",
+            flush=True,
+        )
+        for frames in fused.CTA_FRAMES:
+            group = fused.col_group_for(spec, frames, width)
+            if group is None:
+                continue
+
+            def forced(frames=frames, group=group):
+                return fused._launch(spec, folded, x, evals, frames=frames, col_group=group)
+
+            err = held(forced(), want, 1e-3, 2e-4, f"{workload} at frames {frames}")
             print(
-                f"phase 21 tune [{card_line}]: {'K1a' if lanes == 1 else 'K1e'} {workload} "
-                f"({lanes} x {evals} evals) at {frames} frames a CTA "
-                f"({'the tuned choice' if frames == tuned else 'the other candidate'}; analytic "
-                f"{analytic}): vs plain max_abs {err:.3g} (rtol=1e-3, atol=2e-4), {ms:.4f} ms, "
-                f"launches {launched} ok",
+                f"phase 21 tune [{card_line}]: {name} at {frames} frames a CTA "
+                f"({'the rule' if frames == rule.frames else 'another candidate'}): vs plain "
+                f"max_abs {err:.3g} (rtol=1e-3, atol=2e-4), {event_ms(forced)[0]:.4f} ms ok",
                 flush=True,
             )
     return out
@@ -3523,14 +3538,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the tuner's cache of this run only: every phase before 21 takes the
-    # kernels' analytic launch shapes
-    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
-    os.environ["SD_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
-    try:
-        return run_phases(marks, mark)
-    finally:
-        shutil.rmtree(tune_dir, ignore_errors=True)
+    return run_phases(marks, mark)
 
 
 def run_phases(marks, mark) -> int:
@@ -3599,7 +3607,7 @@ def run_phases(marks, mark) -> int:
         mark("19")
         shard = phase_shard(cfgs, audio, card_line)
         mark("20")
-        tuned = phase_tune(tmp, card_line)
+        ruled = phase_tune(tmp, card_line)
         mark("21")
     reset_counts()
     geometry = phase_geometry(card_line)
@@ -3676,10 +3684,10 @@ def run_phases(marks, mark) -> int:
         *(entry(f"fused_batch_program int16 sharded {w} workers", KERNEL_SOURCE,
                 REPLACES_PROGRAM, shard[w], *shard[w, "kernel"])
           for w in SHARD_WORKERS),
-        *(entry(f"{'fused_detector' if w == 'single' else 'fused_detector_batch'} tuned {w}",
+        *(entry(f"{'fused_detector' if w == 'single' else 'fused_detector_batch'} rule {w}",
                 KERNEL_SOURCE, REPLACES if w == "single" else REPLACES_FLAT, t[0], t[1],
                 (t[2], t[3]), t[4])
-          for w, t in tuned.items()),
+          for w, t in ruled.items()),
         *(entry(f"peer_exchange {kernel}", EXCHANGE_SOURCE, REPLACES_PMEAN,
                 exchange["launches"][kernel], exchange["worst"], *exchange[kernel])
           for kernel in ("push", "wait")),

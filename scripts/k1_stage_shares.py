@@ -133,7 +133,7 @@ def wire_shares(name: str, cfg, card_line: str) -> list[dict]:
     wires = {"int16": torch.from_numpy(q).cuda(),
              "mulaw8": torch.from_numpy(np.rint(mu * 127.0).astype(np.int8)).cuda()}
     wires["float32"] = fused.dequant(wires["int16"], "int16").contiguous()
-    chosen = fused.cta_choice(spec, LIVE_EVALS, LIVE_LANES, width, workload="distinct")
+    chosen = fused.cta_choice(spec, LIVE_EVALS, LIVE_LANES, width)
     rows = []
     for wire, xs in wires.items():
         def launch(wire=wire, xs=xs):

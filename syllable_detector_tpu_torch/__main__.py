@@ -23,7 +23,7 @@ COMMANDS = {
     ),
     "tune": (
         "syllable_detector_tpu_torch.tuning",
-        "time the fused kernel's launch shapes on this card and cache the winners",
+        "time the fused kernel's launch shapes on this card beside its rule's choice",
     ),
 }
 

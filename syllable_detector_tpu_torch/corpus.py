@@ -165,29 +165,33 @@ class _HostRing:
     out as a ring of rooms, one for each upload: a room starts after the one
     before, or at the buffer's start where it does not fit there, and waits
     only for the uploads out of the rooms it overlaps (the events recorded
-    by :meth:`uploaded`; a CPU's copies are done when they return). Use
-    under ``_host_lock``, from a room's taking to its upload."""
+    by :meth:`uploaded`; a CPU's copies are done when they return). Hold
+    ``lock`` from a room's taking to its upload."""
 
     def __init__(self):
+        self.lock = threading.RLock()
         self.buf = torch.empty(0, dtype=torch.uint8)
         self.head = 0
         self.live: list[tuple[int, int, torch.cuda.Event]] = []  # oldest first
 
-    def fit(self, device: torch.device, nbytes: int) -> None:
-        """Grow the buffer to ``nbytes`` or more, once every upload out of
-        it has finished."""
-        if self.buf.numel() < nbytes:
-            self._wait(0, self.buf.numel())
-            self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
-            self.head = 0
+    def reserve(self, device: torch.device, nbytes: int) -> None:
+        """Grow the buffer to hold :data:`_FILE_ROOMS` rooms of ``nbytes``,
+        once every upload out of it has finished. Three rooms of a scan's
+        largest file keep each file's room off the room of the file before:
+        no file's read waits on the upload of the file before it."""
+        need = _FILE_ROOMS * _aligned(nbytes)
+        with self.lock:
+            if self.buf.numel() < need:
+                self._wait(0, self.buf.numel())
+                self.buf = torch.empty(need, dtype=torch.uint8,
+                                       pin_memory=device.type == "cuda")
+                self.head = 0
 
-    def room(self, device: torch.device, nbytes: int, rooms: int = _FILE_ROOMS) -> torch.Tensor:
-        """``nbytes`` bytes of the buffer, grown to hold ``rooms`` such
-        rooms at least. Three rooms of a scan's largest file keep each
-        file's room off the room of the file before: no file's read waits on
-        the upload of the file before it."""
+    def room(self, device: torch.device, nbytes: int) -> torch.Tensor:
+        """``nbytes`` bytes of the buffer, grown by :meth:`reserve` to hold
+        this room where it does not."""
         size = _aligned(nbytes)
-        self.fit(device, rooms * size)
+        self.reserve(device, nbytes)
         if self.head + size > self.buf.numel():
             self.head = 0
         at, self.head = self.head, self.head + size
@@ -213,19 +217,30 @@ class _HostRing:
 
 
 _host_buffers: dict[str, _HostRing] = {}  # one a device
-_host_lock = threading.Lock()
 
 
 def _host_ring(device: torch.device) -> _HostRing:
     return _host_buffers.setdefault(str(device), _HostRing())
 
 
-def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A view of a host ring copied to ``device``: on a card
-    asynchronously; on a CPU as a copy, since the ring is refilled."""
-    if device.type != "cuda":
-        return host.clone()
-    return host.to(device, non_blocking=True)
+def _stage(samples: np.ndarray, device: torch.device,
+           room: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A float32 host array on ``device``: copied into ``room`` of the
+    device's host ring where it fits there, else into a room of its own, and
+    uploaded from there once (on a card asynchronously; on a CPU as a copy,
+    since the ring is refilled)."""
+    ring = _host_ring(device)
+    with ring.lock:
+        with timing.span("corpus.stage", lanes=samples.shape[1] if samples.ndim == 2 else 1,
+                         samples=samples.size, staged_samples=samples.size):
+            if room is None or samples.nbytes > room.numel():
+                room = ring.room(device, samples.nbytes)
+            host = room[: samples.nbytes].view(torch.float32).view(samples.shape)
+            np.copyto(host.numpy(), samples)
+        with timing.span("corpus.copy_in"):
+            out = host.to(device, non_blocking=True) if device.type == "cuda" else host.clone()
+            ring.uploaded(device, room)
+    return out
 
 
 def _file_size(path) -> int:
@@ -248,7 +263,7 @@ def _file_to_device(path: str, device: torch.device, size: int) -> tuple[torch.T
     :func:`read_audio` and its float32 block copied into the room, or into
     a larger one. Raises what the read raises."""
     ring = _host_ring(device)
-    with _host_lock:
+    with ring.lock:
         t0 = perf_counter_ns()
         room = ring.room(device, size)
         waited = (t0, perf_counter_ns())
@@ -269,17 +284,7 @@ def _file_to_device(path: str, device: torch.device, size: int) -> tuple[torch.T
                     codes = codes.to(device, non_blocking=True)
                 ring.uploaded(device, room)
                 return codes.to(torch.float32).mul_(2.0**-15), rate
-        samples = np.asarray(samples, np.float32)
-        with timing.span("corpus.stage", lanes=samples.shape[1], samples=samples.size,
-                         staged_samples=samples.size):
-            if samples.nbytes > room.numel():
-                room = ring.room(device, samples.nbytes)
-            host = room[: samples.nbytes].view(torch.float32).view(samples.shape)
-            np.copyto(host.numpy(), samples)
-        with timing.span("corpus.copy_in"):
-            out = _upload(host, device)
-            ring.uploaded(device, room)
-            return out, rate
+        return _stage(np.asarray(samples, np.float32), device, room), rate
 
 
 def scan_corpus(
@@ -292,17 +297,17 @@ def scan_corpus(
 ) -> list[np.ndarray]:
     """Detect over many same-rate streams at once -> per-stream [E_i, outputs].
 
-    ``streams`` are numpy arrays, or tensors on ``device``. They are stacked
-    as the lanes of one ``[lanes, L]`` float32 batch on ``device``, ``L`` the
-    longest stream rounded up to 4 samples, with zeros past each shorter
-    stream; each result is trimmed back to the stream's true evaluation
-    count, so no evaluation kept reads past its stream, and the zeros keep
-    the batch the same whatever the reused buffers held. Numpy streams are
-    staged as that batch in the host buffer and uploaded in one copy;
-    tensors on ``device`` are copied into it there. With ``mesh``, the lane
-    axis is split across the mesh's shards (lanes padded with zero lanes to
-    a multiple of the mesh size); the batch is placed on ``device`` and each
-    shard takes its lanes from there.
+    ``streams`` are numpy arrays or tensors. Each that is not a tensor on
+    ``device`` is staged in the host buffer and uploaded once
+    (:func:`_stage`). They are stacked on ``device`` as the lanes of one
+    ``[lanes, L]`` float32 batch, ``L`` the longest stream rounded up to 4
+    samples, with zeros past each shorter stream; each result is trimmed
+    back to the stream's true evaluation count, so no evaluation kept reads
+    past its stream, and the zeros keep the batch the same whatever the
+    reused buffers held. With ``mesh``, the lane axis is split across the
+    mesh's shards (lanes padded with zero lanes to a multiple of the mesh
+    size); the batch is placed on ``device`` and each shard takes its lanes
+    from there.
 
     ``lane_configs`` gives each stream its own DISTINCT network, one config
     per stream, all sharing ``cfg``'s pipeline geometry (thresholds may
@@ -327,12 +332,10 @@ def scan_corpus(
                     "geometry (sampling rate, FFT/window, band, layer sizes)"
                 )
             params.append(p_i)
-    on_device = all(isinstance(s, torch.Tensor) and s.device == device for s in streams)
-    if on_device:
-        streams = [s.reshape(-1) for s in streams]
-    else:
-        streams = [np.asarray(s.cpu() if isinstance(s, torch.Tensor) else s, np.float32)
-                   .reshape(-1) for s in streams]
+    streams = [s.reshape(-1) if isinstance(s, torch.Tensor) and s.device == device
+               else _stage(np.asarray(s.cpu() if isinstance(s, torch.Tensor) else s,
+                                      np.float32).reshape(-1), device)
+               for s in streams]
     lanes = len(streams)
     if mesh is not None:
         n_dev = int(np.prod(list(mesh.shape.values())))
@@ -341,28 +344,12 @@ def scan_corpus(
             # padding lanes reuse net 0 (their outputs are sliced away)
             params = params + [params[0]] * (lanes - len(streams))
     width = _batch_length(max(len(s) for s in streams))
-    if on_device:
-        with timing.span("corpus.copy_in"):
-            xd = torch.empty((lanes, width), dtype=torch.float32, device=device)
-            for row, s in zip(xd, streams):
-                row[: len(s)].copy_(s)
-                row[len(s):].zero_()
-            xd[len(streams):].zero_()
-    else:
-        ring = _host_ring(device)
-        with _host_lock:
-            with timing.span("corpus.stage", lanes=lanes, samples=sum(map(len, streams)),
-                             staged_samples=lanes * width):
-                room = ring.room(device, lanes * width * 4, rooms=1)
-                xs = room.view(torch.float32).view(lanes, width)
-                rows = xs.numpy()
-                for row, s in zip(rows, streams):
-                    row[: len(s)] = s
-                    row[len(s):] = 0.0
-                rows[len(streams):] = 0.0
-            with timing.span("corpus.copy_in"):
-                xd = _upload(xs, device)
-                ring.uploaded(device, room)
+    with timing.span("corpus.copy_in"):
+        xd = torch.empty((lanes, width), dtype=torch.float32, device=device)
+        for row, s in zip(xd, streams):
+            row[: len(s)].copy_(s)
+            row[len(s):].zero_()
+        xd[len(streams):].zero_()
     with timing.span("corpus.detect"):
         if mesh is not None:
             outs = sharded_batch_offline_outputs_shared(mesh, spec, params, xd, method)
@@ -446,8 +433,7 @@ def scan_corpus_files(
         lanes = []  # (path index, channel)
         good_paths = []
         sizes = [_file_size(p) for p in paths]
-        with _host_lock:  # grown once, to the largest file
-            _host_ring(device).fit(device, _FILE_ROOMS * _aligned(max(sizes, default=0)))
+        _host_ring(device).reserve(device, max(sizes, default=0))  # grown once
         for p, size in zip(paths, sizes):
             try:
                 samples, rate = _file_to_device(p, device, size)

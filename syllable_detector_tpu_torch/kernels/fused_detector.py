@@ -1101,8 +1101,7 @@ class CtaChoice(NamedTuple):
 
 def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
                n_sm: int = H100_SMS, tier: str | None = None,
-               frames_input: bool = False, workload: str | None = None,
-               device_kind: str | None = None, layouts: tuple = LAYOUTS) -> CtaChoice:
+               frames_input: bool = False, layouts: tuple = LAYOUTS) -> CtaChoice:
     """Frames and layout of one CTA of the kernel for a launch of ``lanes``
     x ``n_evals`` evaluations on a card of ``n_sm`` SMs, under ``tier`` and
     input form as :func:`smem_bytes` takes them.
@@ -1124,19 +1123,10 @@ def cta_choice(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
     one, with a round's chunks of C a pass (:func:`round_chunks`). Raises,
     naming :data:`ENVELOPE`, when none fits.
 
-    With a ``workload`` (``single``, ``batched`` or ``distinct``) and a
-    ``device_kind`` (``tuning.device_kind``), a full-fp32 launch from
-    samples first takes the winner that ``tuning`` measured and cached for
-    that card, geometry, workload and launch size, when it fits."""
+    The choice depends on the launch alone: ``python -m
+    syllable_detector_tpu_torch tune`` reports how it compares with the
+    other candidates on a card, and changes nothing."""
     halo = spec.time_range - 1
-    if workload is not None and device_kind is not None and tier is None and not frames_input:
-        from syllable_detector_tpu_torch.tuning import tuned_cta_frames
-
-        tuned = tuned_cta_frames(device_kind, spec, workload, lanes, n_evals)
-        if tuned is not None and tuned > halo and tuned % 64 == 0:
-            group = col_group_for(spec, tuned, max_width)
-            if group is not None:
-                return CtaChoice(tuned, group)
     choices = _frame_choices(spec)
     best = None
     for frames in choices:
@@ -1211,24 +1201,14 @@ def col_group_for(spec: DetectorSpec, frames: int, max_width: int,
 
 def cta_frames(spec: DetectorSpec, n_evals: int, lanes: int, max_width: int,
                n_sm: int = H100_SMS, tier: str | None = None,
-               frames_input: bool = False, workload: str | None = None,
-               device_kind: str | None = None) -> int:
+               frames_input: bool = False) -> int:
     """The frames of :func:`cta_choice` (same arguments)."""
-    return cta_choice(spec, n_evals, lanes, max_width, n_sm, tier, frames_input,
-                      workload, device_kind).frames
+    return cta_choice(spec, n_evals, lanes, max_width, n_sm, tier, frames_input).frames
 
 
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@functools.cache
-@functools.lru_cache(maxsize=None)
-def _device_kind(device: torch.device) -> str:
-    from syllable_detector_tpu_torch.tuning import device_kind
-
-    return device_kind(device)
 
 
 STAGES = ("staging", "C wait", "band DFT", "A and C copies", "|X|", "first layer", "rest")
@@ -1300,9 +1280,9 @@ def _launch(
     ``[C, n_evals, outputs]`` float32 (allocated when None), which it
     returns, under ``tier`` (a :data:`TIERS` key, None for full fp32). The
     lanes' slice of every operand is a pointer offset. ``frames`` per CTA
-    and the layout's ``col_group`` default to :func:`cta_choice`'s (the
-    tuner times other frames, ``chip_smoke.py`` forces the other layouts
-    that fit); ``frames`` alone takes the resident layout. ``tc`` forces the
+    and the layout's ``col_group`` default to :func:`cta_choice`'s (``tune``
+    times other frames, ``chip_smoke.py`` forces the other layouts that
+    fit); ``frames`` alone takes the resident layout. ``tc`` forces the
     fp32 first layer onto the tensor cores or off them (default:
     :func:`tc_first_layer`; ``chip_smoke.py`` times both). Counts the launch
     in :data:`LAYOUT_LAUNCHES`."""
@@ -1352,9 +1332,8 @@ def _launch(
         if one_net is None or one_net.numel() * one_net.element_size() != 4 * floats:
             raise ValueError(f"the fused kernel takes the conv filter bank of {name}")
     if frames is None:
-        workload = "distinct" if folded.per_lane else "single" if lanes == 1 else "batched"
         frames, chosen = cta_choice(spec, n_evals, lanes, max(widths), _sm_count(xs.device),
-                                    tier, frames_input, workload, _device_kind(xs.device))
+                                    tier, frames_input)
         col_group = chosen if col_group is None else col_group
     col_group = col_group or 0
     smem = lib.sd_fused_detector_smem_bytes(

@@ -1,30 +1,21 @@
-"""Auto-tuner: measure the fused kernel's launch shape on the local card and
-cache the winner per (card, network geometry, workload, launch size).
+"""Launch-shape report: time the fused kernel at each frames per CTA on the
+local card, beside the shape the kernel's rule takes.
 
 Counterpart of ``syllable_detector_tpu.tuning``. The JAX package tunes the
 TPU kernel's tile; the port's counterpart is the frames one CTA of the fp32
 fused kernel transforms (``kernels/fused_detector.CTA_FRAMES``), which
-:func:`~syllable_detector_tpu_torch.kernels.fused_detector.cta_frames`
-otherwise chooses analytically from the launch shape. ``python -m
+:func:`~syllable_detector_tpu_torch.kernels.fused_detector.cta_choice`
+takes by a rule from the launch alone. ``python -m
 syllable_detector_tpu_torch tune -n net.txt`` times each candidate with
 CUDA events on the single-stream kernel (``single``) or the batched kernel
 with a shared net (``batched``) or one net per lane (``distinct``), and
-writes the fastest to a JSON cache that ``cta_frames`` consults before its
-analytic choice (full fp32, samples input). Candidates whose CTA does not
-fit in shared memory are skipped.
-
-Cache: ``~/.cache/syllable_detector_tpu_torch/tune.json`` (override with
-``SD_TUNE_CACHE``), written atomically under a lock; a corrupt file reads
-as empty. Keys are the kernel's revision (:data:`KERNEL_REVISION`), the
-card (``cuda:`` and its name), the geometry, the workload, and lanes and
-evaluations bucketed to powers of two, so one tune covers a deployment's
-neighbourhood, and a tune of an older kernel is not consulted.
+prints, for each workload, the trials, the fastest and the rule's choice
+for that launch. It writes nothing, and no launch reads what it measured.
+Candidates whose CTA does not fit in shared memory are skipped.
 """
 
 from __future__ import annotations
 
-import json
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,22 +24,12 @@ import torch
 __all__ = [
     "Trial",
     "WORKLOADS",
-    "KERNEL_REVISION",
     "geometry_key",
-    "tune_cache_path",
-    "reset_tune_cache",
-    "device_kind",
-    "tune_key",
-    "tuned_cta_frames",
     "tune_cta_frames",
     "main",
 ]
 
 WORKLOADS = ("single", "batched", "distinct")
-# The fused kernel's revision in the cache's keys: bumped whenever a change
-# to the kernel's layouts or arithmetic can move which frames per CTA win,
-# so that what an older kernel measured is not taken for this one's.
-KERNEL_REVISION = 3
 # evaluations of the single-stream tune, as the JAX package's tune_single
 SINGLE_EVALS = 1 << 15
 
@@ -71,110 +52,6 @@ def geometry_key(spec) -> str:
             spec.scaling,
         )
     )
-
-
-def tune_cache_path() -> str:
-    return os.environ.get(
-        "SD_TUNE_CACHE",
-        os.path.expanduser("~/.cache/syllable_detector_tpu_torch/tune.json"),
-    )
-
-
-_cache_mem: dict | None = None
-_cache_mem_path: str | None = None
-# tuned_cta_frames' answers by (the cache's path settings, card, spec,
-# workload, lane bucket, evaluation bucket): every fp32 launch consults it,
-# so after the first launch of a shape the consult is one dict lookup
-_answers: dict = {}
-
-
-def _load_cache() -> dict:
-    """The cache, read once per path (every launch consults it)."""
-    global _cache_mem, _cache_mem_path
-    path = tune_cache_path()
-    if _cache_mem is not None and _cache_mem_path == path:
-        return _cache_mem
-    try:
-        with open(path) as fh:
-            cache = json.load(fh)
-    except (OSError, ValueError):
-        cache = {}
-    _cache_mem = cache if isinstance(cache, dict) else {}
-    _cache_mem_path = path
-    return _cache_mem
-
-
-def reset_tune_cache() -> None:
-    """Drop the in-process copy (after an external edit of the file)."""
-    global _cache_mem, _cache_mem_path
-    _cache_mem = None
-    _cache_mem_path = None
-    _answers.clear()
-
-
-def _save_entry(key: str, entry: dict) -> None:
-    """Read, update and atomically replace the cache file under an
-    exclusive lock, so concurrent tunes keep each other's entries."""
-    import fcntl
-
-    path = tune_cache_path()
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            with open(path) as fh:
-                cache = json.load(fh)
-        except (OSError, ValueError):
-            cache = {}
-        if not isinstance(cache, dict):
-            cache = {}
-        cache[key] = entry
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as fh:
-            json.dump(cache, fh, indent=1)
-        os.replace(tmp, path)
-    reset_tune_cache()
-
-
-def device_kind(device) -> str:
-    """The cache's name for a device: ``cuda:`` and the card's name."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return device.type
-    return f"cuda:{torch.cuda.get_device_name(device)}"
-
-
-def _bucket(n: int) -> int:
-    """Next power of two (>= 8)."""
-    b = 8
-    while b < n:
-        b *= 2
-    return b
-
-
-def tune_key(kind: str, spec, workload: str, lanes: int, n_evals: int) -> str:
-    return "/".join(
-        (f"r{KERNEL_REVISION}", kind, geometry_key(spec), workload, f"c{_bucket(lanes)}",
-         f"ne{_bucket(n_evals)}")
-    )
-
-
-def tuned_cta_frames(kind: str, spec, workload: str, lanes: int, n_evals: int) -> int | None:
-    """The cached winning frames per CTA for this card, geometry, workload
-    and launch size, or None. The caller checks that it fits."""
-    memo = (os.environ.get("SD_TUNE_CACHE"), os.environ.get("HOME"), kind, spec, workload,
-            _bucket(lanes), _bucket(n_evals))
-    if memo in _answers:
-        return _answers[memo]
-    entry = _load_cache().get(tune_key(kind, spec, workload, lanes, n_evals))
-    frames = None
-    if isinstance(entry, dict):
-        try:
-            frames = int(entry["frames"])
-        except (KeyError, TypeError, ValueError):
-            pass
-    _answers[memo] = frames
-    return frames
 
 
 @dataclass
@@ -237,14 +114,14 @@ def tune_cta_frames(
     measure=None,
     log=None,
     device="cuda",
-) -> list[Trial]:
+) -> tuple[list[Trial], int]:
     """Time the fp32 kernel at each candidate frames per CTA (default
     ``CTA_FRAMES``) for one workload (``single``: one stream, ``params`` one
     net; ``batched``: ``lanes`` lanes, one net; ``distinct``: ``params`` a
-    list of ``lanes`` nets), skipping candidates that do not fit, and
-    persist the fastest for :func:`tuned_cta_frames`. ``measure(frames)``
-    replaces the timing (tests). Returns the trials, fastest first (empty
-    when nothing fit)."""
+    list of ``lanes`` nets), skipping candidates that do not fit.
+    ``measure(frames)`` replaces the timing (tests). Returns the trials,
+    fastest first (empty when nothing fit), and the frames the kernel's rule
+    takes for this launch on ``device``."""
     from syllable_detector_tpu_torch.kernels import fused_detector as fused
 
     if workload not in WORKLOADS:
@@ -268,19 +145,10 @@ def tune_cta_frames(
         if log:
             log(f"frames {frames}: {ms:.4f} ms, {trials[-1].windows_per_s:,.0f} windows/s")
     trials.sort(key=lambda t: t.ms)
-    if trials:
-        width = max(w for _, w in spec.net.layer_sizes)
-        _save_entry(
-            tune_key(device_kind(device), spec, workload, lanes, n_evals),
-            {
-                "frames": trials[0].tile,
-                "ms": trials[0].ms,
-                "windows_per_s": trials[0].windows_per_s,
-                "analytic": fused.cta_frames(spec, n_evals, lanes, width),
-                "trials": [[t.tile, t.ms] for t in trials],
-            },
-        )
-    return trials
+    device = torch.device(device)
+    n_sm = fused._sm_count(device) if device.type == "cuda" else fused.H100_SMS
+    width = max(w for _, w in spec.net.layer_sizes)
+    return trials, fused.cta_frames(spec, n_evals, lanes, width, n_sm)
 
 
 def main(argv=None) -> int:
@@ -294,7 +162,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="syllable_detector_tpu_torch tune",
         description="Time the fused kernel's frames per CTA on the local card "
-        "and cache the winners (consulted by every launch).",
+        "and report the fastest beside the kernel's own choice (writes nothing).",
     )
     p.add_argument("-n", "--network", required=True, help="network text file")
     p.add_argument("--channels", type=int, default=64)
@@ -304,7 +172,7 @@ def main(argv=None) -> int:
                    help="frames per CTA to try (default: the kernel's CTA_FRAMES)")
     p.add_argument("--workload", choices=[*WORKLOADS, "all"], default="batched")
     p.add_argument("--distinct-seed", type=int, default=1)
-    p.add_argument("--device", default="cuda", help="Torch device to tune (default: cuda).")
+    p.add_argument("--device", default="cuda", help="Torch device to time on (default: cuda).")
     args = p.parse_args(argv)
 
     def log(msg):
@@ -314,7 +182,8 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was requested but no CUDA device is available")
     spec, params = detector_spec_from_config(load_config(args.network), device)
-    log(f"device {device_kind(device)}; cache {tune_cache_path()}")
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    log(f"device {name}; geometry {geometry_key(spec)}")
 
     runs = []
     if args.workload in ("batched", "all"):
@@ -325,19 +194,24 @@ def main(argv=None) -> int:
     if args.workload in ("single", "all"):
         runs.append(("single", params, 1, SINGLE_EVALS))
     rows = []
-    for name, nets, lanes, n_evals in runs:
-        log(f"-- {name}, {lanes} lane(s) x {n_evals} evaluations")
-        trials = tune_cta_frames(spec, nets, name, lanes, n_evals, tiles=args.tiles,
-                                 log=log, device=device)
-        rows += [(name, t) for t in trials[:1]]
+    for workload, nets, lanes, n_evals in runs:
+        log(f"-- {workload}, {lanes} lane(s) x {n_evals} evaluations")
+        trials, rule = tune_cta_frames(spec, nets, workload, lanes, n_evals, tiles=args.tiles,
+                                       log=log, device=device)
+        if trials:
+            rows.append((workload, lanes, n_evals, trials, rule))
 
     if not rows:
         log("error: no candidate fits the kernel at this geometry (frames per CTA "
             "must be a multiple of 64 above timeRange - 1 within the shared "
-            "memory); nothing was cached")
+            "memory)")
         return 1
-    for name, t in rows:
-        print(f"{name}: frames {t.tile} {t.ms:.4f} ms {t.windows_per_s:,.0f} windows/s")
+    for workload, lanes, n_evals, trials, rule in rows:
+        t = trials[0]
+        timed = ", ".join(f"frames {u.tile} {u.ms:.4f} ms"
+                          for u in sorted(trials, key=lambda u: u.tile))
+        print(f"{workload}: frames {t.tile} {t.ms:.4f} ms {t.windows_per_s:,.0f} windows/s; "
+              f"rule {rule}; {lanes} x {n_evals}: {timed}")
     return 0
 
 

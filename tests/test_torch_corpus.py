@@ -104,8 +104,8 @@ def test_scan_corpus_checks_lane_geometry(corpus):
 @pytest.mark.parametrize("form", ["tensors", "mixed"])
 def test_scan_corpus_takes_streams_as_tensors_or_numpy(corpus, method, form, monkeypatch):
     """Streams given as tensors on the device (copied into the batch there),
-    or some of them as numpy (the whole batch staged on the host), give the
-    outputs of numpy streams bit for bit, with every tensor the scan makes
+    or some of them as numpy (each staged in the host buffer and uploaded
+    first), give the outputs of numpy streams bit for bit, with every tensor the scan makes
     by ``torch.empty`` filled with NaN first (the host buffer's bytes with
     0xFF, NaN as float32): nothing reads what it did not write."""
     cfgs, streams, _ = corpus
@@ -169,6 +169,35 @@ def test_scan_corpus_batch_holds_each_stream_then_zeros(corpus, form, shards, mo
         - cfgs[0].time_range + 1 for s in streams]
 
 
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_scan_corpus_takes_one_route_for_every_stream_kind(corpus, method, monkeypatch):
+    """Numpy streams and CPU tensors of the same samples reach detection as
+    one batch, bit for bit, and give the same outputs: each numpy stream is
+    staged once, padded nowhere (a ``corpus.stage`` whose ``staged_samples``
+    are its samples), and the batch is then built on the device as it is
+    from tensors already there, which stage nothing."""
+    cfgs, streams, _ = corpus
+    batches, plain = [], tcorpus.batch_offline_outputs_shared
+    monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
+                        lambda spec, params, xs, method: batches.append(xs.clone())
+                        or plain(spec, params, xs, method))
+    lo = time.perf_counter_ns()
+    from_numpy = tcorpus.scan_corpus(cfgs[0], streams, method=method, device="cpu")
+    mid = time.perf_counter_ns()
+    tensors = [torch.from_numpy(np.ascontiguousarray(s)) for s in streams]
+    from_tensors = tcorpus.scan_corpus(cfgs[0], tensors, method=method, device="cpu")
+    hi = time.perf_counter_ns()
+    stages = [[sp.counts for sp in timing.spans(a, b) if sp.start_ns >= a
+               and sp.name == "corpus.stage"] for a, b in ((lo, mid), (mid, hi))]
+    assert stages == [[{"lanes": 1, "samples": len(s), "staged_samples": len(s)}
+                       for s in streams], []]
+    assert len(batches) == 2 and torch.equal(batches[0], batches[1])
+    assert len(from_numpy) == len(from_tensors) == 4
+    for g, w in zip(from_tensors, from_numpy):
+        assert g.shape == w.shape and len(g) > 50
+        np.testing.assert_array_equal(g, w)
+
+
 FRESH_SCAN = """
 import sys
 import numpy as np
@@ -194,7 +223,7 @@ def test_scan_corpus_reuses_its_host_buffer_without_stale_samples(corpus, method
     wide = [fixtures.chirp_audio(0.9, 60 + i) for i in range(6)]
     tcorpus.scan_corpus(cfgs[0], wide, method=method, device="cpu")
     buffer = tcorpus._host_buffers["cpu"].buf
-    assert buffer.numel() >= 6 * len(wide[0]) * 4
+    assert buffer.numel() == tcorpus._FILE_ROOMS * tcorpus._aligned(len(wide[0]) * 4)
     batches, plain = [], tcorpus.batch_offline_outputs_shared
     monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
                         lambda *a: batches.append(a[2].clone()) or plain(*a))
@@ -400,7 +429,7 @@ def test_host_ring_keeps_each_room_off_the_one_before(seed):
     is not grown."""
     sizes = np.random.default_rng(seed).integers(0, 10_000, 300)
     cpu, ring = torch.device("cpu"), tcorpus._HostRing()
-    ring.fit(cpu, tcorpus._FILE_ROOMS * tcorpus._aligned(int(sizes.max())))
+    ring.reserve(cpu, int(sizes.max()))
     buffer, before = ring.buf, (0, 0)
     for n in map(int, sizes):
         room = ring.room(cpu, n)

@@ -96,19 +96,17 @@ def test_inspect_matches_jax(nets, net):
 
 def test_dispatch_reaches_tune(nets, tmp_path, monkeypatch):
     """``python -m syllable_detector_tpu_torch tune`` is ``tuning.main``: with
-    its timer replaced it caches the fastest candidate; without a card it
-    raises under the default ``--device cuda``."""
+    its timer replaced it reports the fastest candidate beside the rule's
+    choice and writes nothing; without a card it raises under the default
+    ``--device cuda``."""
     from syllable_detector_tpu_torch import tuning
 
-    monkeypatch.setenv("SD_TUNE_CACHE", str(tmp_path / "tune.json"))
-    tuning.reset_tune_cache()
+    monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.setattr(tuning, "_measure", lambda *a: {64: 2.0, 128: 1.0}[a[5]])
     rc, out, _ = run(pdispatch.main, ["tune", "-n", nets["sample"], "--workload", "single",
                                       "--device", "cpu"])
-    assert rc == 0 and out.startswith("single: frames 128 ")
-    spec = detector_spec_from_config(fixtures.sample_geometry_config(0), "cpu")[0]
-    assert tuning.tuned_cta_frames("cpu", spec, "single", 1, tuning.SINGLE_EVALS) == 128
-    tuning.reset_tune_cache()
+    assert rc == 0 and out.startswith("single: frames 128 ") and "; rule 128; " in out
+    assert out.count("\n") == 1 and not any(tmp_path.rglob("*"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pdispatch.main(["tune", "-n", nets["sample"]])

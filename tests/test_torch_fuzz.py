@@ -268,33 +268,31 @@ def test_random_geometry_paths_match_jax(seed):
 
 def test_tune_takes_a_wide_geometry(tmp_path, monkeypatch, capsys):
     """``tune`` times every candidate in the layout the kernel takes there
-    (it found none that fit before the streamed layout), caches the
-    winner, and the kernel's choice then takes it, streamed."""
+    (it found none that fit before the streamed layout): 64 frames
+    streamed, 128 in the span layout, and reports the rule's choice, which
+    the launch takes outside the resident layout."""
     from syllable_detector_tpu_torch import tuning
     from syllable_detector_tpu_torch.config.model_format import save_config
 
-    monkeypatch.setenv("SD_TUNE_CACHE", str(tmp_path / "tune.json"))
-    tuning.reset_tune_cache()
     cfg = dict(fixtures.wide_geometry_configs())["fft1024 overlap900"]
     net = tmp_path / "wide.txt"
     save_config(cfg, str(net))
     timed = []
 
     def fake_measure(spec, params, workload, lanes, n_evals, frames, device):
-        timed.append(frames)
-        return {64: 0.3, 128: 0.2}[frames]
+        timed.append((frames, tfused.col_group_for(spec, frames, width)))
+        return {64: 0.2, 128: 0.3}[frames]
 
+    spec = tdet.detector_spec_from_config(cfg, "cpu")[0]
+    width = max(w for _, w in spec.net.layer_sizes)
     monkeypatch.setattr(tuning, "_measure", fake_measure)
-    try:
-        assert tuning.main(["-n", str(net), "--workload", "single", "--device", "cpu"]) == 0
-        assert timed == [64, 128] and "single: frames 128" in capsys.readouterr().out
-        spec = tdet.detector_spec_from_config(cfg, "cpu")[0]
-        width = max(w for _, w in spec.net.layer_sizes)
-        choice = tfused.cta_choice(spec, tuning.SINGLE_EVALS, 1, width, workload="single",
-                                   device_kind="cpu")
-        assert choice == (128, tfused.col_group_for(spec, 128, width)) and choice.col_group
-    finally:
-        tuning.reset_tune_cache()
+    assert tuning.main(["-n", str(net), "--workload", "single", "--device", "cpu"]) == 0
+    assert [f for f, _ in timed] == [64, 128] and all(group for _, group in timed)
+    assert timed[0][1] > 0  # 64 frames: the streamed layout
+    choice = tfused.cta_choice(spec, tuning.SINGLE_EVALS, 1, width)
+    assert choice == (128, tfused.col_group_for(spec, 128, width)) and choice.col_group
+    out = capsys.readouterr().out
+    assert out.startswith("single: frames 64 0.2000 ms ") and "; rule 128; " in out
 
 
 def rate_pairs():

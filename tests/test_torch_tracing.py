@@ -249,19 +249,19 @@ def test_corpus_reads_count_the_files_read_straight_in(tmp_path):
 
 @pytest.mark.parametrize("method", ["matmul", "fused"])
 def test_corpus_scan_stages_its_lanes_at_the_longest_stream(method):
-    """Lanes of four lengths are staged as ``lanes x`` the longest (rounded
-    up to 4 samples), and each lane's outputs equal, bit for bit, those of
-    the same streams zero-padded to the power-of-two bucket the scan used to
-    take, through the same plain path."""
+    """Lanes of four lengths are each staged once, padded nowhere on the
+    host (the batch takes the longest, rounded up to 4 samples, on the
+    device), and each lane's outputs equal, bit for bit, those of the same
+    streams zero-padded to the power-of-two bucket the scan used to take,
+    through the same plain path."""
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
                                    fixtures.chirp_audio(1.0, 5))
     streams = [fixtures.chirp_audio(s, 30 + i) for i, s in enumerate((0.6, 0.37, 0.5, 0.91))]
     longest = max(map(len, streams))
     assert longest % 4  # the rounding is exercised
     got, spans = recorded(lambda: corpus.scan_corpus(cfg, streams, method=method, device="cpu"))
-    stage, = named(spans, "corpus.stage")
-    assert stage.counts == {"lanes": 4, "samples": sum(map(len, streams)),
-                            "staged_samples": 4 * (longest + 4 - longest % 4)}
+    assert [s.counts for s in named(spans, "corpus.stage")] == [
+        {"lanes": 1, "samples": len(s), "staged_samples": len(s)} for s in streams]
     bucket = 1 << max(14, (longest - 1).bit_length())
     padded = np.zeros((4, bucket), np.float32)
     for row, s in zip(padded, streams):

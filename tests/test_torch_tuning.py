@@ -1,13 +1,13 @@
-"""The port's tuner (``tuning.py``): the cache and its keys against the JAX
-module's, the lookup ``kernels/fused_detector.cta_frames`` makes before its
-analytic choice, and ``main`` with the timer replaced (the real timer needs a
-card: CUDA events on the kernel)."""
+"""The port's launch-shape report (``tuning.py``): its geometry key against
+the JAX module's, ``main`` with the timer replaced (the real timer needs a
+card: CUDA events on the kernel), and the kernel layer's launch shape, which
+reads no file and imports nothing above the kernel layer."""
 
+import ast
+import builtins
 import dataclasses
 import json
 import os
-import subprocess
-import sys
 from pathlib import Path
 
 import pytest
@@ -30,12 +30,12 @@ CONFIGS = {
 
 
 @pytest.fixture
-def tune_cache(tmp_path, monkeypatch):
-    path = tmp_path / "cache" / "tune.json"
-    monkeypatch.setenv("SD_TUNE_CACHE", str(path))
-    tuning.reset_tune_cache()
-    yield path
-    tuning.reset_tune_cache()
+def home(tmp_path, monkeypatch):
+    """An empty ``HOME`` of the test's own."""
+    path = tmp_path / "home"
+    path.mkdir()
+    monkeypatch.setenv("HOME", str(path))
+    return path
 
 
 @pytest.fixture
@@ -52,116 +52,89 @@ def test_geometry_key_matches_jax(name):
     assert tuning.geometry_key(longer) != tuning.geometry_key(spec)
 
 
-def test_cache_path_default_and_override(monkeypatch, tmp_path):
-    monkeypatch.delenv("SD_TUNE_CACHE", raising=False)
-    assert tuning.tune_cache_path() == os.path.expanduser(
-        "~/.cache/syllable_detector_tpu_torch/tune.json")
-    monkeypatch.setenv("SD_TUNE_CACHE", str(tmp_path / "t.json"))
-    assert tuning.tune_cache_path() == str(tmp_path / "t.json")
+def test_launch_shape_reads_no_tune_file(spec, home, tmp_path, monkeypatch):
+    """A ``tune.json`` naming 64 frames for every workload, where the tuner
+    once kept its cache (``$HOME/.cache/...`` and ``$SD_TUNE_CACHE``), is
+    not opened, and each launch keeps the rule's shape: 128 frames, the
+    resident layout."""
+    width = max(w for _, w in spec.net.layer_sizes)
+    shapes = {"single": (1, tuning.SINGLE_EVALS), "batched": (64, 2048),
+              "distinct": (64, 2048)}
+    entries = {f"r{r}/{kind}/{tuning.geometry_key(spec)}/{w}/c{max(8, lanes)}/ne{evals}":
+               {"frames": 64}
+               for r in range(1, 5) for kind in ("cpu", "cuda:NVIDIA H100 80GB HBM3")
+               for w, (lanes, evals) in shapes.items()}
+    files = [home / ".cache" / "syllable_detector_tpu_torch" / "tune.json",
+             tmp_path / "elsewhere" / "tune.json"]
+    for f in files:
+        f.parent.mkdir(parents=True)
+        f.write_text(json.dumps(entries))
+    monkeypatch.setenv("SD_TUNE_CACHE", str(files[1]))
+    opened, real_open = [], builtins.open
+    monkeypatch.setattr(builtins, "open", lambda f, *a, **k: opened.append(f)
+                        or real_open(f, *a, **k))
+    for lanes, evals in shapes.values():
+        assert fused.cta_choice(spec, evals, lanes, width) == fused.CtaChoice(128, 0)
+        assert fused.cta_frames(spec, evals, lanes, width) == 128
+    assert opened == []
 
 
-def test_cache_round_trip_and_buckets(spec, tune_cache):
-    ms = {64: 0.5, 128: 0.3}
-    trials = tuning.tune_cta_frames(spec, None, "batched", 64, 2048, measure=ms.get,
-                                    device="cpu")
-    assert [t.tile for t in trials] == [128, 64]
-    assert trials[0].windows_per_s == pytest.approx(64 * 2048 / 0.3e-3)
-    entry = json.loads(tune_cache.read_text())[tuning.tune_key("cpu", spec, "batched", 64, 2048)]
-    assert entry["frames"] == 128 and entry["analytic"] == fused.cta_frames(spec, 2048, 64, 4)
-    assert entry["trials"] == [[128, 0.3], [64, 0.5]]
-    # a power-of-two bucket covers the neighbourhood; other keys miss
-    assert tuning.tuned_cta_frames("cpu", spec, "batched", 40, 1500) == 128
-    assert tuning.tuned_cta_frames("cpu", spec, "batched", 640, 2048) is None
-    assert tuning.tuned_cta_frames("cpu", spec, "distinct", 64, 2048) is None
-    assert tuning.tuned_cta_frames("cuda:other", spec, "batched", 64, 2048) is None
+@pytest.mark.parametrize("workload", tuning.WORKLOADS)
+def test_tune_writes_no_file(net, home, tmp_path, monkeypatch, workload, capsys):
+    """``tune`` times, reports and writes nothing: not under ``HOME``, not
+    at ``$SD_TUNE_CACHE``, not in the working directory."""
+    cached = tmp_path / "cache" / "tune.json"
+    monkeypatch.setenv("SD_TUNE_CACHE", str(cached))
+    monkeypatch.setattr(tuning, "_measure", lambda *a: {64: 0.2, 128: 0.1}[a[5]])
+    here = sorted(os.listdir())
+    assert tuning.main(["-n", net, "--workload", workload, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(f"{workload}: frames 128 ")
+    assert not any(home.rglob("*")) and not cached.parent.exists()
+    assert sorted(os.listdir()) == here
 
 
-def test_corrupt_cache_is_ignored(spec, tune_cache):
-    tune_cache.parent.mkdir(parents=True)
-    for text in ("{not json", "[1, 2]"):
-        tune_cache.write_text(text)
-        tuning.reset_tune_cache()
-        assert tuning.tuned_cta_frames("cpu", spec, "batched", 64, 2048) is None
-    tuning.tune_cta_frames(spec, None, "single", 1, 4096, measure=lambda f: 1.0 / f,
-                           device="cpu")
-    assert tuning.tuned_cta_frames("cpu", spec, "single", 1, 4096) == 128
+def test_tune_reports_the_rules_choice(spec, net, home, monkeypatch, capsys):
+    """Each workload's line gives the fastest, the rule's choice for that
+    launch and every trial; the report does not move the rule."""
+    width = max(w for _, w in spec.net.layer_sizes)
+    trials, rule = tuning.tune_cta_frames(spec, None, "distinct", 64, 2048,
+                                          measure={64: 0.5, 128: 0.8}.get, device="cpu")
+    assert [(t.tile, t.ms) for t in trials] == [(64, 0.5), (128, 0.8)]
+    assert trials[0].windows_per_s == pytest.approx(64 * 2048 / 0.5e-3)
+    assert rule == fused.cta_frames(spec, 2048, 64, width) == 128
+    monkeypatch.setattr(tuning, "_measure", lambda *a: {64: 0.5, 128: 0.8}[a[5]])
+    assert tuning.main(["-n", net, "--workload", "all", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in out] == ["batched", "distinct", "single"]
+    for line, shape in zip(out, ("64 x 2048", "64 x 2048", f"1 x {tuning.SINGLE_EVALS}")):
+        assert " frames 64 0.5000 ms " in line and "; rule 128; " in line
+        assert line.endswith(f"{shape}: frames 64 0.5000 ms, frames 128 0.8000 ms")
+    assert fused.cta_frames(spec, 2048, 64, width) == 128
 
 
-def test_concurrent_writers_keep_every_entry(spec, tune_cache):
-    """Writers in four processes at once, and one whose in-process copy
-    predates them: every entry survives the read-modify-write."""
-    tuning.tune_cta_frames(spec, None, "batched", 8, 64, measure=lambda f: 1.0, device="cpu")
-    assert tuning.tuned_cta_frames("cpu", spec, "batched", 8, 64) == 64  # memoized now
-    script = (
-        "import sys\n"
-        "from syllable_detector_tpu_torch import fixtures, tuning\n"
-        "from syllable_detector_tpu_torch.models.detector import detector_spec_from_config\n"
-        "spec = detector_spec_from_config(fixtures.sample_geometry_config(0), 'cpu')[0]\n"
-        "w = int(sys.argv[1])\n"
-        "for k in range(5):\n"
-        "    tuning.tune_cta_frames(spec, None, 'batched', 16 << w, 64 << k,\n"
-        "                           measure=lambda f: 1.0, device='cpu')\n"
-    )
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    procs = [subprocess.Popen([sys.executable, "-c", script, str(w)], env=env, cwd=REPO)
-             for w in range(4)]
-    try:
-        for p in procs:
-            assert p.wait(timeout=120) == 0
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    tuning.tune_cta_frames(spec, None, "distinct", 8, 64, measure=lambda f: 1.0, device="cpu")
-    assert len(json.loads(tune_cache.read_text())) == 1 + 4 * 5 + 1
-
-
-def test_cta_frames_consults_the_cache(spec, tune_cache):
-    """A cached winner replaces the analytic choice for its card and
-    workload, in full fp32 from samples only; one that does not fit is
-    ignored."""
-    analytic = fused.cta_frames(spec, 2048, 64, 4)
-    other = 128 if analytic == 64 else 64
-    tuning.tune_cta_frames(spec, None, "distinct", 64, 2048,
-                           measure=lambda f: 0.1 if f == other else 1.0, device="cpu")
-    kw = dict(workload="distinct", device_kind="cpu")
-    assert fused.cta_frames(spec, 2048, 64, 4, **kw) == other
-    assert fused.cta_frames(spec, 2048, 64, 4) == analytic
-    assert fused.cta_frames(spec, 2048, 64, 4, workload="batched", device_kind="cpu") == analytic
-    assert fused.cta_frames(spec, 2048, 64, 4, tier="split", **kw) == fused.cta_frames(
-        spec, 2048, 64, 4, tier="split")
-    assert fused.cta_frames(spec, 2048, 64, 4, frames_input=True, **kw) == fused.cta_frames(
-        spec, 2048, 64, 4, frames_input=True)
-    key = tuning.tune_key("cpu", spec, "distinct", 64, 2048)
-    for bad in (4096, 96, "x"):  # too much shared memory, not a multiple of 64, garbage
-        cache = json.loads(tune_cache.read_text())
-        cache[key]["frames"] = bad
-        tune_cache.write_text(json.dumps(cache))
-        tuning.reset_tune_cache()
-        assert fused.cta_frames(spec, 2048, 64, 4, **kw) == analytic
-
-
-def test_entry_of_an_older_kernel_is_ignored(spec, tune_cache):
-    """What a tune measured on an older kernel (its key without the kernel's
-    revision, or with an earlier one) is not consulted; the same entry
-    under this kernel's key is."""
-    analytic = fused.cta_frames(spec, 2048, 64, 4)
-    other = 128 if analytic == 64 else 64
-    key = tuning.tune_key("cpu", spec, "distinct", 64, 2048)
-    revision = f"r{tuning.KERNEL_REVISION}/"
-    assert key.startswith(revision)
-    unrevised = key[len(revision):]
-    earlier = f"r{tuning.KERNEL_REVISION - 1}/" + unrevised
-    assert unrevised == "/".join(("cpu", tuning.geometry_key(spec), "distinct", "c64", "ne2048"))
-    kw = dict(workload="distinct", device_kind="cpu")
-    tune_cache.parent.mkdir(parents=True)
-    tune_cache.write_text(json.dumps({unrevised: {"frames": other}, earlier: {"frames": other}}))
-    tuning.reset_tune_cache()
-    assert tuning.tuned_cta_frames("cpu", spec, "distinct", 64, 2048) is None
-    assert fused.cta_frames(spec, 2048, 64, 4, **kw) == analytic
-    tune_cache.write_text(json.dumps({key: {"frames": other}}))
-    tuning.reset_tune_cache()
-    assert fused.cta_frames(spec, 2048, 64, 4, **kw) == other
+def test_kernels_import_nothing_above_them():
+    """Every import of the package in ``kernels/*.py``, lazy ones inside
+    functions too, is of ``kernels``, ``ops`` or ``models.detector``: the
+    launch shape cannot depend on a command module such as ``tuning``."""
+    root = REPO / "syllable_detector_tpu_torch"
+    allowed = ("kernels", "ops", "models.detector")
+    seen = []
+    for path in sorted((root / "kernels").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if not node.level else ["<relative>"]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            for name in names:
+                if name == "<relative>" or name.split(".")[0] == root.name:
+                    seen.append((path.name, name))
+    assert seen
+    above = [(f, m) for f, m in seen
+             if not any(m == f"{root.name}.{a}" or m.startswith(f"{root.name}.{a}.")
+                        for a in allowed)]
+    assert above == []
 
 
 @pytest.fixture
@@ -171,7 +144,7 @@ def net(tmp_path):
     return str(path)
 
 
-def test_main_picks_and_persists_the_fastest(net, tune_cache, monkeypatch, capsys):
+def test_main_reports_the_fastest(net, home, monkeypatch, capsys):
     calls = []
 
     def fake_measure(spec, params, workload, lanes, n_evals, frames, device):
@@ -185,24 +158,21 @@ def test_main_picks_and_persists_the_fastest(net, tune_cache, monkeypatch, capsy
         ("single", 1, tuning.SINGLE_EVALS, "dict")}
     out = capsys.readouterr().out.splitlines()
     assert [line.split(":")[0] for line in out] == ["batched", "distinct", "single"]
-    assert all(" frames 64 " in line for line in out)
-    spec = detector_spec_from_config(fixtures.sample_geometry_config(0), "cpu")[0]
-    for workload, lanes, n_evals in (("batched", 64, 2048), ("distinct", 64, 2048),
-                                     ("single", 1, tuning.SINGLE_EVALS)):
-        assert tuning.tuned_cta_frames("cpu", spec, workload, lanes, n_evals) == 64
+    assert all(line.split(";")[0].split(": ")[1].startswith("frames 64 ") for line in out)
+    assert not any(home.rglob("*"))
 
 
-def test_main_errors_when_no_candidate_fits(net, tune_cache, monkeypatch, capsys):
+def test_main_errors_when_no_candidate_fits(net, home, monkeypatch, capsys):
     monkeypatch.setattr(tuning, "_measure", lambda *a: pytest.fail("nothing should be timed"))
     assert tuning.main(["-n", net, "--tiles", "100", "4096", "--workload", "single",
                         "--device", "cpu"]) == 1
-    assert not tune_cache.exists()
+    assert not any(home.rglob("*"))
     err = capsys.readouterr().err
     assert "not a multiple of 64" in err and "shared memory" in err
     assert "no candidate fits" in err
 
 
-def test_main_needs_a_card(net, tune_cache):
+def test_main_needs_a_card(net):
     import torch
 
     if torch.cuda.is_available():
