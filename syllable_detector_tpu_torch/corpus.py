@@ -13,8 +13,10 @@ Samples cross to the device once. Each file lands in a room of one reused
 host buffer a device, used as a ring (page-locked on a card), and is
 uploaded from there asynchronously: a 16-bit PCM WAV's codes read straight
 in and scaled to float32 on the device, any other file decoded on the host
-and its float32 block copied in. Files whose rate differs from the net's are resampled per
-channel on the device by the polyphase resampler (the framed GEMM kernel on
+and its float32 block copied in. A scan reads its files on a small pool of
+threads, each into a room of its own, a few files ahead of the calling
+thread, which uploads them in file order. Files whose rate differs from the
+net's are resampled per channel on the device by the polyphase resampler (the framed GEMM kernel on
 a card), and the lanes are written into the batch there.
 
 Every entry takes a ``device``; it defaults to ``cuda``. With a ``mesh``
@@ -24,11 +26,14 @@ each on its own device and stream.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import os
 import sys
 import threading
 from collections import OrderedDict
+from concurrent import futures
 from time import perf_counter_ns
 from typing import Optional, Sequence
 
@@ -153,59 +158,99 @@ def _batch_length(n: int) -> int:
 
 
 _ALIGN = 64  # bytes: where each room of a host ring starts
-_FILE_ROOMS = 3  # rooms of the largest file a host ring holds
+# the most threads a scan reads its files on, which also bounds its pinned
+# ring at 10 rooms of its largest file: on an 8-CPU H100 host, 6 and 8
+# threads read the benchmark's corpus cell (8 files) fastest of 1, 2, 3, 4,
+# 6 and 8 (PERF.md)
+_READ_CAP = 8
 
 
 def _aligned(nbytes: int) -> int:
     return -(-nbytes // _ALIGN) * _ALIGN
 
 
+def _ring_bytes(sizes: Sequence[int], workers: int) -> int:
+    """The bytes of a host ring for rooms of ``sizes``, taken up to
+    ``workers`` reads ahead of their uploads. Rooms taken and not yet
+    uploaded are at most ``workers + 1`` (the reads in flight and a decoded
+    file's larger room), each at most the largest, and a room that does not
+    fit before the buffer's end leaves less than the largest unused there:
+    so ``workers + 2`` rooms of the largest, or every room once and the
+    largest, whichever is less, keep each room off every room still
+    taken."""
+    if not sizes:
+        return 0
+    largest = _aligned(max(sizes))
+    return min((workers + 2) * largest, sum(map(_aligned, sizes)) + largest)
+
+
 class _HostRing:
     """A device's reused host buffer of bytes (page-locked on a card), handed
     out as a ring of rooms, one for each upload: a room starts after the one
-    before, or at the buffer's start where it does not fit there, and waits
-    only for the uploads out of the rooms it overlaps (the events recorded
-    by :meth:`uploaded`; a CPU's copies are done when they return). Hold
-    ``lock`` from a room's taking to its upload."""
+    before, or at the buffer's start where it does not fit there. A room
+    waits only for the uploads out of the rooms it overlaps (the events
+    recorded by :meth:`uploaded`; a CPU's copies are done when they return)
+    and never overlaps a room taken and not yet uploaded or released: where
+    it would, the ring moves to a larger buffer, and the rooms taken in the
+    old one keep its memory. ``lock`` guards the ring's state, never a
+    read."""
 
     def __init__(self):
-        self.lock = threading.RLock()
+        self.lock = threading.Lock()
         self.buf = torch.empty(0, dtype=torch.uint8)
         self.head = 0
-        self.live: list[tuple[int, int, torch.cuda.Event]] = []  # oldest first
+        self.taken: list[tuple[int, int]] = []  # rooms neither uploaded nor released
+        self.live: list[tuple[int, int, torch.cuda.Event]] = []  # uploads, oldest first
 
     def reserve(self, device: torch.device, nbytes: int) -> None:
-        """Grow the buffer to hold :data:`_FILE_ROOMS` rooms of ``nbytes``,
-        once every upload out of it has finished. Three rooms of a scan's
-        largest file keep each file's room off the room of the file before:
-        no file's read waits on the upload of the file before it."""
-        need = _FILE_ROOMS * _aligned(nbytes)
+        """Grow the buffer to ``nbytes`` where it is smaller (a scan's
+        :func:`_ring_bytes`, so that its rooms fit in one buffer)."""
         with self.lock:
-            if self.buf.numel() < need:
-                self._wait(0, self.buf.numel())
-                self.buf = torch.empty(need, dtype=torch.uint8,
-                                       pin_memory=device.type == "cuda")
-                self.head = 0
+            if self.buf.numel() < nbytes:
+                self._grow(device, nbytes)
 
     def room(self, device: torch.device, nbytes: int) -> torch.Tensor:
-        """``nbytes`` bytes of the buffer, grown by :meth:`reserve` to hold
-        this room where it does not."""
+        """``nbytes`` bytes of the buffer, taken until :meth:`uploaded` or
+        :meth:`release` hands them back."""
         size = _aligned(nbytes)
-        self.reserve(device, nbytes)
-        if self.head + size > self.buf.numel():
-            self.head = 0
-        at, self.head = self.head, self.head + size
-        self._wait(at, self.head)
-        return self.buf[at : at + nbytes]
+        with self.lock:
+            at = self.head if self.head + size <= self.buf.numel() else 0
+            if at + size > self.buf.numel() or any(
+                    a < at + size and at < b for a, b in self.taken):
+                self._grow(device, 2 * max(self.buf.numel(), size))
+                at = 0
+            self.head = at + size
+            self._wait(at, self.head)
+            self.taken.append((at, self.head))
+            return self.buf[at : at + nbytes]
 
     def uploaded(self, device: torch.device, room: torch.Tensor) -> None:
-        """Record, on a card, the event after the uploads enqueued out of
-        ``room``, on which a later room over it waits."""
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            at = room.data_ptr() - self.buf.data_ptr()
-            self.live.append((at, at + room.numel(), done))
+        """Hand ``room`` back once its uploads are enqueued, recording on a
+        card the event after them, on which a later room over it waits."""
+        with self.lock:
+            span = self._give_back(room)
+            if span is not None and device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+                self.live.append((*span, done))
+
+    def release(self, room: torch.Tensor) -> None:
+        """Hand ``room`` back with nothing uploaded out of it."""
+        with self.lock:
+            self._give_back(room)
+
+    def _give_back(self, room: torch.Tensor) -> Optional[tuple[int, int]]:
+        if room.untyped_storage().data_ptr() != self.buf.untyped_storage().data_ptr():
+            return None  # a room of a buffer the ring has left
+        at = room.storage_offset()  # an empty room's data_ptr() reads 0
+        span = (at, at + _aligned(room.numel()))
+        self.taken.remove(span)
+        return span
+
+    def _grow(self, device: torch.device, nbytes: int) -> None:
+        self._wait(0, self.buf.numel())
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
+        self.head, self.taken = 0, []
 
     def _wait(self, lo: int, hi: int) -> None:
         while self.live and self.live[0][2].query():  # finished, oldest first
@@ -226,20 +271,21 @@ def _host_ring(device: torch.device) -> _HostRing:
 def _stage(samples: np.ndarray, device: torch.device,
            room: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A float32 host array on ``device``: copied into ``room`` of the
-    device's host ring where it fits there, else into a room of its own, and
-    uploaded from there once (on a card asynchronously; on a CPU as a copy,
-    since the ring is refilled)."""
+    device's host ring where it fits there, else into a room of its own
+    (``room`` handed back), and uploaded from there once (on a card
+    asynchronously; on a CPU as a copy, since the ring is refilled)."""
     ring = _host_ring(device)
-    with ring.lock:
-        with timing.span("corpus.stage", lanes=samples.shape[1] if samples.ndim == 2 else 1,
-                         samples=samples.size, staged_samples=samples.size):
-            if room is None or samples.nbytes > room.numel():
-                room = ring.room(device, samples.nbytes)
-            host = room[: samples.nbytes].view(torch.float32).view(samples.shape)
-            np.copyto(host.numpy(), samples)
-        with timing.span("corpus.copy_in"):
-            out = host.to(device, non_blocking=True) if device.type == "cuda" else host.clone()
-            ring.uploaded(device, room)
+    with timing.span("corpus.stage", lanes=samples.shape[1] if samples.ndim == 2 else 1,
+                     samples=samples.size, staged_samples=samples.size):
+        if room is None or samples.nbytes > room.numel():
+            if room is not None:
+                ring.release(room)
+            room = ring.room(device, samples.nbytes)
+        host = room[: samples.nbytes].view(torch.float32).view(samples.shape)
+        np.copyto(host.numpy(), samples)
+    with timing.span("corpus.copy_in"):
+        out = host.to(device, non_blocking=True) if device.type == "cuda" else host.clone()
+        ring.uploaded(device, room)
     return out
 
 
@@ -250,41 +296,113 @@ def _file_size(path) -> int:
         return 0  # the read reports it
 
 
-def _file_to_device(path: str, device: torch.device, size: int) -> tuple[torch.Tensor, int]:
-    """A file's ``[n, channels]`` samples as float32 on ``device``, and its
-    rate: read into a room of the device's host ring, uploaded once.
+def _read_workers(files: int) -> int:
+    """The threads a scan of ``files`` files reads them on: one a file, at
+    most one a CPU this process may run on, at most :data:`_READ_CAP`."""
+    cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count() or 1)
+    return max(1, min(files, cpus, _READ_CAP))
 
-    The room, of ``size``, the file's size on disk, is taken before the
-    read, so that its wait is the stage's and not the read's. A 16-bit PCM
-    WAV's codes are read straight into it (:func:`_read_pcm16_into`),
-    uploaded as int16 and scaled by 2**-15 on the device: every int16 and
-    its product are exact in float32, so the samples equal
-    :func:`read_audio`'s bit for bit. Any other file is decoded by
-    :func:`read_audio` and its float32 block copied into the room, or into
-    a larger one. Raises what the read raises."""
-    ring = _host_ring(device)
-    with ring.lock:
+
+_pool: Optional[tuple[int, int, futures.ThreadPoolExecutor]] = None  # (pid, threads, pool)
+_pool_lock = threading.Lock()
+
+
+def _read_pool(workers: int) -> futures.ThreadPoolExecutor:
+    """The process's pool of reading threads, made at its first use, of at
+    least ``workers`` threads (a pool inherited across a fork has none)."""
+    global _pool
+    with _pool_lock:
+        if _pool is None or _pool[0] != os.getpid() or _pool[1] < workers:
+            threads = max(workers, _READ_CAP)
+            _pool = (os.getpid(), threads,
+                     futures.ThreadPoolExecutor(threads, thread_name_prefix="corpus-read"))
+        return _pool[2]
+
+
+class _InFlight:
+    """The count of one scan's reads in flight: entering gives the count
+    with the entering read."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def __enter__(self) -> int:
+        with self._lock:
+            self._n += 1
+            return self._n
+
+    def __exit__(self, *exc) -> None:
+        with self._lock:
+            self._n -= 1
+
+
+def _read(path: str, room: torch.Tensor, parent: int, inflight: _InFlight):
+    """A file's own work, on whichever thread reads it, in a ``corpus.read``
+    span under ``parent``: a 16-bit PCM WAV's codes read straight into
+    ``room`` (:func:`_read_pcm16_into`) -> ((bytes, channels), rate); any
+    other file decoded by :func:`read_audio` -> (float32 ``[n, channels]``,
+    rate). The span counts ``direct``, 1 where the codes went straight in,
+    and ``inflight``, the scan's reads in flight as this one started, itself
+    included. Raises what the read raises."""
+    with inflight as now, timing.within(parent), \
+            timing.span("corpus.read", direct=0, inflight=now) as span:
+        direct = _read_pcm16_into(path, room.numpy())
+        if direct is None:
+            return read_audio(path)
+        span.counts["direct"] = 1
+        nbytes, channels, rate = direct
+        return (nbytes, channels), rate
+
+
+class _FileRead:
+    """One file of a scan, from its room to its upload. The room, of
+    ``size``, the file's size on disk, is taken on the calling thread, so
+    that its wait is the stage's and not the read's; the read is handed to
+    ``pool``, or done inline by :meth:`to_device` where there is none."""
+
+    def __init__(self, path: str, device: torch.device, size: int,
+                 pool: Optional[futures.ThreadPoolExecutor] = None, parent: int = -1,
+                 inflight: Optional[_InFlight] = None):
+        self.path, self.device = path, device
         t0 = perf_counter_ns()
-        room = ring.room(device, size)
-        waited = (t0, perf_counter_ns())
-        with timing.span("corpus.read", direct=0) as read:
-            direct = _read_pcm16_into(path, room.numpy())
-            if direct is None:
-                samples, rate = read_audio(path)
-            else:
-                read.counts["direct"] = 1
-        if direct is not None:
-            nbytes, channels, rate = direct
-            n = nbytes // (2 * channels)
-            timing.record("corpus.stage", *waited, lanes=channels, samples=n * channels,
-                          staged_samples=n * channels)
-            with timing.span("corpus.copy_in"):
-                codes = room[:nbytes].view(torch.int16).view(n, channels)
-                if device.type == "cuda":
-                    codes = codes.to(device, non_blocking=True)
-                ring.uploaded(device, room)
-                return codes.to(torch.float32).mul_(2.0**-15), rate
-        return _stage(np.asarray(samples, np.float32), device, room), rate
+        self.room = _host_ring(device).room(device, size)
+        self.waited = (t0, perf_counter_ns())
+        self.args = (path, self.room, parent, inflight or _InFlight())
+        self.future = pool.submit(_read, *self.args) if pool is not None else None
+
+    def to_device(self) -> tuple[torch.Tensor, int]:
+        """The file's ``[n, channels]`` samples as float32 on the device, and
+        its rate, once its read is done: a 16-bit PCM WAV's codes uploaded
+        as int16 and scaled by 2**-15 on the device (every int16 and its
+        product are exact in float32, so the samples equal
+        :func:`read_audio`'s bit for bit); any other file's decoded block
+        copied into the room, or into a larger one, and uploaded. Raises
+        what the read raised, with the room handed back."""
+        ring = _host_ring(self.device)
+        try:
+            got, rate = self.future.result() if self.future else _read(*self.args)
+        except BaseException:
+            ring.release(self.room)
+            raise
+        if isinstance(got, np.ndarray):
+            return _stage(np.asarray(got, np.float32), self.device, self.room), rate
+        nbytes, channels = got
+        n = nbytes // (2 * channels)
+        timing.record("corpus.stage", *self.waited, lanes=channels, samples=n * channels,
+                      staged_samples=n * channels)
+        with timing.span("corpus.copy_in"):
+            codes = self.room[:nbytes].view(torch.int16).view(n, channels)
+            samples = codes.to(self.device, non_blocking=True).to(torch.float32)  # a CPU: a copy
+            ring.uploaded(self.device, self.room)
+            return samples.mul_(2.0**-15), rate
+
+    def abandon(self) -> None:
+        """Wait for the read, and hand its room back."""
+        if self.future is not None:
+            futures.wait([self.future])
+        _host_ring(self.device).release(self.room)
 
 
 def scan_corpus(
@@ -332,10 +450,14 @@ def scan_corpus(
                     "geometry (sampling rate, FFT/window, band, layer sizes)"
                 )
             params.append(p_i)
-    streams = [s.reshape(-1) if isinstance(s, torch.Tensor) and s.device == device
+    here = [isinstance(s, torch.Tensor) and s.device == device for s in streams]
+    _host_ring(device).reserve(device, _ring_bytes(  # float32, one at a time
+        [4 * (s.numel() if isinstance(s, torch.Tensor) else np.size(s))
+         for s, h in zip(streams, here) if not h], 1))
+    streams = [s.reshape(-1) if h
                else _stage(np.asarray(s.cpu() if isinstance(s, torch.Tensor) else s,
                                       np.float32).reshape(-1), device)
-               for s in streams]
+               for s, h in zip(streams, here)]
     lanes = len(streams)
     if mesh is not None:
         n_dev = int(np.prod(list(mesh.shape.values())))
@@ -402,8 +524,13 @@ def scan_corpus_files(
     file, detection lines are emitted grouped by channel in channel order —
     identical to sequential mode for files shorter than its chunk size.
 
-    Each file's samples cross to ``device`` once (:func:`_file_to_device`:
-    the host buffer, one upload); resampling and the batch stay there.
+    Each file's samples cross to ``device`` once (:class:`_FileRead`: the
+    host buffer, one upload); resampling and the batch stay there. Up to
+    :func:`_read_workers` files are read ahead, each on a thread of the
+    process's pool into its room of the host buffer (one file, or one CPU:
+    inline); the calling thread uploads them, reports a read's failure and
+    emits everything in file order, and waits for every read it handed out
+    before it returns or raises.
 
     ``group_files`` bounds memory on huge corpora: files are scanned in
     groups of that many (output order and the CSV contract unchanged —
@@ -433,27 +560,43 @@ def scan_corpus_files(
         lanes = []  # (path index, channel)
         good_paths = []
         sizes = [_file_size(p) for p in paths]
-        _host_ring(device).reserve(device, max(sizes, default=0))  # grown once
-        for p, size in zip(paths, sizes):
-            try:
-                samples, rate = _file_to_device(p, device, size)
-            except (OSError, ValueError) as e:
-                err(f"Unable to read {p}: {e}")
-                continue
-            if rate != cfg.sampling_rate and not resample:
-                # the sequential path's --no-resample contract: warn and process
-                # at the network rate
-                err(
-                    f"Warning: {p} is {rate} Hz but the network expects "
-                    f"{cfg.sampling_rate} Hz (resampling disabled)."
-                )
-            elif rate != cfg.sampling_rate:
-                err(f"Resampling {p} from {rate} Hz to {cfg.sampling_rate} Hz.")
-                samples = resample_channels(samples, rate, cfg.sampling_rate, device)
-            good_paths.append(p)
-            for c in range(samples.shape[1]):
-                streams.append(samples[:, c])
-                lanes.append((len(good_paths) - 1, c))
+        workers = _read_workers(len(paths))
+        _host_ring(device).reserve(device, _ring_bytes(sizes, workers))  # grown once
+        pool = _read_pool(workers) if workers > 1 else None
+        parent, inflight = timing.current(), _InFlight()
+        ahead = iter(zip(paths, sizes))
+        reads: collections.deque[_FileRead] = collections.deque()
+        try:
+            while True:
+                # up to ``workers`` files read ahead, in path order, each into its room
+                reads.extend(_FileRead(p, device, size, pool, parent, inflight)
+                             for p, size in itertools.islice(ahead, workers - len(reads)))
+                if not reads:
+                    break
+                read = reads.popleft()
+                p = read.path
+                try:
+                    samples, rate = read.to_device()
+                except (OSError, ValueError) as e:
+                    err(f"Unable to read {p}: {e}")
+                    continue
+                if rate != cfg.sampling_rate and not resample:
+                    # the sequential path's --no-resample contract: warn and process
+                    # at the network rate
+                    err(
+                        f"Warning: {p} is {rate} Hz but the network expects "
+                        f"{cfg.sampling_rate} Hz (resampling disabled)."
+                    )
+                elif rate != cfg.sampling_rate:
+                    err(f"Resampling {p} from {rate} Hz to {cfg.sampling_rate} Hz.")
+                    samples = resample_channels(samples, rate, cfg.sampling_rate, device)
+                good_paths.append(p)
+                for c in range(samples.shape[1]):
+                    streams.append(samples[:, c])
+                    lanes.append((len(good_paths) - 1, c))
+        finally:  # no read outlives the scan: a later scan reuses the rooms
+            for read in reads:
+                read.abandon()
         if not streams:
             return
         lane_cfgs = [cfgs[c % len(cfgs)] for _, c in lanes] if len(cfgs) > 1 else None

@@ -20,6 +20,7 @@ import pathlib
 import struct
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -221,9 +222,12 @@ def test_scan_corpus_reuses_its_host_buffer_without_stale_samples(corpus, method
     tails of its shorter lanes hold zeros, not the first scan's samples."""
     cfgs, streams, p = corpus
     wide = [fixtures.chirp_audio(0.9, 60 + i) for i in range(6)]
+    tcorpus._host_buffers.clear()
     tcorpus.scan_corpus(cfgs[0], wide, method=method, device="cpu")
     buffer = tcorpus._host_buffers["cpu"].buf
-    assert buffer.numel() == tcorpus._FILE_ROOMS * tcorpus._aligned(len(wide[0]) * 4)
+    # streams are staged one at a time: three rooms of the largest
+    assert buffer.numel() == tcorpus._ring_bytes([len(wide[0]) * 4] * 6, 1) == (
+        3 * tcorpus._aligned(len(wide[0]) * 4))
     batches, plain = [], tcorpus.batch_offline_outputs_shared
     monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
                         lambda *a: batches.append(a[2].clone()) or plain(*a))
@@ -353,8 +357,8 @@ def test_file_to_device_reads_16_bit_pcm_straight_in_as_read_audio_decodes_it(ki
         want, want_rate = want if len(want) == 2 else (want[0], None)
         lo = time.perf_counter_ns()
         try:
-            got, rate = tcorpus._file_to_device(str(path), torch.device("cpu"),
-                                                tcorpus._file_size(path))
+            got, rate = tcorpus._FileRead(str(path), torch.device("cpu"),
+                                          tcorpus._file_size(path)).to_device()
         except (OSError, ValueError) as e:
             got = e
         errors = []
@@ -365,9 +369,9 @@ def test_file_to_device_reads_16_bit_pcm_straight_in_as_read_audio_decodes_it(ki
         assert isinstance(want, (OSError, ValueError)) and type(got) is type(want)
         assert str(got) == str(want) == str(port[0]) and type(port[0]) is type(want)
         assert errors == [f"Unable to read {path}: {want}"]
-        assert read.counts == {"direct": 0}
+        assert read.counts == {"direct": 0, "inflight": 1}
         return
-    assert read.counts == {"direct": int(direct)}
+    assert read.counts == {"direct": int(direct), "inflight": 1}
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     assert rate == want_rate and tuple(got.shape) == want.shape and len(want) > 0
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
@@ -386,7 +390,8 @@ def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lin
     to be resampled and a 24-bit file give the CSV lines of a scan that
     decodes every file on the host, line for line; the first two files'
     reads are direct, the third's not, and the second scan refills the
-    host buffer the first one grew, without reallocating it."""
+    host buffer the first one grew, without reallocating it: the ring of
+    ``_ring_bytes`` of the files' sizes, at the scan's worker count."""
     two = np.stack([fixtures.chirp_audio(0.6, 81), fixtures.chirp_audio(0.6, 82)], 1)
     fast = fixtures.chirp_audio(0.5, 83, rate=48000)
     wide = np.stack([fixtures.chirp_audio(0.4, 84), fixtures.chirp_audio(0.4, 85)], 1)
@@ -399,20 +404,31 @@ def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lin
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(54),
                                    np.concatenate([two.reshape(-1), heard, wide.reshape(-1)]))
 
+    read, direct = tcorpus._read, {}
+
+    def noted(path, *rest):  # which files went straight in, whatever order reads end in
+        got = read(path, *rest)
+        direct[path] = int(not isinstance(got[0], np.ndarray))
+        return got
+
+    monkeypatch.setattr(tcorpus, "_read", noted)
+
     def scan():
         lines, lo = [], time.perf_counter_ns()
         tcorpus.scan_corpus_files(cfg, paths, emit=lines.append, err=lambda s: None,
                                   method=method, device="cpu")
         reads = [s.counts["direct"] for s in timing.spans(lo) if s.name == "corpus.read"]
-        return lines, reads
+        assert sorted(reads) == sorted(direct[p] for p in paths)  # the spans count them
+        return lines, [direct[p] for p in paths]
 
     tcorpus._host_buffers.clear()
     first, reads = scan()
     buffer = tcorpus._host_buffers["cpu"].buf
     second, again = scan()
     assert tcorpus._host_buffers["cpu"].buf is buffer  # reused, not reallocated
-    # three rooms of the largest block staged: the 24-bit file's float32 samples
-    assert buffer.numel() == tcorpus._FILE_ROOMS * tcorpus._aligned(wide.size * 4)
+    # the 24-bit file's float32 block, larger than its file, found room too
+    sizes = [pathlib.Path(p).stat().st_size for p in paths]
+    assert buffer.numel() == tcorpus._ring_bytes(sizes, tcorpus._read_workers(3))
     assert reads == again == [1, 1, 0]
     monkeypatch.setattr(tcorpus, "_read_pcm16_into", lambda path, buffer: None)
     fallback, none = scan()
@@ -421,23 +437,191 @@ def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lin
     assert sum(line not in paths for line in first) > 0
 
 
+@pytest.fixture(scope="module")
+def mixed_group(tmp_path_factory):
+    """A net and seven paths: 16-bit, 24-bit and float32 WAVs, four of them
+    at rates the scan resamples, and a missing path in the middle."""
+    folder = tmp_path_factory.mktemp("mixed")
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(57),
+                                   fixtures.chirp_audio(1.0, 58))
+    paths = []
+    for i, (kind, rate, channels) in enumerate([
+            ("int16", 44100, 2), ("int24", 48000, 2), ("float32", 44100, 1), ("missing", 0, 0),
+            ("int16", 48000, 1), ("int16", 96000, 2), ("float32", 22050, 2)]):
+        paths.append(str(folder / f"g{i}_{kind}.wav"))
+        if kind == "missing":
+            continue
+        x = np.stack([fixtures.chirp_audio(0.3 + 0.05 * i, 70 + 2 * i + c, rate)
+                      for c in range(channels)], 1)
+        if kind == "int24":
+            codes = np.clip(np.round(x * 2**23), -(2**23), 2**23 - 1).astype(np.int32)
+            pathlib.Path(paths[-1]).write_bytes(
+                _riff((b"fmt ", _fmt(2, 24, rate=rate)), (b"data", _int24(codes))))
+        else:
+            write_wav(paths[-1], x, rate, dtype=kind)
+    return cfg, paths
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_scan_reads_on_threads_as_it_reads_inline(mixed_group, method, monkeypatch):
+    """A scan whose reads run on the pool, and one whose reads finish in
+    reverse path order, emit the lines, report the errors and build the
+    lanes of a scan that reads every file inline, one after another."""
+    cfg, paths = mixed_group
+    plain = tcorpus.batch_offline_outputs_shared
+
+    def scan(workers):
+        monkeypatch.setattr(tcorpus, "_read_workers", lambda files: min(files, workers))
+        lines, errors, batches = [], [], []
+        monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
+                            lambda *a: batches.append(a[2].clone()) or plain(*a))
+        tcorpus.scan_corpus_files(cfg, paths, emit=lines.append, err=errors.append,
+                                  method=method, device="cpu")
+        assert tcorpus._host_buffers["cpu"].taken == []  # every room handed back
+        return lines, errors, batches[0].numpy()
+
+    inline = scan(1)
+    pooled = scan(3)
+    read, finished = tcorpus._read, []
+    done = {p: threading.Event() for p in paths}
+
+    def reverse(path, *rest):  # each read finishes after the next path's
+        later = paths[paths.index(path) + 1:]
+        assert not later or done[later[0]].wait(60)
+        try:
+            return read(path, *rest)
+        finally:
+            finished.append(path)
+            done[path].set()
+
+    monkeypatch.setattr(tcorpus, "_read", reverse)
+    backwards = scan(len(paths))
+    assert finished == paths[::-1]
+    lines, errors, batch = inline
+    assert sum(line not in paths for line in lines) > 0 and batch.shape[0] == 10
+    assert errors[1] == f"Unable to read {paths[3]}: " + str(
+        FileNotFoundError(2, "No such file or directory", paths[3]))
+    assert len(errors) == 5 and sum(e.startswith("Resampling") for e in errors) == 4
+    for got in (pooled, backwards):
+        assert got[0] == lines and got[1] == errors
+        np.testing.assert_array_equal(got[2], batch)
+
+
+def test_many_small_reads_on_more_threads_than_cores(tmp_path, monkeypatch):
+    """Forty small 16-bit files read on 48 threads, the interpreter
+    switching threads every microsecond: the lines and errors of the inline
+    scan, every read's ``inflight`` between 1 and the thread count, and no
+    room left taken."""
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(59),
+                                   fixtures.chirp_audio(1.0, 60))
+    paths = [str(tmp_path / f"s{i}.wav") for i in range(40)]
+    for i, p in enumerate(paths):
+        write_wav(p, fixtures.chirp_audio(0.05 + 0.01 * (i % 5), 90 + i), 44100, dtype="int16")
+    paths[7] = str(tmp_path / "absent.wav")
+
+    def scan(workers):
+        monkeypatch.setattr(tcorpus, "_read_workers", lambda files: min(files, workers))
+        lines, errors, lo = [], [], time.perf_counter_ns()
+        tcorpus.scan_corpus_files(cfg, paths, emit=lines.append, err=errors.append,
+                                  device="cpu")
+        reads = [s for s in timing.spans(lo) if s.name == "corpus.read"]
+        return lines, errors, [s.counts["inflight"] for s in reads]
+
+    inline = scan(1)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pooled = scan(48)
+    finally:
+        sys.setswitchinterval(interval)
+    assert pooled[:2] == inline[:2] and len(inline[1]) == 1 and len(inline[0]) > 40
+    assert inline[2] == [1] * 40 and len(pooled[2]) == 40
+    assert 1 <= min(pooled[2]) and max(pooled[2]) <= 48
+    assert tcorpus._host_buffers["cpu"].taken == []
+
+
+def test_a_scan_that_raises_waits_for_its_reads_and_hands_back_their_rooms(mixed_group,
+                                                                           monkeypatch):
+    """A scan that raises at its first resampled file, with the later reads
+    still running, returns only after every read it handed out has ended,
+    and leaves no room taken."""
+    cfg, paths = mixed_group
+    read, started, ended = tcorpus._read, [], []
+
+    def slow(path, *rest):
+        started.append(path)
+        time.sleep({paths[0]: 0, paths[1]: 0.05}.get(path, 0.5))
+        try:
+            return read(path, *rest)
+        finally:
+            ended.append(path)
+
+    def fails(*a):
+        raise RuntimeError("resampler down")
+
+    monkeypatch.setattr(tcorpus, "_read_workers", lambda files: files)
+    monkeypatch.setattr(tcorpus, "_read", slow)
+    monkeypatch.setattr(tcorpus, "resample_channels", fails)
+    with pytest.raises(RuntimeError, match="resampler down"):
+        tcorpus.scan_corpus_files(cfg, paths, emit=lambda s: None, err=lambda s: None,
+                                  device="cpu")
+    assert sorted(ended) == sorted(started) == sorted(paths)
+    assert tcorpus._host_buffers["cpu"].taken == []
+
+
+@pytest.mark.parametrize("workers", [1, 2, 3, 8])
 @pytest.mark.parametrize("seed", range(3))
-def test_host_ring_keeps_each_room_off_the_one_before(seed):
-    """Rooms of up to the largest size the ring was fitted to start on
+def test_host_ring_keeps_each_room_off_the_one_before(seed, workers):
+    """Rooms of the sizes a ring of ``_ring_bytes`` was fitted to start on
     64 bytes, lie inside the buffer and never overlap the room before, so a
-    file's read never waits on the upload of the file before it; the buffer
-    is not grown."""
-    sizes = np.random.default_rng(seed).integers(0, 10_000, 300)
+    file's read never waits on the upload of the file before it, nor any
+    room taken and not yet handed back, where up to ``workers`` rooms are
+    taken ahead and handed back (uploaded or released) in random order,
+    each before ``workers`` later rooms are taken; the buffer is not
+    grown."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 10_000, 300)
     cpu, ring = torch.device("cpu"), tcorpus._HostRing()
-    ring.reserve(cpu, int(sizes.max()))
-    buffer, before = ring.buf, (0, 0)
-    for n in map(int, sizes):
+    ring.reserve(cpu, tcorpus._ring_bytes(sizes.tolist(), workers))
+    buffer, before, taken = ring.buf, (0, 0), []  # (at, end, index taken, room)
+    for k, n in enumerate(map(int, sizes)):
+        back = [t for t in taken if t[2] <= k - workers or rng.random() < 0.3]
+        for t in rng.permutation(len(back)):
+            room = back[int(t)][3]
+            ring.uploaded(cpu, room) if rng.random() < 0.5 else ring.release(room)
+        taken = [t for t in taken if not any(t is b for b in back)]
         room = ring.room(cpu, n)
-        at = room.data_ptr() - buffer.data_ptr()
+        at = room.storage_offset()
+        assert room.untyped_storage().data_ptr() == buffer.data_ptr()
         assert room.numel() == n and at % tcorpus._ALIGN == 0 and at + n <= buffer.numel()
         assert at >= before[1] or at + n <= before[0]
+        assert all(at >= b or at + n <= a for a, b, _, _ in taken)
         before = (at, at + n)
-    assert ring.buf is buffer
+        taken.append((at, at + n, k, room))
+    assert len(taken) <= workers and ring.buf is buffer
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_host_ring_never_hands_out_a_room_still_taken(seed):
+    """Rooms held for any number of later rooms and handed back in any
+    order never overlap one taken and not yet handed back: where the next
+    room would, the ring moves to a larger buffer, and the rooms taken in
+    the old one keep their bytes."""
+    rng = np.random.default_rng(seed)
+    cpu, ring = torch.device("cpu"), tcorpus._HostRing()
+    ring.reserve(cpu, tcorpus._ring_bytes([10_000], 1))
+    taken = []  # (first byte's address, end's address, room, its bytes)
+    for n in map(int, rng.integers(0, 10_000, 300)):
+        for t in [t for t in taken if rng.random() < 0.2]:
+            ring.uploaded(cpu, t[2]) if rng.random() < 0.5 else ring.release(t[2])
+            assert bytes(t[2].numpy()) == t[3]  # nothing wrote into it while taken
+            taken.remove(t)
+        room = ring.room(cpu, n)
+        at = room.untyped_storage().data_ptr() + room.storage_offset()
+        assert room.numel() == n and all(at >= b or at + n <= a for a, b, _, _ in taken)
+        room.copy_(torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)))
+        taken.append((at, at + n, room, bytes(room.numpy())))
+    assert ring.buf.numel() > tcorpus._ring_bytes([10_000], 1)  # it had to move
 
 
 def test_resample_channels_returns_what_it_was_given(corpus):

@@ -11,6 +11,7 @@ spans times the live cell's rounds over a 30 s window fit the ring.
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import threading
@@ -57,6 +58,17 @@ def named(spans, name):
 
 def in_order(*spans):
     return all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+
+
+def each_file_in_order(reads, *steps, read_at=1):
+    """Whether the files' reads, recorded as each ended (on the threads
+    that read them), can be paired one to one with the files' ``steps``
+    (each a list in file order) so that every file's read comes at its
+    place among its steps (``read_at``, or the file's entry of it) and the
+    steps come one after another."""
+    at = read_at if isinstance(read_at, list) else [read_at] * len(reads)
+    return any(all(in_order(*s[:k], r, *s[k:]) for k, r, *s in zip(at, perm, *steps))
+               for perm in itertools.permutations(reads))
 
 
 # -- the ring -----------------------------------------------------------------
@@ -109,6 +121,30 @@ def test_each_thread_has_its_own_stack():
     assert s["worker"].parent == -1 and s["worker.child"].parent == s["worker"].id
     assert s["main.child"].parent == s["main"].id and s["main"].parent == -1
     assert s["worker"].thread == s["worker.child"].thread != s["main"].thread
+
+
+def test_work_handed_to_another_thread_stays_in_the_span_that_handed_it():
+    """``within(current())`` on another thread: its spans and records are
+    children of the span open where the work was handed over, and the
+    thread's own stack is as it was after the block."""
+
+    def worker(parent):
+        with timing.within(parent):
+            with timing.span("handed") as h:
+                timing.record("handed.record", 1, 2)
+            assert h.parent == parent
+        with timing.span("after"):
+            pass
+
+    with timing.span("main") as main:
+        assert timing.current() == main.id
+        t = threading.Thread(target=worker, args=(timing.current(),))
+        t.start()
+        t.join(5)
+    assert not t.is_alive() and timing.current() == -1
+    s = {x.name: x for x in timing.spans()}
+    assert s["handed"].parent == s["main"].id and s["handed.record"].parent == s["handed"].id
+    assert s["after"].parent == -1 and s["handed"].thread != s["main"].thread
 
 
 def test_the_ring_keeps_the_newest_and_counts_drops(monkeypatch):
@@ -192,18 +228,20 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     assert got[-1] is root and all(s.parent == root.id for s in got[:-1])
     reads = named(got, "corpus.read")
     direct = int(read_straight_in(paths[0]))
-    assert [s.counts for s in reads] == [{"direct": direct}] * 3
+    assert [s.counts["direct"] for s in reads] == [direct] * 3
+    assert all(set(s.counts) == {"direct", "inflight"} and s.counts["inflight"] >= 1
+               for s in reads)
     assert [s.counts for s in named(got, "corpus.resample")] == [{"channels": 2}]
     # each file staged whole in the host buffer and uploaded once: a file
     # read straight in waits for its room before the read, a decoded one is
-    # copied in after it; the batch is assembled on the device, behind the
-    # last file
+    # copied in after it, and its read, on whichever thread, comes before
+    # its upload; the batch is assembled on the device, behind the last
+    # file
     stages, copies = named(got, "corpus.stage"), named(got, "corpus.copy_in")
     assert [s.counts for s in stages] == [
         {"lanes": 2, "samples": n, "staged_samples": n} for n in files]
     assert len(copies) == 4
-    for read, stage, copy in zip(reads, stages, copies):
-        assert in_order(stage, read, copy) if direct else in_order(read, stage, copy)
+    assert each_file_in_order(reads, stages, copies[:3], read_at=direct)
     steps = [copies[-1]] + [named(got, n)[0] for n in ("corpus.detect", "corpus.readback")]
     assert in_order(*steps) and len(got) == 3 + 3 + 4 + 1 + 2 + 6 + 1
     csv = named(got, "corpus.csv")
@@ -225,24 +263,34 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     assert scan(cfg, paths) == lines
 
 
-def test_corpus_reads_count_the_files_read_straight_in(tmp_path):
+@pytest.mark.parametrize("overlap", [False, True], ids=["as_they_come", "barrier"])
+def test_corpus_reads_count_the_files_read_straight_in(tmp_path, overlap, monkeypatch):
     """Σ``direct`` over the ``corpus.read`` spans: every file of a 16-bit
     scan, two of three where the third is float32; the files' stages count
-    their samples, nothing padded, and none overlaps a read."""
+    their samples, nothing padded, and each file's stage comes before its
+    read. With the three reads held at a barrier until all have started,
+    they overlap, and their ``inflight`` counts are 1, 2 and 3."""
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
                                    fixtures.chirp_audio(1.0, 5))
     paths = [str(tmp_path / f"m{i}.wav") for i in range(3)]
     for i, p in enumerate(paths):
         write_wav(p, fixtures.chirp_audio(0.3, 40 + i), 44100, dtype="int16")
+    if overlap:
+        barrier, read = threading.Barrier(3, timeout=60), corpus._read_pcm16_into
+        monkeypatch.setattr(corpus, "_read_workers", lambda files: min(files, 3))
+        monkeypatch.setattr(corpus, "_read_pcm16_into",
+                            lambda *a: barrier.wait() >= 0 and read(*a))
     shares = []
-    for _ in range(2):
+    for read_at in ([1, 1, 1], [1, 1, 0]):  # a decoded file is staged after its read
         _, got = recorded(lambda: scan(cfg, paths))
         reads, stages = named(got, "corpus.read"), named(got, "corpus.stage")
         shares.append(sum(s.counts["direct"] for s in reads) / len(reads))
-        assert len(stages) == 3 and all(
-            in_order(a, b) or in_order(b, a) for a in reads for b in stages)
+        assert len(stages) == 3 and each_file_in_order(reads, stages, read_at=read_at)
         assert sum(s.counts["samples"] for s in stages) == sum(
             s.counts["staged_samples"] for s in stages) == 3 * len(fixtures.chirp_audio(0.3))
+        if overlap:
+            assert sorted(s.counts["inflight"] for s in reads) == [1, 2, 3]
+            assert max(r.start_ns for r in reads) < min(r.end_ns for r in reads)
         write_wav(paths[2], fixtures.chirp_audio(0.3, 42), 44100, dtype="float32")
     assert shares == [1.0, pytest.approx(2 / 3)]
 
