@@ -13,9 +13,13 @@ Samples cross to the device once. Each file lands in a room of one reused
 host buffer a device, used as a ring (page-locked on a card), and is
 uploaded from there asynchronously: a 16-bit PCM WAV's codes read straight
 in and scaled to float32 on the device, any other file decoded on the host
-and its float32 block copied in. A scan reads its files on a small pool of
-threads, each into a room of its own, a few files ahead of the calling
-thread, which uploads them in file order. Files whose rate differs from the
+and its float32 block copied in. A scan reads its files a few ahead of the
+calling thread, each into a room of its own, and the calling thread uploads
+them in file order: a 16-bit file's data chunk in pieces, taken in file
+order by native threads that never hold the interpreter lock (so the first
+file lands first, and the calling thread's work on it runs at full speed
+while later pieces are read), any other file on a small pool of Python
+threads. Files whose rate differs from the
 net's are resampled per channel on the device by the polyphase resampler (the framed GEMM kernel on
 a card), and the lanes are written into the batch there.
 
@@ -27,7 +31,10 @@ each on its own device and stream.
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
 import dataclasses
+import hashlib
 import itertools
 import os
 import sys
@@ -56,7 +63,13 @@ from syllable_detector_tpu_torch.ops.resample import polyphase_resample
 from syllable_detector_tpu_torch.ops.stft import num_frames
 from syllable_detector_tpu_torch.runtime.track_detector import _detection_lines
 from syllable_detector_tpu_torch.utils import timing
-from syllable_detector_tpu_torch.utils.wav import _read_pcm16_into, read_audio
+from syllable_detector_tpu_torch.utils.native_build import (
+    NATIVE_BUILD,
+    NATIVE_SRC,
+    NativeBuildError,
+    ensure_native_library,
+)
+from syllable_detector_tpu_torch.utils.wav import _pcm16_layout, _read_range_into, read_audio
 
 __all__ = [
     "batch_offline_outputs_shared",
@@ -158,11 +171,16 @@ def _batch_length(n: int) -> int:
 
 
 _ALIGN = 64  # bytes: where each room of a host ring starts
-# the most threads a scan reads its files on, which also bounds its pinned
-# ring at 10 rooms of its largest file: on an 8-CPU H100 host, 6 and 8
-# threads read the benchmark's corpus cell (8 files) fastest of 1, 2, 3, 4,
-# 6 and 8 (PERF.md)
+# the most threads a scan reads its files on and the most files it reads
+# ahead, which also bounds its pinned ring at 10 rooms of its largest file:
+# on an 8-CPU H100 host, 6 and 8 threads read the benchmark's corpus cell
+# (8 files) fastest of 1, 2, 3, 4, 6 and 8 (PERF.md)
 _READ_CAP = 8
+# the bytes of a 16-bit file's data chunk that one piece reads: on an 8-CPU
+# H100 host, 1, 2 and 8 MiB read the benchmark's corpus cell fastest of 1, 2,
+# 4 and 8 MiB, within their spread, and 2 MiB pieces 1.18 times as fast as
+# whole files (PERF.md)
+_PIECE = 2 << 20
 
 
 def _aligned(nbytes: int) -> int:
@@ -296,12 +314,24 @@ def _file_size(path) -> int:
         return 0  # the read reports it
 
 
+def _cpus() -> int:
+    """The CPUs this process may run on."""
+    return len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1
+
+
 def _read_workers(files: int) -> int:
-    """The threads a scan of ``files`` files reads them on: one a file, at
-    most one a CPU this process may run on, at most :data:`_READ_CAP`."""
-    cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
-            else os.cpu_count() or 1)
-    return max(1, min(files, cpus, _READ_CAP))
+    """The files a scan of ``files`` files reads ahead, and the threads it
+    reads on: one a file, at most one a CPU, at most :data:`_READ_CAP`."""
+    return max(1, min(files, _cpus(), _READ_CAP))
+
+
+def _cut(length: int) -> list[int]:
+    """The bounds of a data chunk of ``length`` bytes cut into pieces of
+    :data:`_PIECE` bytes, the last the rest: 0, :data:`_PIECE`, ...,
+    ``length``; a chunk shorter than two pieces is one."""
+    if length < 2 * _PIECE:
+        return [0, length]
+    return [*range(0, length, _PIECE), length]
 
 
 _pool: Optional[tuple[int, int, futures.ThreadPoolExecutor]] = None  # (pid, threads, pool)
@@ -320,57 +350,141 @@ def _read_pool(workers: int) -> futures.ThreadPoolExecutor:
         return _pool[2]
 
 
-class _InFlight:
-    """The count of one scan's reads in flight: entering gives the count
-    with the entering read."""
+def _load_piece_reader() -> Optional[ctypes.CDLL]:
+    """``native/piece_reader.cpp``, built at its first use under a name
+    that carries its source's hash; None where it cannot be built or
+    loaded."""
+    src = os.path.join(NATIVE_SRC, "piece_reader.cpp")
+    try:
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        lib = ctypes.CDLL(ensure_native_library(
+            src, os.path.join(NATIVE_BUILD, f"libsdpieces-{digest}.so"),
+            extra_flags=("-pthread",)))
+    except (OSError, NativeBuildError):
+        return None
+    i32, i64, ptr, p64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)
+    lib.sdpieces_pool.restype, lib.sdpieces_pool.argtypes = ptr, [i32]
+    lib.sdpieces_read.restype, lib.sdpieces_read.argtypes = ptr, [ptr, i32, ptr, i64, p64, i32]
+    lib.sdpieces_wait.restype, lib.sdpieces_wait.argtypes = i64, [ptr, ptr, p64]
+    return lib
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
 
-    def __enter__(self) -> int:
-        with self._lock:
-            self._n += 1
-            return self._n
-
-    def __exit__(self, *exc) -> None:
-        with self._lock:
-            self._n -= 1
+_pieces: Optional[tuple[int, Optional[ctypes.CDLL], Optional[int]]] = None  # (pid, library, pool)
+_pieces_lock = threading.Lock()
 
 
-def _read(path: str, room: torch.Tensor, parent: int, inflight: _InFlight):
-    """A file's own work, on whichever thread reads it, in a ``corpus.read``
-    span under ``parent``: a 16-bit PCM WAV's codes read straight into
-    ``room`` (:func:`_read_pcm16_into`) -> ((bytes, channels), rate); any
-    other file decoded by :func:`read_audio` -> (float32 ``[n, channels]``,
-    rate). The span counts ``direct``, 1 where the codes went straight in,
-    and ``inflight``, the scan's reads in flight as this one started, itself
-    included. Raises what the read raises."""
-    with inflight as now, timing.within(parent), \
-            timing.span("corpus.read", direct=0, inflight=now) as span:
-        direct = _read_pcm16_into(path, room.numpy())
-        if direct is None:
-            return read_audio(path)
-        span.counts["direct"] = 1
-        nbytes, channels, rate = direct
-        return (nbytes, channels), rate
+def _piece_reader() -> Optional[tuple[ctypes.CDLL, int]]:
+    """(the piece reader's library, the process's pool of its native
+    threads), made at its first use with one thread a CPU but one, which
+    the calling thread keeps for its own work while they read, at least 1
+    and at most :data:`_READ_CAP` (a pool inherited across a fork has
+    none); None where the library cannot be built or loaded."""
+    global _pieces
+    with _pieces_lock:
+        if _pieces is None or _pieces[0] != os.getpid():
+            lib = _load_piece_reader() if _pieces is None else _pieces[1]
+            threads = max(1, min(_cpus() - 1, _READ_CAP))
+            pool = lib.sdpieces_pool(threads) if lib is not None else None
+            _pieces = (os.getpid(), lib, pool)
+        return None if _pieces[1] is None else (_pieces[1], _pieces[2])
 
 
 class _FileRead:
-    """One file of a scan, from its room to its upload. The room, of
-    ``size``, the file's size on disk, is taken on the calling thread, so
-    that its wait is the stage's and not the read's; the read is handed to
-    ``pool``, or done inline by :meth:`to_device` where there is none."""
+    """One file of a scan, from its room to its upload.
 
-    def __init__(self, path: str, device: torch.device, size: int,
-                 pool: Optional[futures.ThreadPoolExecutor] = None, parent: int = -1,
-                 inflight: Optional[_InFlight] = None):
+    On the calling thread, the room, of ``size``, the file's size on disk,
+    is taken and the file's chunk headers walked (:func:`_pcm16_layout`),
+    so that both are the stage's time and not the read's; then
+    :meth:`hand_out` hands the read out, given a ``pool``: a 16-bit PCM
+    WAV's data chunk to the piece reader (``native/piece_reader.cpp``) as
+    the pieces of :func:`_cut`, each read with ``pread`` into its byte
+    range of the room by threads that never take the interpreter lock,
+    first in, first out; any other file, one that the walk refuses or
+    cannot open, to ``pool`` as one decode. What is not handed out (no
+    pool, or a 16-bit file where the piece reader cannot be built) is read
+    inline by :meth:`to_device`.
+
+    Once it has ended, ``times`` holds the read's start (its first
+    piece's) and end (its last piece's), ``direct`` is 1 where the codes
+    went straight in, and ``pieces`` counts the pieces it was cut into (1
+    for a read in one piece): :func:`_record_reads` records them."""
+
+    def __init__(self, path: str, device: torch.device, size: int):
         self.path, self.device = path, device
         t0 = perf_counter_ns()
         self.room = _host_ring(device).room(device, size)
+        self.fh, self.layout = self._walk()
         self.waited = (t0, perf_counter_ns())
-        self.args = (path, self.room, parent, inflight or _InFlight())
-        self.future = pool.submit(_read, *self.args) if pool is not None else None
+        self.job = self.task = self.times = None
+        self.direct, self.pieces = 0, 1
+
+    def _walk(self):
+        """(the file open unbuffered, :func:`_pcm16_layout`) of a 16-bit
+        PCM WAV whose codes fit the room; (None, None) for any other."""
+        try:
+            fh = open(self.path, "rb", buffering=0)
+        except OSError:
+            return None, None  # read_audio raises it at the file's turn
+        try:
+            layout = _pcm16_layout(fh, self.path, self.room.numel())
+        except OSError:
+            layout = None
+        if layout is None:
+            fh.close()
+            return None, None
+        return fh, layout
+
+    def hand_out(self, pool: Optional[futures.ThreadPoolExecutor]) -> None:
+        """Hand the read out: a 16-bit file's pieces to the piece reader,
+        any other file's decode to ``pool``; with no pool, nothing."""
+        if pool is None:
+            return
+        if self.layout is None:
+            self.task = pool.submit(self._timed, read_audio, self.path)
+            return
+        reader = _piece_reader()
+        if reader is not None:
+            lib, native = reader
+            bounds = _cut(self.layout[1])
+            self.pieces = len(bounds) - 1
+            self.job = lib.sdpieces_read(native, self.fh.fileno(), self.room.data_ptr(),
+                                         self.layout[0], (ctypes.c_int64 * len(bounds))(*bounds),
+                                         self.pieces)
+
+    def _timed(self, read, *args):
+        """``read(*args)``, its interval kept for the span."""
+        start = perf_counter_ns()
+        try:
+            return read(*args)
+        finally:
+            self.times = (start, perf_counter_ns())
+
+    def _finish(self):
+        """What the read gives once it has ended, read inline where nothing
+        was handed out: a 16-bit file's bytes read, or a decode's (samples,
+        rate); the file closed either way. Raises what the read raised."""
+        try:
+            if self.job is not None:
+                lib, native = _piece_reader()
+                times = (ctypes.c_int64 * 2)()
+                got = lib.sdpieces_wait(native, self.job, times)
+                self.job, self.times = None, tuple(times)
+                if got < 0:
+                    raise OSError(-got, os.strerror(-got))
+            elif self.task is not None:
+                got = self.task.result()
+            elif self.layout is None:
+                got = self._timed(read_audio, self.path)
+            else:
+                offset, length = self.layout[:2]
+                got = self._timed(_read_range_into, self.fh.fileno(),
+                                  memoryview(self.room.numpy())[:length], offset)
+            self.direct = int(self.layout is not None)
+            return got
+        finally:
+            if self.fh is not None:
+                self.fh.close()
 
     def to_device(self) -> tuple[torch.Tensor, int]:
         """The file's ``[n, channels]`` samples as float32 on the device, and
@@ -382,27 +496,45 @@ class _FileRead:
         what the read raised, with the room handed back."""
         ring = _host_ring(self.device)
         try:
-            got, rate = self.future.result() if self.future else _read(*self.args)
+            got = self._finish()
         except BaseException:
             ring.release(self.room)
             raise
-        if isinstance(got, np.ndarray):
-            return _stage(np.asarray(got, np.float32), self.device, self.room), rate
-        nbytes, channels = got
-        n = nbytes // (2 * channels)
+        if self.layout is None:
+            samples, rate = got
+            return _stage(np.asarray(samples, np.float32), self.device, self.room), rate
+        _, _, channels, rate = self.layout
+        n = got // (2 * channels)  # whole frames
         timing.record("corpus.stage", *self.waited, lanes=channels, samples=n * channels,
                       staged_samples=n * channels)
         with timing.span("corpus.copy_in"):
-            codes = self.room[:nbytes].view(torch.int16).view(n, channels)
+            codes = self.room[: n * 2 * channels].view(torch.int16).view(n, channels)
             samples = codes.to(self.device, non_blocking=True).to(torch.float32)  # a CPU: a copy
             ring.uploaded(self.device, self.room)
             return samples.mul_(2.0**-15), rate
 
     def abandon(self) -> None:
-        """Wait for the read, and hand its room back."""
-        if self.future is not None:
-            futures.wait([self.future])
+        """Wait for the read handed out, close the file, and hand its room
+        back."""
+        if self.job is not None or self.task is not None:
+            with contextlib.suppress(Exception):
+                self._finish()
+        if self.fh is not None:
+            self.fh.close()
         _host_ring(self.device).release(self.room)
+
+
+def _record_reads(reads: Sequence[_FileRead]) -> None:
+    """One ``corpus.read`` span for each of a scan's ``reads`` that ran,
+    from its start to its end, with its ``direct`` and ``pieces`` counts
+    and ``inflight``, the reads of the scan in flight as it started, itself
+    included."""
+    ran = [r for r in reads if r.times is not None]
+    for r in ran:
+        start = r.times[0]
+        inflight = 1 + sum(o.times[0] <= start < o.times[1] for o in ran if o is not r)
+        timing.record("corpus.read", *r.times, direct=r.direct, inflight=inflight,
+                      pieces=r.pieces)
 
 
 def scan_corpus(
@@ -526,11 +658,13 @@ def scan_corpus_files(
 
     Each file's samples cross to ``device`` once (:class:`_FileRead`: the
     host buffer, one upload); resampling and the batch stay there. Up to
-    :func:`_read_workers` files are read ahead, each on a thread of the
-    process's pool into its room of the host buffer (one file, or one CPU:
-    inline); the calling thread uploads them, reports a read's failure and
-    emits everything in file order, and waits for every read it handed out
-    before it returns or raises.
+    :func:`_read_workers` files are read ahead, each into its room of the
+    host buffer (one CPU: inline): a 16-bit file's data chunk in pieces,
+    taken in file order by the piece reader's threads, so that files land
+    one after another; any other file on the process's pool. The calling
+    thread uploads each file once all of it has landed, reports a read's
+    failure and emits everything in file order, and waits for every read it
+    handed out before it returns or raises.
 
     ``group_files`` bounds memory on huge corpora: files are scanned in
     groups of that many (output order and the CSV contract unchanged —
@@ -562,15 +696,24 @@ def scan_corpus_files(
         sizes = [_file_size(p) for p in paths]
         workers = _read_workers(len(paths))
         _host_ring(device).reserve(device, _ring_bytes(sizes, workers))  # grown once
-        pool = _read_pool(workers) if workers > 1 else None
-        parent, inflight = timing.current(), _InFlight()
+        threads = _read_workers(_READ_CAP)
+        pool = _read_pool(threads) if threads > 1 else None  # one CPU: inline
         ahead = iter(zip(paths, sizes))
         reads: collections.deque[_FileRead] = collections.deque()
+        opened: list[_FileRead] = []
         try:
             while True:
-                # up to ``workers`` files read ahead, in path order, each into its room
-                reads.extend(_FileRead(p, device, size, pool, parent, inflight)
-                             for p, size in itertools.islice(ahead, workers - len(reads)))
+                # up to ``workers`` files read ahead, in path order, each into its
+                # room: their headers walked here before any of them is handed out,
+                # since the walks slow down many times over under the reads, and
+                # on other threads too (PERF.md)
+                held = len(reads)
+                reads.extend(_FileRead(p, device, size)
+                             for p, size in itertools.islice(ahead, workers - held))
+                fresh = list(itertools.islice(reads, held, None))
+                opened += fresh
+                for read in fresh:
+                    read.hand_out(pool)
                 if not reads:
                     break
                 read = reads.popleft()
@@ -597,6 +740,7 @@ def scan_corpus_files(
         finally:  # no read outlives the scan: a later scan reuses the rooms
             for read in reads:
                 read.abandon()
+            _record_reads(opened)
         if not streams:
             return
         lane_cfgs = [cfgs[c % len(cfgs)] for _, c in lanes] if len(cfgs) > 1 else None

@@ -6,8 +6,7 @@ per-name stat arrays, used by the simulator to log per-hop ingest/process/skip
 latencies (ViewControllerSimulator.swift:291-318). Here every timing is a span
 in one bounded ring: its name, its start and end on ``perf_counter_ns`` (the
 clock ``time.perf_counter`` reads, onto which a device trace's events can be
-mapped), the span it was opened inside (a per-thread stack; :func:`within`
-carries it to another thread that does part of the work), its thread and
+mapped), the span it was opened inside (a per-thread stack), its thread and
 optional integer counts. The ring keeps the newest :data:`CAPACITY` spans and
 counts the ones it drops, so a loop that records every round holds bounded
 memory. :class:`Time` keeps the reference's registry on the same ring and adds
@@ -20,7 +19,6 @@ Recording is on from import; :func:`set_recording` turns it off and on.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import threading
 from time import perf_counter_ns
@@ -28,8 +26,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["CAPACITY", "SpanRecord", "Time", "current", "drops", "record", "set_recording",
-           "span", "spans", "within"]
+__all__ = ["CAPACITY", "SpanRecord", "Time", "drops", "record", "set_recording", "span",
+           "spans"]
 
 # spans the ring holds: a 30 s window of the live path's rounds (about 340 a
 # second, at most 6 spans each) is 61,200
@@ -117,25 +115,6 @@ def _stack() -> list:
 def _top() -> int:
     stack = _stack()
     return stack[-1] if stack else -1
-
-
-def current() -> int:
-    """The id of the span this thread has open innermost (-1: none), for
-    :func:`within` on another thread."""
-    return _top()
-
-
-@contextlib.contextmanager
-def within(parent: int):
-    """Spans this thread opens or records in the block are ``parent``'s
-    children, as if it were open here: work handed to another thread stays
-    in the tree of the span that handed it over (:func:`current` there)."""
-    stack = _stack()
-    stack.append(parent)
-    try:
-        yield
-    finally:
-        stack.pop()
 
 
 def set_recording(on: bool) -> bool:

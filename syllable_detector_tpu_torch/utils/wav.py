@@ -8,9 +8,12 @@ WAVE_FORMAT_EXTENSIBLE) and AIFF/AIFC and Sun AU ride the stdlib decoders.
 Integers normalize to [-1, 1) with the CoreAudio convention (int16 / 32768
 etc.). No external dependencies.
 
-:func:`_read_pcm16_into` reads a 16-bit PCM WAV's codes as they are into a
-buffer the caller gives, for a caller that scales them elsewhere (the corpus
-scan, on the device).
+:func:`_pcm16_layout` finds where a 16-bit PCM WAV keeps its codes, for a
+caller that reads them as they are and scales them elsewhere (the corpus
+scan, on the device: its native piece reader reads them, or, where that
+cannot be built, :func:`_read_range_into` in one range);
+:func:`_read_pcm16_into` reads the whole chunk into a buffer the caller
+gives.
 """
 
 from __future__ import annotations
@@ -123,38 +126,59 @@ def read_wav(path: Union[str, "os.PathLike"]) -> tuple[np.ndarray, int]:
     return x.reshape(n_frames, channels), rate
 
 
+def _pcm16_layout(fh, path, capacity: int) -> Optional[tuple[int, int, int, int]]:
+    """Where a 16-bit PCM WAV open unbuffered in ``fh`` keeps its codes:
+    (the data chunk's offset in the file, the bytes of it the file holds,
+    channels, rate), walked as :func:`read_wav` walks it
+    (:func:`_wav_layout`, :func:`_wav_format`), so the codes are those that
+    :func:`read_wav` divides by 32768, frame for frame. None for every file
+    :func:`read_wav` would not decode as 16-bit PCM (WAVE_FORMAT_EXTENSIBLE
+    with a PCM subformat included) or would refuse, whose data chunk is
+    longer than ``capacity`` bytes, that is not a regular file, on a
+    big-endian host, and where positional reads (``os.preadv``) are
+    missing. Raises OSError where the file cannot be read."""
+    if sys.byteorder != "little" or not hasattr(os, "preadv"):
+        return None
+    if not stat.S_ISREG(os.fstat(fh.fileno()).st_mode):
+        return None
+    try:
+        fmt, offset, length = _wav_layout(fh, path)
+        audio_format, channels, rate, block_align, bits = _wav_format(fmt, path)
+    except ValueError:
+        return None
+    if audio_format != _PCM or bits != 16 or block_align != 2 * channels or length > capacity:
+        return None
+    return offset, length, channels, rate
+
+
+def _read_range_into(fd: int, view: memoryview, offset: int) -> int:
+    """Fill the writable byte ``view`` from the file ``fd`` at ``offset``
+    by positional reads, which move no file position and release the
+    interpreter lock: the bytes read, fewer only where the file ends
+    first."""
+    got = 0
+    while got < len(view) and (n := os.preadv(fd, [view[got:]], offset + got)):
+        got += n
+    return got
+
+
 def _read_pcm16_into(path, buffer) -> Optional[tuple[int, int, int]]:
     """Read a 16-bit PCM WAV's data chunk as it is, little-endian int16
-    codes frame after frame, into the writable ``buffer`` with one
-    ``readinto``: (the bytes of the whole frames read, channels, rate).
-
-    The file is opened unbuffered and walked as :func:`read_wav` walks it
-    (:func:`_wav_layout`, :func:`_wav_format`), so the codes are those that
-    :func:`read_wav` divides by 32768, frame for frame. Returns None, with
-    no sample read, for every file :func:`read_wav` would not decode as
-    16-bit PCM (WAVE_FORMAT_EXTENSIBLE with a PCM subformat included) or
-    would refuse, whose data chunk does not fit ``buffer``, that is not a
-    regular file, and on a big-endian host. Raises OSError where the file
-    cannot be opened.
+    codes frame after frame, into the writable ``buffer`` in one range
+    (:func:`_pcm16_layout`, :func:`_read_range_into`): (the bytes of the
+    whole frames read, channels, rate). Returns None, with no sample read,
+    for every file :func:`_pcm16_layout` refuses, among them one whose data
+    chunk does not fit ``buffer``. Raises OSError where the file cannot be
+    opened.
     """
-    if sys.byteorder != "little":
-        return None
+    view = memoryview(buffer).cast("B")
     with open(path, "rb", buffering=0) as fh:
-        if not stat.S_ISREG(os.fstat(fh.fileno()).st_mode):
+        layout = _pcm16_layout(fh, path, len(view))
+        if layout is None:
             return None
-        try:
-            fmt, offset, length = _wav_layout(fh, path)
-            audio_format, channels, rate, block_align, bits = _wav_format(fmt, path)
-        except ValueError:
-            return None
-        view = memoryview(buffer).cast("B")
-        if audio_format != _PCM or bits != 16 or block_align != 2 * channels or length > len(view):
-            return None
-        fh.seek(offset)
-        got = 0
-        while got < length and (n := fh.readinto(view[got:length])):
-            got += n
-    return got - got % block_align, channels, rate
+        offset, length, channels, rate = layout
+        got = _read_range_into(fh.fileno(), view[:length], offset)
+    return got - got % (2 * channels), channels, rate
 
 
 def _pcm_bytes_to_float(data: bytes, sampwidth: int, big_endian: bool) -> np.ndarray:

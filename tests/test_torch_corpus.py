@@ -14,14 +14,17 @@ Pallas interpret mode here.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
+import os
 import pathlib
 import struct
 import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -369,9 +372,9 @@ def test_file_to_device_reads_16_bit_pcm_straight_in_as_read_audio_decodes_it(ki
         assert isinstance(want, (OSError, ValueError)) and type(got) is type(want)
         assert str(got) == str(want) == str(port[0]) and type(port[0]) is type(want)
         assert errors == [f"Unable to read {path}: {want}"]
-        assert read.counts == {"direct": 0, "inflight": 1}
+        assert read.counts == {"direct": 0, "inflight": 1, "pieces": 1}
         return
-    assert read.counts == {"direct": int(direct), "inflight": 1}
+    assert read.counts == {"direct": int(direct), "inflight": 1, "pieces": 1}
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     assert rate == want_rate and tuple(got.shape) == want.shape and len(want) > 0
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
@@ -404,14 +407,15 @@ def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lin
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(54),
                                    np.concatenate([two.reshape(-1), heard, wide.reshape(-1)]))
 
-    read, direct = tcorpus._read, {}
+    finish, direct = tcorpus._FileRead._finish, {}
 
-    def noted(path, *rest):  # which files went straight in, whatever order reads end in
-        got = read(path, *rest)
-        direct[path] = int(not isinstance(got[0], np.ndarray))
-        return got
+    def noted(read):  # which files went straight in, whatever order reads end in
+        try:
+            return finish(read)
+        finally:
+            direct[read.path] = read.direct
 
-    monkeypatch.setattr(tcorpus, "_read", noted)
+    monkeypatch.setattr(tcorpus._FileRead, "_finish", noted)
 
     def scan():
         lines, lo = [], time.perf_counter_ns()
@@ -430,7 +434,7 @@ def test_scan_corpus_files_reads_pcm16_straight_in_and_writes_the_fallback_s_lin
     sizes = [pathlib.Path(p).stat().st_size for p in paths]
     assert buffer.numel() == tcorpus._ring_bytes(sizes, tcorpus._read_workers(3))
     assert reads == again == [1, 1, 0]
-    monkeypatch.setattr(tcorpus, "_read_pcm16_into", lambda path, buffer: None)
+    monkeypatch.setattr(tcorpus, "_pcm16_layout", lambda fh, path, capacity: None)
     fallback, none = scan()
     assert none == [0, 0, 0]
     assert first == second == fallback
@@ -464,9 +468,11 @@ def mixed_group(tmp_path_factory):
 
 @pytest.mark.parametrize("method", ["matmul", "fused"])
 def test_scan_reads_on_threads_as_it_reads_inline(mixed_group, method, monkeypatch):
-    """A scan whose reads run on the pool, and one whose reads finish in
-    reverse path order, emit the lines, report the errors and build the
-    lanes of a scan that reads every file inline, one after another."""
+    """A scan whose reads run on the pools (a 16-bit file's pieces on the
+    piece reader, a decode on the Python pool), and one whose decodes
+    finish in reverse path order, emit the lines, report the errors and
+    build the lanes of a scan that reads every file inline, one after
+    another."""
     cfg, paths = mixed_group
     plain = tcorpus.batch_offline_outputs_shared
 
@@ -482,21 +488,22 @@ def test_scan_reads_on_threads_as_it_reads_inline(mixed_group, method, monkeypat
 
     inline = scan(1)
     pooled = scan(3)
-    read, finished = tcorpus._read, []
-    done = {p: threading.Event() for p in paths}
+    timed, finished = tcorpus._FileRead._timed, []
+    decoded = [p for p in paths if "int16" not in p]  # the missing path's decode raises
+    done = {p: threading.Event() for p in decoded}
 
-    def reverse(path, *rest):  # each read finishes after the next path's
-        later = paths[paths.index(path) + 1:]
+    def reverse(read, *rest):  # each decode finishes after the next decoded path's
+        later = decoded[decoded.index(read.path) + 1:]
         assert not later or done[later[0]].wait(60)
         try:
-            return read(path, *rest)
+            return timed(read, *rest)
         finally:
-            finished.append(path)
-            done[path].set()
+            finished.append(read.path)
+            done[read.path].set()
 
-    monkeypatch.setattr(tcorpus, "_read", reverse)
+    monkeypatch.setattr(tcorpus._FileRead, "_timed", reverse)
     backwards = scan(len(paths))
-    assert finished == paths[::-1]
+    assert finished == decoded[::-1] and len(decoded) == 4
     lines, errors, batch = inline
     assert sum(line not in paths for line in lines) > 0 and batch.shape[0] == 10
     assert errors[1] == f"Unable to read {paths[3]}: " + str(
@@ -508,10 +515,11 @@ def test_scan_reads_on_threads_as_it_reads_inline(mixed_group, method, monkeypat
 
 
 def test_many_small_reads_on_more_threads_than_cores(tmp_path, monkeypatch):
-    """Forty small 16-bit files read on 48 threads, the interpreter
-    switching threads every microsecond: the lines and errors of the inline
-    scan, every read's ``inflight`` between 1 and the thread count, and no
-    room left taken."""
+    """Forty small 16-bit files, up to 48 read ahead (their pieces on the
+    piece reader's threads), the interpreter switching threads every
+    microsecond: the lines and errors of the inline scan, every read's
+    ``inflight`` between 1 and the files read ahead, and no room left
+    taken."""
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(59),
                                    fixtures.chirp_audio(1.0, 60))
     paths = [str(tmp_path / f"s{i}.wav") for i in range(40)]
@@ -542,30 +550,271 @@ def test_many_small_reads_on_more_threads_than_cores(tmp_path, monkeypatch):
 
 def test_a_scan_that_raises_waits_for_its_reads_and_hands_back_their_rooms(mixed_group,
                                                                            monkeypatch):
-    """A scan that raises at its first resampled file, with the later reads
-    still running, returns only after every read it handed out has ended,
-    and leaves no room taken."""
+    """A scan that raises at its first resampled file, with the later
+    decodes on the Python pool still running, returns only after every
+    read it handed out has ended, and leaves no room taken."""
     cfg, paths = mixed_group
-    read, started, ended = tcorpus._read, [], []
+    timed, started, ended = tcorpus._FileRead._timed, [], []
 
-    def slow(path, *rest):
-        started.append(path)
-        time.sleep({paths[0]: 0, paths[1]: 0.05}.get(path, 0.5))
+    def slow(read, *rest):
+        started.append(read.path)
+        time.sleep({paths[0]: 0, paths[1]: 0.05}.get(read.path, 0.5))
         try:
-            return read(path, *rest)
+            return timed(read, *rest)
         finally:
-            ended.append(path)
+            ended.append(read.path)
 
     def fails(*a):
         raise RuntimeError("resampler down")
 
     monkeypatch.setattr(tcorpus, "_read_workers", lambda files: files)
-    monkeypatch.setattr(tcorpus, "_read", slow)
+    monkeypatch.setattr(tcorpus._FileRead, "_timed", slow)
     monkeypatch.setattr(tcorpus, "resample_channels", fails)
     with pytest.raises(RuntimeError, match="resampler down"):
         tcorpus.scan_corpus_files(cfg, paths, emit=lambda s: None, err=lambda s: None,
                                   device="cpu")
-    assert sorted(ended) == sorted(started) == sorted(paths)
+    assert sorted(ended) == sorted(started) == sorted(p for p in paths if "int16" not in p)
+    assert tcorpus._host_buffers["cpu"].taken == []
+
+
+PIECE = 64  # bytes: the piece the piece tests cut data chunks into
+PIECE_CASES = {  # a data chunk's payload, and what goes around it
+    "empty": lambda: _riff((b"fmt ", _fmt(2, 16)), (b"data", b"")),
+    "one_frame": lambda: _riff((b"fmt ", _fmt(2, 16)), (b"data", _codes(1, 2).tobytes())),
+    "one_piece": lambda: _riff((b"fmt ", _fmt(2, 16)), (b"data", _codes(16, 2).tobytes())),
+    "piece_and_a_byte": lambda: _riff((b"fmt ", _fmt(1, 16)),
+                                      (b"data", _codes(32, 1).tobytes() + b"\x09")),
+    "two_pieces": lambda: _riff((b"fmt ", _fmt(2, 16)), (b"data", _codes(32, 2).tobytes())),
+    "two_pieces_and_a_byte": lambda: _riff((b"fmt ", _fmt(1, 16)),
+                                           (b"data", _codes(64, 1).tobytes() + b"\x0b")),
+    "many": lambda: _riff((b"fmt ", _fmt(2, 16)), (b"data", _codes(1000, 2).tobytes())),
+    "odd_trailing_byte": lambda: _riff((b"fmt ", _fmt(3, 16)),
+                                       (b"data", _codes(333, 3).tobytes() + b"\x07")),
+    "extensible": lambda: _riff((b"fmt ", _fmt(2, 16, extensible=True)),
+                                (b"data", _codes(777, 2).tobytes())),
+    "odd_chunk_before_list_after": lambda: _riff(
+        (b"fmt ", _fmt(2, 16)), (b"junk", b"\x07" * 5), (b"data", _codes(500, 2).tobytes()),
+        (b"LIST", b"INFOICMT\x02\x00\x00\x00x\x00")),
+}
+
+
+@pytest.mark.parametrize("case", list(PIECE_CASES))
+def test_a_data_chunk_read_in_pieces_fills_the_room_as_one_read_does(case, tmp_path,
+                                                                     monkeypatch):
+    """A 16-bit file's data chunk read in pieces of 64 bytes by the piece
+    reader leaves in its room the bytes that ``_read_pcm16_into`` reads in
+    one range, and gives the JAX package's ``read_audio`` samples, bit for
+    bit, with its rate; its ``corpus.read`` span counts the pieces, one
+    where the chunk is shorter than two pieces."""
+    monkeypatch.setattr(tcorpus, "_PIECE", PIECE)
+    assert tcorpus._piece_reader() is not None  # the native reader builds here
+    path = tmp_path / f"{case}.wav"
+    path.write_bytes(PIECE_CASES[case]())
+    size = tcorpus._file_size(path)
+    want = bytearray(size)
+    nbytes, channels, rate = twav._read_pcm16_into(path, want)
+    with open(path, "rb", buffering=0) as fh:
+        length = twav._pcm16_layout(fh, path, size)[1]
+    lo = time.perf_counter_ns()
+    read = tcorpus._FileRead(str(path), torch.device("cpu"), size)
+    read.hand_out(tcorpus._read_pool(4))
+    samples, got_rate = read.to_device()
+    tcorpus._record_reads([read])
+    span, = [s for s in timing.spans(lo) if s.name == "corpus.read"]
+    pieces = 1 if length < 2 * PIECE else -(-length // PIECE)
+    assert span.counts == {"direct": 1, "inflight": 1, "pieces": pieces}
+    assert bytes(read.room.numpy()[:length]) == bytes(want[:length])
+    assert got_rate == rate and tuple(samples.shape) == (nbytes // (2 * channels), channels)
+    codes = np.frombuffer(bytes(want[:nbytes]), "<i2").reshape(-1, channels)
+    np.testing.assert_array_equal(samples.numpy(), codes / np.float32(32768))
+    jax_samples, jax_rate = read_audio(str(path))  # the JAX package's reader
+    assert got_rate == jax_rate and samples.shape == jax_samples.shape
+    np.testing.assert_array_equal(samples.numpy().view(np.int32), jax_samples.view(np.int32))
+    assert read.fh.closed and read.job is None and tcorpus._host_buffers["cpu"].taken == []
+    if case in ("many", "odd_trailing_byte", "extensible", "odd_chunk_before_list_after"):
+        assert pieces > 2
+
+
+def test_a_scan_s_reads_record_the_reads_in_flight_as_each_started():
+    """``_record_reads``: a span for each read that ran, in the scan's
+    order, with its counts, and ``inflight`` the reads whose interval holds
+    its start, itself included, whatever the order they started in; a read
+    that never ran records nothing."""
+    read = lambda start, end, direct=1, pieces=3: types.SimpleNamespace(  # noqa: E731
+        times=None if start is None else (start, end), direct=direct, pieces=pieces)
+    reads = [read(20, 50), read(10, 30, 0, 1), read(30, 60), read(None, None), read(60, 70)]
+    tcorpus._record_reads(reads)
+    got = [s for s in timing.spans() if s.name == "corpus.read"][-4:]
+    assert [(s.start_ns, s.end_ns) for s in got] == [(20, 50), (10, 30), (30, 60), (60, 70)]
+    assert [s.counts for s in got] == [
+        {"direct": 1, "inflight": 2, "pieces": 3}, {"direct": 0, "inflight": 1, "pieces": 1},
+        {"direct": 1, "inflight": 2, "pieces": 3}, {"direct": 1, "inflight": 1, "pieces": 3}]
+    assert all(s.parent == -1 for s in got)
+
+
+def test_a_piece_that_fails_raises_its_error_as_the_read_of_a_file():
+    """A piece whose ``pread`` fails (here on a directory) makes the file's
+    read raise the ``OSError`` of that errno, as ``os.preadv`` would."""
+    lib, pool = tcorpus._piece_reader()
+    room = bytearray(64)
+    fd = os.open(os.path.dirname(__file__), os.O_RDONLY)
+    try:
+        buf = (ctypes.c_char * 64).from_buffer(room)
+        job = lib.sdpieces_read(pool, fd, ctypes.addressof(buf), 0,
+                                (ctypes.c_int64 * 3)(0, 32, 64), 2)
+        times = (ctypes.c_int64 * 2)()
+        got = lib.sdpieces_wait(pool, job, times)
+        with pytest.raises(OSError) as want:
+            os.preadv(fd, [memoryview(room)], 0)
+    finally:
+        os.close(fd)
+    assert got == -want.value.errno
+    assert str(OSError(-got, os.strerror(-got))) == str(want.value)
+    assert 0 < times[0] <= times[1]
+    del buf
+
+
+def _malformed_group(mixed_group, folder):
+    """``mixed_group``'s paths with a malformed 16-bit WAV (its block align
+    wrong) in the middle, beside the missing path."""
+    cfg, paths = mixed_group
+    bad = folder / "malformed.wav"
+    bad.write_bytes(_riff((b"fmt ", _fmt(2, 16, align=6)), (b"data", _codes(100, 2).tobytes())))
+    return cfg, paths[:3] + [str(bad)] + paths[3:]
+
+
+@pytest.mark.parametrize("method", ["matmul", "fused"])
+def test_a_scan_read_in_pieces_writes_the_lines_and_errors_of_whole_reads(
+        mixed_group, method, tmp_path, monkeypatch):
+    """16-bit files read in pieces of 64 bytes, beside a float32 file, a
+    24-bit file, a malformed file and a missing one in the middle, give the
+    lines, the errors (their text and order) and the batch of whole-file
+    reads by the piece reader, of 16-bit files read inline (where the piece
+    reader cannot be built) and of a scan that decodes every file inline;
+    and the JAX package's scan gives those errors and those lines (columns
+    1-3 exactly, outputs within tolerance)."""
+    cfg, paths = _malformed_group(mixed_group, tmp_path)
+    plain = tcorpus.batch_offline_outputs_shared
+
+    def scan(piece, workers=len(paths)):
+        monkeypatch.setattr(tcorpus, "_PIECE", piece)
+        monkeypatch.setattr(tcorpus, "_read_workers", lambda files: min(files, workers))
+        lines, errors, batches, lo = [], [], [], time.perf_counter_ns()
+        monkeypatch.setattr(tcorpus, "batch_offline_outputs_shared",
+                            lambda *a: batches.append(a[2].clone()) or plain(*a))
+        tcorpus.scan_corpus_files(cfg, paths, emit=lines.append, err=errors.append,
+                                  method=method, device="cpu")
+        reads = [s.counts for s in timing.spans(lo) if s.name == "corpus.read"]
+        assert tcorpus._host_buffers["cpu"].taken == []
+        return lines, errors, batches[0].numpy(), reads
+
+    pieces = scan(PIECE)
+    whole = scan(1 << 40)
+    monkeypatch.setattr(tcorpus, "_piece_reader", lambda: None)
+    inline = scan(PIECE)
+    monkeypatch.setattr(tcorpus, "_pcm16_layout", lambda fh, path, capacity: None)
+    decoded = scan(1 << 40, workers=1)
+    lines, errors, batch, reads = pieces
+    assert len(reads) == len(paths) and sum(r["direct"] for r in reads) == 3
+    assert sorted(r["pieces"] for r in reads if r["direct"]) == sorted(
+        -(-(pathlib.Path(p).stat().st_size - 44) // PIECE) for p in paths if "int16" in p)
+    assert all(r["pieces"] == 1 for r in whole[3] + inline[3] + decoded[3])
+    assert sum(r["direct"] for r in inline[3]) == 3
+    assert errors[1].startswith(f"Unable to read {paths[3]}: ") and errors[2] == (
+        f"Unable to read {paths[4]}: " + str(
+            FileNotFoundError(2, "No such file or directory", paths[4])))
+    assert len(errors) == 6 and sum(line not in paths for line in lines) > 0
+    for got in (whole, inline, decoded):
+        assert got[0] == lines and got[1] == errors
+        np.testing.assert_array_equal(got[2], batch)
+    jlines, jerrors = [], []
+    jcorpus.scan_corpus_files(cfg, paths, emit=jlines.append, err=jerrors.append)  # unfused
+    assert jerrors == errors
+    got_f, want_f = split_files(lines, paths), split_files(jlines, paths)
+    assert list(got_f) == list(want_f) and len(want_f) == 6
+    for p in want_f:
+        assert_csv_close(got_f[p], want_f[p], *((1e-3, 2e-4) if method == "fused" else ()))
+
+
+def test_pieces_start_in_file_order(mixed_group, tmp_path, monkeypatch):
+    """The piece reader takes pieces first in, first out: of five reads
+    handed in at once, each cut into thousands of one-byte pieces, each
+    ends before the next starts on a pool of one thread, and on the
+    process's pool each starts no earlier than the one handed in before it
+    (three rounds each); and the reads of a scan's 16-bit files, cut small,
+    on a pool of one thread, run one after another in file order."""
+    lib, pool = tcorpus._piece_reader()
+    one = lib.sdpieces_pool(1)
+    path = tmp_path / "bytes.bin"
+    path.write_bytes(bytes(range(256)) * 40)
+    n = 256 * 40
+    bounds = (ctypes.c_int64 * (n + 1))(*range(n + 1))
+    for native in (one, pool) * 3:
+        rooms = [bytearray(n) for _ in range(5)]
+        bufs = [(ctypes.c_char * n).from_buffer(r) for r in rooms]
+        spans = []
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            jobs = [lib.sdpieces_read(native, fd, ctypes.addressof(b), 0, bounds, n)
+                    for b in bufs]
+            for job in jobs:
+                times = (ctypes.c_int64 * 2)()
+                assert lib.sdpieces_wait(native, job, times) == n
+                spans.append(tuple(times))
+        finally:
+            os.close(fd)
+        del bufs
+        assert all(bytes(r) == path.read_bytes() for r in rooms)
+        assert all(a[0] <= b[0] for a, b in zip(spans, spans[1:]))
+        if native == one:
+            assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+    cfg, paths = mixed_group
+    finish, spans = tcorpus._FileRead._finish, {}
+
+    def noted(read):
+        try:
+            return finish(read)
+        finally:
+            if read.pieces > 1:
+                spans[read.path] = read.times
+
+    monkeypatch.setattr(tcorpus, "_PIECE", 256)
+    monkeypatch.setattr(tcorpus, "_piece_reader", lambda: (lib, one))
+    monkeypatch.setattr(tcorpus._FileRead, "_finish", noted)
+    tcorpus.scan_corpus_files(cfg, paths, emit=lambda s: None, err=lambda s: None,
+                              device="cpu")
+    order = [spans[p] for p in paths if "int16" in p]
+    assert len(order) == 3 and all(a[1] <= b[0] for a, b in zip(order, order[1:]))
+
+
+def test_a_scan_that_raises_leaves_no_piece_running(mixed_group, monkeypatch):
+    """A scan that raises at its first resampled file, with the pieces of
+    the files after it handed to the piece reader, returns only after
+    every piece it handed out has ended (every read waited for), with the
+    files closed and no room left taken."""
+    cfg, paths = mixed_group
+    opened, cls = [], tcorpus._FileRead
+    init = cls.__init__
+
+    def noted(self, *a, **k):
+        init(self, *a, **k)
+        opened.append(self)
+
+    def fails(*a):
+        raise RuntimeError("resampler down")
+
+    monkeypatch.setattr(tcorpus, "_PIECE", 256)
+    monkeypatch.setattr(tcorpus, "_read_workers", lambda files: files)
+    monkeypatch.setattr(tcorpus, "resample_channels", fails)
+    monkeypatch.setattr(cls, "__init__", noted)
+    with pytest.raises(RuntimeError, match="resampler down"):
+        tcorpus.scan_corpus_files(cfg, paths, emit=lambda s: None, err=lambda s: None,
+                                  device="cpu")
+    handed = sum(r.pieces for r in opened if r.layout is not None)
+    assert len(opened) == len(paths) and handed > 3 * 20
+    assert all(r.job is None for r in opened)
+    assert all(r.fh is None or r.fh.closed for r in opened)
     assert tcorpus._host_buffers["cpu"].taken == []
 
 
@@ -721,16 +970,27 @@ BATCHED = {
     "nets": ["--method", "fused", "-n", "{net1}"],
     "groups": ["--method", "fused", "--batch-files", "1"],
     "int16": ["--method", "fused"],
+    "int16_pieces": ["--method", "fused"],
 }
 
 
 @pytest.mark.parametrize("variant", list(BATCHED))
 def test_batched_cli_matches_jax(corpus, variant, monkeypatch):
     _, _, p = corpus
-    files = [p[name + ("16" if variant == "int16" else "")] for name in ("two", "fast", "one")]
+    int16 = variant.startswith("int16")
+    files = [p[name + ("16" if int16 else "")] for name in ("two", "fast", "one")]
     argv = ["-n", p["net0"], "-d", "0.02", "--batched"] + [a for f in files for a in ("-a", f)]
     extra = [a.format(**p) for a in BATCHED[variant]]
+    if variant == "int16_pieces":  # each file's data chunk read in many pieces
+        monkeypatch.setattr(tcorpus, "_PIECE", 1024)
+    lo = time.perf_counter_ns()
     rc, got, err = run(port_main, argv + extra + ["--device", "cpu"])
+    reads = [s.counts for s in timing.spans(lo) if s.name == "corpus.read"]
+    assert [r["direct"] for r in reads] == [int(int16)] * 3
+    if variant == "int16_pieces":
+        assert sorted(r["pieces"] for r in reads) == sorted(
+            -(-(pathlib.Path(f).stat().st_size - 44) // 1024) for f in files)
+        assert min(r["pieces"] for r in reads) > 20
     jrc, want, jerr = run_jax(argv + extra[2:], monkeypatch)  # unfused, as said above
     assert rc == jrc == 0 and err == jerr and "Resampling" in err
     got_f, want_f = split_files(got, files), split_files(want, files)

@@ -3,19 +3,23 @@ corpus scan, the train CLI with its trainer, and the live round record at
 their call boundaries, on the CPU.
 
 Spans are read back from the ring between two ``perf_counter_ns`` readings
-around the call. A corpus scan records at most 40 spans and a quiet
-``train.main`` run at most 30, whatever its epoch count; the live round's
-spans times the live cell's rounds over a 30 s window fit the ring.
+around the call. A corpus scan records one ``corpus.read`` a file, however
+many pieces its read was cut into: at most 40 spans for three files, 49 for
+the corpus cell's eight. A quiet ``train.main`` run records at most 30,
+whatever its epoch count; the live round's spans times the live cell's
+rounds over a 30 s window fit the ring.
 ``trainer.capture`` and ``trainer.replays`` exist only on a card.
 """
 
 import contextlib
+import ctypes
 import io
 import itertools
 import json
 import os
 import threading
 import time
+from concurrent import futures
 
 import numpy as np
 import pytest
@@ -26,7 +30,12 @@ from syllable_detector_tpu_torch import train as ptrain
 from syllable_detector_tpu_torch.ops.stft import num_frames
 from syllable_detector_tpu_torch.runtime import audio_io, processor
 from syllable_detector_tpu_torch.utils import make_labeled_audio, timing
-from syllable_detector_tpu_torch.utils.wav import _read_pcm16_into, read_audio, write_wav
+from syllable_detector_tpu_torch.utils.wav import (
+    _read_pcm16_into,
+    _read_range_into,
+    read_audio,
+    write_wav,
+)
 
 torch.set_num_threads(1)
 
@@ -123,30 +132,6 @@ def test_each_thread_has_its_own_stack():
     assert s["worker"].thread == s["worker.child"].thread != s["main"].thread
 
 
-def test_work_handed_to_another_thread_stays_in_the_span_that_handed_it():
-    """``within(current())`` on another thread: its spans and records are
-    children of the span open where the work was handed over, and the
-    thread's own stack is as it was after the block."""
-
-    def worker(parent):
-        with timing.within(parent):
-            with timing.span("handed") as h:
-                timing.record("handed.record", 1, 2)
-            assert h.parent == parent
-        with timing.span("after"):
-            pass
-
-    with timing.span("main") as main:
-        assert timing.current() == main.id
-        t = threading.Thread(target=worker, args=(timing.current(),))
-        t.start()
-        t.join(5)
-    assert not t.is_alive() and timing.current() == -1
-    s = {x.name: x for x in timing.spans()}
-    assert s["handed"].parent == s["main"].id and s["handed.record"].parent == s["handed"].id
-    assert s["after"].parent == -1 and s["handed"].thread != s["main"].thread
-
-
 def test_the_ring_keeps_the_newest_and_counts_drops(monkeypatch):
     monkeypatch.setattr(timing, "_RING", timing._Ring(4))
     for i in range(6):
@@ -229,7 +214,7 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     reads = named(got, "corpus.read")
     direct = int(read_straight_in(paths[0]))
     assert [s.counts["direct"] for s in reads] == [direct] * 3
-    assert all(set(s.counts) == {"direct", "inflight"} and s.counts["inflight"] >= 1
+    assert all(set(s.counts) == {"direct", "inflight", "pieces"} and s.counts["inflight"] >= 1
                for s in reads)
     assert [s.counts for s in named(got, "corpus.resample")] == [{"channels": 2}]
     # each file staged whole in the host buffer and uploaded once: a file
@@ -263,23 +248,79 @@ def test_corpus_scan_spans_count_what_the_scan_staged_walked_and_emitted(corpus_
     assert scan(cfg, paths) == lines
 
 
+def test_an_eight_file_scan_read_in_pieces_records_49_spans_in_one_ring(tmp_path, monkeypatch):
+    """The corpus cell's scan in small: eight two-channel 16-bit files at
+    44.1, 48 and 96 kHz in turn, each cut into several pieces, record 49
+    spans a scan (one ``corpus.read`` a file, however many pieces), and the
+    scans fill one pinned ring of ``_ring_bytes`` of the files' sizes,
+    never regrown; at the cell's 60 s files that ring is 135,432,576
+    bytes."""
+    cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
+                                   fixtures.chirp_audio(1.0, 5))
+    rates = [(44100, 48000, 96000)[i % 3] for i in range(8)]
+    paths = [str(tmp_path / f"c{i}.wav") for i in range(8)]
+    for i, (p, rate) in enumerate(zip(paths, rates)):
+        x = np.stack([fixtures.chirp_audio(0.2, 60 + 2 * i + c, rate) for c in range(2)], 1)
+        write_wav(p, x, rate, dtype="int16")
+    monkeypatch.setattr(corpus, "_PIECE", 4096)
+    corpus._host_buffers.clear()
+    buffers = []
+    for _ in range(2):
+        _, got = recorded(lambda: scan(cfg, paths))
+        buffers.append(corpus._host_buffers["cpu"].buf)
+        assert len(got) == 49 and len(named(got, "corpus.read")) == 8
+        assert all(s.counts["pieces"] > 1 and s.counts["direct"] == 1
+                   for s in named(got, "corpus.read"))
+    sizes = [os.path.getsize(p) for p in paths]
+    assert buffers[0] is buffers[1]
+    assert buffers[0].numel() == corpus._ring_bytes(sizes, corpus._read_workers(8))
+    cell = [44 + 60 * rate * 4 for rate in rates]  # the cell's files: 60 s, 2 channels, S16
+    assert corpus._ring_bytes(cell, 8) == 135_432_576
+
+
+class HeldPieceReader:
+    """The piece reader's interface (``sdpieces_read``, ``sdpieces_wait``)
+    on Python threads, each read held at ``barrier`` once started and then
+    read in one range."""
+
+    def __init__(self, barrier):
+        self.barrier, self.pool = barrier, futures.ThreadPoolExecutor(3)
+
+    def sdpieces_read(self, native, fd, dst, offset, bounds, pieces):
+        def read():
+            start = time.perf_counter_ns()
+            self.barrier.wait()
+            room = (ctypes.c_char * bounds[pieces]).from_address(dst)
+            got = _read_range_into(fd, memoryview(room).cast("B"), offset)
+            return got, start, time.perf_counter_ns()
+        return self.pool.submit(read)
+
+    def sdpieces_wait(self, native, job, times):
+        got, times[0], times[1] = job.result()
+        return got
+
+
 @pytest.mark.parametrize("overlap", [False, True], ids=["as_they_come", "barrier"])
 def test_corpus_reads_count_the_files_read_straight_in(tmp_path, overlap, monkeypatch):
     """Σ``direct`` over the ``corpus.read`` spans: every file of a 16-bit
     scan, two of three where the third is float32; the files' stages count
     their samples, nothing padded, and each file's stage comes before its
-    read. With the three reads held at a barrier until all have started,
-    they overlap, and their ``inflight`` counts are 1, 2 and 3."""
+    read. With the three reads held at a barrier until all have started
+    (a 16-bit file's on a stand-in for the piece reader's threads, a
+    decode on the Python pool), they overlap, and their ``inflight`` counts
+    are 1, 2 and 3."""
     cfg = fixtures.pick_thresholds(fixtures.sample_geometry_config(3),
                                    fixtures.chirp_audio(1.0, 5))
     paths = [str(tmp_path / f"m{i}.wav") for i in range(3)]
     for i, p in enumerate(paths):
         write_wav(p, fixtures.chirp_audio(0.3, 40 + i), 44100, dtype="int16")
     if overlap:
-        barrier, read = threading.Barrier(3, timeout=60), corpus._read_pcm16_into
+        barrier = threading.Barrier(3, timeout=60)
+        held = HeldPieceReader(barrier)
         monkeypatch.setattr(corpus, "_read_workers", lambda files: min(files, 3))
-        monkeypatch.setattr(corpus, "_read_pcm16_into",
-                            lambda *a: barrier.wait() >= 0 and read(*a))
+        monkeypatch.setattr(corpus, "_piece_reader", lambda: (held, None))
+        monkeypatch.setattr(corpus, "read_audio", lambda *a, read=corpus.read_audio:
+                            barrier.wait() >= 0 and read(*a))
     shares = []
     for read_at in ([1, 1, 1], [1, 1, 0]):  # a decoded file is staged after its read
         _, got = recorded(lambda: scan(cfg, paths))
